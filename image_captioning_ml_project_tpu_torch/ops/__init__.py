@@ -1,0 +1,2 @@
+"""Hand-written GPU kernels of the port, each beside its plain PyTorch
+version, and the plain torch ops around them."""
