@@ -1,0 +1,149 @@
+// Whole-stack GPT-2 decode step: all L decoder layers of one beam-decode
+// step over Bk = B * K rows, for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel `fused_beam_decode_stack`
+// (image_captioning_ml_project_tpu/ops/pallas_decode.py; body
+// `_stack_kernel`, launch `_stack_exec`). For each layer l, on the
+// residual stream x [Bk, H]:
+//   h   = LN1(x)                          flax LayerNorm, f32 gamma/beta
+//   qkv = round(h . Wqkv[l]) + bqkv[l]    nn.Dense rounding
+//   att = beam attention (prefix[l] + lazy suffix cache[l] + self),
+//         appending k/v at `pos` of caches[l] in place
+//   x1  = x + (round(att . Wo[l]) + bo[l])
+//   u   = gelu_new(round(LN2(x1) . Wfc[l]) + bfc[l])
+//   x   = x1 + (round(u . Wpj[l]) + bpj[l])
+// and returns the last layer's x (before ln_f). Caches are [L, Bk, S, H];
+// the prefix K/V [L, B, P, H].
+//
+// What bounds it on the card: at Bk = 320 one step multiplies 320 rows
+// through 85 M weights (54 GFLOP on 170 MB of bf16 weights: tensor-core
+// work, about 320 flops per weight byte), plus the attention's cache reads.
+// The Pallas kernel walks a sequential (layer, row-block) grid on one core
+// and carries the residual in VMEM. Rows are independent within a step (a
+// row reads only cache positions < pos, its image's prefix and its own new
+// K/V), so one block could carry a row tile through all L layers, but with
+// 320 rows that is 5 blocks of 64 rows on 132 SMs, each re-reading all
+// 170 MB of weights. The design instead issues, from one host call, seven
+// launches per layer, each sized for occupancy: LN1, the QKV GEMM (180
+// blocks), the attention (Bk x heads blocks), the output GEMM with the
+// residual in its epilogue, LN2, the c_fc GEMM with gelu_new in its
+// epilogue (240 blocks), the c_proj GEMM with the residual. GEMMs run on
+// the tensor cores (wmma bf16, f32 accumulate; common.cuh), split over K
+// when they have too few blocks to fill the card (the 768-wide output
+// GEMMs at any batch, every GEMM at small batches), which adds one
+// reduction launch each. So 84 to 132 launches a step at L = 12, against
+// some 670 PyTorch operations for the same step on the split path, and
+// one Python call. The intermediates live in a scratch buffer of 10 H
+// values per row (6 MB at the served shapes) and an f32 split-K workspace;
+// both stay in L2.
+
+#include "beam_attention.cuh"
+
+namespace {
+
+template <typename T>
+cudaError_t launch(void* out_p, void* scratch, float* ws, int64_t ws_floats,
+                   const void* x_p, const void* wqkv_p, const void* bqkv_p,
+                   const void* wo_p, const void* bo_p, const float* g1,
+                   const float* b1, const float* g2, const float* b2,
+                   const void* wfc_p, const void* bfc_p, const void* wpj_p,
+                   const void* bpj_p,
+                   void* k_caches, void* v_caches, const void* prefix_k,
+                   const void* prefix_v, const void* anc_p, int L, int Bk,
+                   int K, int S, int P, int H, int NH, int pos, float scale,
+                   float eps, cudaStream_t stream) {
+  const int64_t H2 = (int64_t)H * H;
+  const T* x_in = static_cast<const T*>(x_p);
+  T* out = static_cast<T*>(out_p);
+  T* h = static_cast<T*>(scratch);       // [Bk, H]   LN output
+  T* qkv = h + (int64_t)Bk * H;          // [Bk, 3H]
+  T* att = qkv + (int64_t)Bk * 3 * H;    // [Bk, H]
+  T* x1 = att + (int64_t)Bk * H;         // [Bk, H]   mid-layer residual
+  T* u = x1 + (int64_t)Bk * H;           // [Bk, 4H]  MLP hidden
+  const T* wqkv = static_cast<const T*>(wqkv_p);
+  const T* bqkv = static_cast<const T*>(bqkv_p);
+  const T* wo = static_cast<const T*>(wo_p);
+  const T* bo = static_cast<const T*>(bo_p);
+  const T* wfc = static_cast<const T*>(wfc_p);
+  const T* bfc = static_cast<const T*>(bfc_p);
+  const T* wpj = static_cast<const T*>(wpj_p);
+  const T* bpj = static_cast<const T*>(bpj_p);
+  const int32_t* anc = static_cast<const int32_t*>(anc_p);
+  const int B = Bk / K;
+
+  // the residual stream: the input for layer 0, then `out`, rewritten by
+  // every layer's last GEMM (which reads x1, never `out`)
+  const T* x = x_in;
+  for (int l = 0; l < L; ++l) {
+    const int64_t cache_off = (int64_t)l * Bk * S * H;
+    const int64_t pre_off = (int64_t)l * B * P * H;
+    PORT_TRY(port::layer_norm(h, x, g1 + (int64_t)l * H, b1 + (int64_t)l * H,
+                              Bk, H, eps, stream));
+    PORT_TRY(port::dense(qkv, 3 * H, h, H, wqkv + l * 3 * H2, H,
+                         bqkv + (int64_t)l * 3 * H, (const T*)nullptr, 0, Bk,
+                         3 * H, H, port::kBias, ws, ws_floats, stream));
+    PORT_TRY(port::beam_attention<T>(
+        att, qkv, qkv + H, qkv + 2 * H, 3 * H,
+        static_cast<T*>(k_caches) + cache_off,
+        static_cast<T*>(v_caches) + cache_off,
+        P ? static_cast<const T*>(prefix_k) + pre_off : nullptr,
+        P ? static_cast<const T*>(prefix_v) + pre_off : nullptr, anc, Bk, K,
+        S, P, H, NH, pos, scale, stream));
+    PORT_TRY(port::dense(x1, H, att, H, wo + l * H2, H, bo + (int64_t)l * H,
+                         x, H, Bk, H, H, port::kBiasResidual, ws, ws_floats,
+                         stream));
+    PORT_TRY(port::layer_norm(h, x1, g2 + (int64_t)l * H, b2 + (int64_t)l * H,
+                              Bk, H, eps, stream));
+    PORT_TRY(port::dense(u, 4 * H, h, H, wfc + l * 4 * H2, H,
+                         bfc + (int64_t)l * 4 * H, (const T*)nullptr, 0, Bk,
+                         4 * H, H, port::kBiasGeluNew, ws, ws_floats,
+                         stream));
+    PORT_TRY(port::dense(out, H, u, 4 * H, wpj + l * 4 * H2, 4 * H,
+                         bpj + (int64_t)l * H, x1, H, Bk, H, 4 * H,
+                         port::kBiasResidual, ws, ws_floats, stream));
+    x = out;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// Plain C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16
+// (of x, the Dense weights and biases, the caches and the prefix; the
+// LayerNorm gamma/beta g1, b1, g2, b2 [L, H] are float32 always). scratch
+// holds Bk * 10 * H values of the working type, ws an f32 workspace of
+// ws_floats values for split-K partial sums. prefix_k/prefix_v may be null
+// when P == 0; anc may be null (all zeros). Returns the first cudaError_t
+// of the step's launches (0 = success).
+extern "C" int beam_decode_stack(
+    int dtype, int device, void* out, void* scratch, void* ws,
+    int64_t ws_floats, const void* x, const void* wqkv, const void* bqkv,
+    const void* wo, const void* bo,
+    const void* g1, const void* b1, const void* g2, const void* b2,
+    const void* wfc, const void* bfc, const void* wpj, const void* bpj,
+    void* k_caches, void* v_caches, const void* prefix_k,
+    const void* prefix_v, const void* anc, int L, int Bk, int K, int S, int P,
+    int H, int NH, int pos, float scale, float eps, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* f1 = static_cast<const float*>(g1);
+  const float* c1 = static_cast<const float*>(b1);
+  const float* f2 = static_cast<const float*>(g2);
+  const float* c2 = static_cast<const float*>(b2);
+  float* wsf = static_cast<float*>(ws);
+  if (dtype == 1) {
+    err = launch<__nv_bfloat16>(out, scratch, wsf, ws_floats, x, wqkv, bqkv,
+                                wo, bo, f1, c1, f2, c2, wfc, bfc, wpj, bpj,
+                                k_caches, v_caches, prefix_k, prefix_v, anc,
+                                L, Bk, K, S, P, H, NH, pos, scale, eps, s);
+  } else if (dtype == 0) {
+    err = launch<float>(out, scratch, wsf, ws_floats, x, wqkv, bqkv, wo, bo,
+                        f1, c1, f2, c2, wfc, bfc, wpj, bpj, k_caches,
+                        v_caches, prefix_k, prefix_v, anc, L, Bk, K, S, P, H,
+                        NH, pos, scale, eps, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}

@@ -41,14 +41,22 @@ def _map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
 
 def _tile_state(state: dict, factor: int) -> dict:
     """Repeat each batch row ``factor`` times (B -> B*factor); ``shared``
-    is kept as it is. The ``lazy`` caches are tiled here, once."""
-    if "stacked" in state.get("lazy", {}):
-        raise NotImplementedError(
-            "the layer-stacked cache layout is not yet ported (ROADMAP.md "
-            "Queue 1: layer-stacked cache)")
-    return {k: (v if k == "shared"
-                else _map(lambda x: x.repeat_interleave(factor, dim=0), v))
-            for k, v in state.items()}
+    is kept as it is. The ``lazy`` caches are tiled here, once; the
+    layer-stacked ``lazy["stacked"]`` caches ``[L, B, ...]`` on axis 1."""
+    def tile(dim):
+        return lambda x: x.repeat_interleave(factor, dim=dim)
+
+    out = {}
+    for k, v in state.items():
+        if k == "shared":
+            out[k] = v
+        elif k == "lazy" and "stacked" in v:
+            out[k] = dict(_map(tile(0), {n: t for n, t in v.items()
+                                         if n != "stacked"}),
+                          stacked=_map(tile(1), v["stacked"]))
+        else:
+            out[k] = _map(tile(0), v)
+    return out
 
 
 def _gather_state(state: dict, flat_indices: torch.Tensor) -> dict:

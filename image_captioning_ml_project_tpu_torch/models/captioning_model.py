@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from ..config import Config, DecoderType, EncoderType
-from ..params import from_flax, init_flax_params
+from ..params import from_flax, init_flax_params, stack_layer_weights
 from ..utils.amp import cast_float_params
 from .encoders import CLIPEncoder
 from .gpt2 import GPT2Decoder
@@ -73,7 +73,8 @@ def load_model(config: Config, device,
     drawn from ``numpy.random.RandomState(config.seed)``
     (:func:`..params.init_flax_params`). The weights are cast once to
     ``config.model.dtype``, norms excepted
-    (:func:`..utils.amp.cast_float_params`).
+    (:func:`..utils.amp.cast_float_params`), and then stacked over layers
+    for the whole-stack kernels (:func:`..params.stack_layer_weights`).
     """
     if params is None:
         params = init_flax_params(config, config.seed)
@@ -84,4 +85,5 @@ def load_model(config: Config, device,
     dtype = getattr(torch, config.model.dtype)
     if dtype != torch.float32:
         cast_float_params(model, dtype)
+    stack_layer_weights(model)
     return model

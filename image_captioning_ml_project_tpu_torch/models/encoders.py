@@ -1,8 +1,11 @@
 """CLIP vision tower (HF ``CLIPVisionModel``-compatible), in PyTorch.
 
 Counterpart of the CLIP part of ``image_captioning_ml_project_tpu.models.
-encoders`` on its XLA path (the whole-stack Pallas encoder fold is not on
-this slice). Images are NHWC, as in the JAX package. A ``uint8`` batch is
+encoders``. As there, ``ICT_ENCODER_FOLD`` (default on; ``0`` off;
+``force`` means on) chooses, once per forward, between the whole-stack
+encoder kernel (:func:`..ops.encoder_stack.encoder_stack`, inference only:
+it is skipped in training mode) and the per-layer modules. Images are
+NHWC, as in the JAX package. A ``uint8`` batch is
 normalised on its device with the ImageNet constants (the JAX trainer's
 ``normalize_images`` before ``model.encode``); a float batch is taken as
 already normalised. Every encoder returns the uniform dict
@@ -12,14 +15,22 @@ already normalised. Every encoder returns the uniform dict
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..data.coco import normalize_images
+from ..ops.encoder_stack import encoder_stack
 from .layers import LayerNorm
+
+
+def encoder_fold_enabled() -> bool:
+    """``ICT_ENCODER_FOLD``: anything but ``"0"`` (the default ``"1"``, or
+    ``"force"``) runs the encoder layers through the whole-stack kernel."""
+    return os.environ.get("ICT_ENCODER_FOLD", "1") != "0"
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -98,6 +109,7 @@ class CLIPVisionBackbone(nn.Module):
         super().__init__()
         h = hidden_size
         tokens = (image_size // patch_size) ** 2 + 1
+        self.num_heads = num_heads
         self.patch_embed = PatchEmbed(h, patch_size)
         self.class_embedding = nn.Parameter(torch.zeros(h))
         self.position_embeddings = nn.Parameter(torch.zeros(tokens, h))
@@ -105,6 +117,9 @@ class CLIPVisionBackbone(nn.Module):
         self.layers = nn.ModuleList(
             CLIPLayer(h, num_heads, h * mlp_ratio) for _ in range(num_layers))
         self.post_layernorm = LayerNorm(h, eps=1e-5)
+        # the layers' stacked weights, set at model load
+        # (params.stack_layer_weights); read by the fold
+        self.stack: Optional[Dict[str, torch.Tensor]] = None
 
     def forward(self, images: torch.Tensor):
         B = images.shape[0]
@@ -115,8 +130,14 @@ class CLIPVisionBackbone(nn.Module):
         x = torch.cat([cls, x], dim=1)
         x = x + self.position_embeddings.to(x.dtype)[None]
         x = self.pre_layernorm(x)
-        for layer in self.layers:
-            x = layer(x)
+        if encoder_fold_enabled() and not self.training:
+            if self.stack is None:
+                raise RuntimeError("the encoder fold needs the stacked "
+                                   "weights: build the model with load_model")
+            x = encoder_stack(x, self.stack, num_heads=self.num_heads)
+        else:
+            for layer in self.layers:
+                x = layer(x)
         return x, self.post_layernorm(x[:, 0])
 
 

@@ -2,31 +2,56 @@
 PyTorch.
 
 Counterpart of ``image_captioning_ml_project_tpu.models.gpt2`` on its
-split-cache path: the pooled image feature becomes ``prefix_length``
+kernel paths: the pooled image feature becomes ``prefix_length``
 soft-prompt tokens, run through the transformer once per image by
 ``init_cache`` so every layer holds that image's prefix K/V; generation
-then steps over flat ``[Bk, S, H]`` suffix caches that beam search never
-permutes (lazy ancestry). Each layer's decode-step attention goes through
-:func:`..ops.beam_decode_attention.beam_decode_attention` with the QKV and
-output projections as linear layers around it; on a CUDA tensor that is
-the hand-written kernel, on a CPU tensor its plain version.
+then steps over suffix caches that beam search never permutes (lazy
+ancestry). The JAX package's switches choose the decode path, with the
+same names, meanings and defaults, read once per decode at ``init_cache``
+(:func:`decode_path`):
 
-The suffix cache holds exactly ``max_length`` positions; the JAX
-package's 8-row alignment exists only for TPU DMA tiling.
+* ``stack`` (default): layer-stacked caches ``[L, B, S, H]``; one
+  :func:`..ops.beam_decode_stack.beam_decode_stack` call runs all layers
+  of a step, and ``ln_f`` and the tied LM head follow as torch ops;
+* ``fold`` (``ICT_DECODE_STACK=0``): per-layer ``[B, S, H]`` caches; each
+  layer's attention block is one
+  :func:`..ops.beam_decode_attention.beam_decode_attention_qkv` call;
+* ``split`` (``ICT_DECODE_STACK=0 ICT_DECODE_FOLD=0``): per-layer caches;
+  :func:`..ops.beam_decode_attention.beam_decode_attention` with the QKV
+  and output projections as linear layers around it.
+
+On a CUDA tensor each is a hand-written kernel, on a CPU tensor its plain
+version; the path does not depend on the device. The suffix cache holds
+exactly ``max_length`` positions; the JAX package's 8-row alignment exists
+only for TPU DMA tiling.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.beam_decode_attention import beam_decode_attention
+from ..ops.beam_decode_attention import (beam_decode_attention,
+                                         beam_decode_attention_qkv)
+from ..ops.beam_decode_stack import beam_decode_stack
 from .layers import LayerNorm
 
 _NEG_INF = -1e9
+
+
+def decode_path() -> str:
+    """The decode path the JAX package's switches select: ``"stack"``
+    unless ``ICT_DECODE_STACK=0``, then ``"fold"`` unless
+    ``ICT_DECODE_FOLD=0``, then ``"split"``."""
+    if os.environ.get("ICT_DECODE_STACK", "1") != "0":
+        return "stack"
+    if os.environ.get("ICT_DECODE_FOLD", "1") != "0":
+        return "fold"
+    return "split"
 
 
 class GPT2Attention(nn.Module):
@@ -58,17 +83,27 @@ class GPT2Attention(nn.Module):
     def cached_step(self, x: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, pos: int,
                     prefix_k: torch.Tensor, prefix_v: torch.Tensor,
-                    anc_local: Optional[torch.Tensor]) -> torch.Tensor:
+                    anc_local: Optional[torch.Tensor],
+                    fold: bool) -> torch.Tensor:
         """x [Bk, H] -> attention output [Bk, H]; appends this step's K/V at
-        suffix position ``pos`` of the caches in place."""
+        suffix position ``pos`` of the caches in place. ``fold`` runs the
+        projections inside the folded-QKV kernel (``nn.Dense`` rounding);
+        otherwise they are the linear layers around the split kernel."""
         H = self.hidden_dim
+        args = dict(num_heads=self.num_heads,
+                    beam_size=x.shape[0] // prefix_k.shape[0],
+                    scale=1.0 / (H // self.num_heads) ** 0.5)
+        if fold:
+            out, _, _ = beam_decode_attention_qkv(
+                x, self.c_attn.weight, self.c_attn.bias, self.c_proj.weight,
+                self.c_proj.bias, k_cache, v_cache, prefix_k, prefix_v,
+                anc_local, pos, **args)
+            return out
         q, k_new, v_new = (t.contiguous()
                            for t in self.c_attn(x).split(H, dim=-1))
         out, _, _ = beam_decode_attention(
             q, k_new, v_new, k_cache, v_cache, prefix_k, prefix_v,
-            anc_local, pos, num_heads=self.num_heads,
-            beam_size=x.shape[0] // prefix_k.shape[0],
-            scale=1.0 / (H // self.num_heads) ** 0.5)
+            anc_local, pos, **args)
         return self.c_proj(out)
 
 
@@ -96,9 +131,9 @@ class GPT2Block(nn.Module):
         return x + self.mlp(self.ln_2(x)), kv
 
     def cached_step(self, x, k_cache, v_cache, pos, prefix_k, prefix_v,
-                    anc_local):
+                    anc_local, fold):
         x = x + self.attn.cached_step(self.ln_1(x), k_cache, v_cache, pos,
-                                      prefix_k, prefix_v, anc_local)
+                                      prefix_k, prefix_v, anc_local, fold)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -143,6 +178,9 @@ class GPT2Decoder(nn.Module):
                                          self.prefix_length * h)
         self.image_prefix = nn.Parameter(torch.zeros(1, self.prefix_length,
                                                      h))
+        # the blocks' layer-stacked weights, set at model load
+        # (params.stack_layer_weights); read by the stack path
+        self.stack: Optional[Dict[str, torch.Tensor]] = None
 
     def _prefix_embeds(self, pooled: torch.Tensor) -> torch.Tensor:
         """Pooled image features -> [B, P, H] prefix token embeddings, with
@@ -178,21 +216,41 @@ class GPT2Decoder(nn.Module):
 
     def init_cache(self, encoder_features: Dict[str, torch.Tensor],
                    max_length: int) -> Dict[str, Any]:
-        """Split KV cache: each layer's prefix K/V (positions 0..P-1, one per
-        image) under ``shared``, which beam search neither tiles nor
-        gathers; zeroed ``[B, max_length, H]`` suffix caches under
-        ``lazy``, which beam search tiles once and then reads through an
-        ancestry map. ``pos`` counts within the suffix."""
+        """Prefix forward and zeroed suffix caches, in the layout of the
+        decode path (:func:`decode_path`, read here once per decode). Each
+        layer's prefix K/V (positions 0..P-1, one per image) sits under
+        ``shared``, which beam search neither tiles nor gathers; the zeroed
+        suffix caches sit under ``lazy``, which beam search tiles once and
+        then reads through an ancestry map. The stack path keeps them
+        layer-stacked: ``lazy["stacked"]`` k/v ``[L, B, max_length, H]``,
+        ``shared`` pk/pv ``[L, B, P, H]`` and the stacked weights. The other
+        paths keep per-layer ``lazy["layers"]`` ``[B, max_length, H]`` and
+        ``shared["layers"]`` ``[B, P, H]``, with ``shared["fold"]`` naming
+        the fold path. ``pos`` counts within the suffix."""
         pooled = encoder_features["pooled_features"]
         B = pooled.shape[0]
         P = self.prefix_length
         H = self.config.hidden_dim
+        path = decode_path()
         _, kvs = self.backbone.full(self._prefix_embeds(pooled))
+        if path == "stack":
+            if self.stack is None:
+                raise RuntimeError("the stack decode path needs the stacked "
+                                   "weights: build the model with load_model")
+            L = len(kvs)
+            k0 = kvs[0][0]
+            lazy = {"stacked": {"k": k0.new_zeros((L, B, max_length, H)),
+                                "v": k0.new_zeros((L, B, max_length, H))}}
+            shared = {"pk": torch.stack([k.reshape(B, P, H) for k, _ in kvs]),
+                      "pv": torch.stack([v.reshape(B, P, H) for _, v in kvs]),
+                      "stack": self.stack}
+            return {"lazy": lazy, "shared": shared, "pos": 0}
         layers = [{"k": k.new_zeros((B, max_length, H)),
                    "v": v.new_zeros((B, max_length, H))} for k, v in kvs]
         shared = {"layers": [{"pk": k.reshape(B, P, H).contiguous(),
                               "pv": v.reshape(B, P, H).contiguous()}
-                             for k, v in kvs]}
+                             for k, v in kvs],
+                  "fold": path == "fold"}
         return {"lazy": {"layers": layers}, "shared": shared, "pos": 0}
 
     def step(self, state: Dict[str, Any], tokens: torch.Tensor
@@ -201,11 +259,15 @@ class GPT2Decoder(nn.Module):
         caches are appended in place."""
         pos = state["pos"]
         P = self.prefix_length
-        layers = state["lazy"]["layers"]
-        shared = state["shared"]["layers"]
+        shared = state["shared"]
+        stacked = state["lazy"].get("stacked")
+        if stacked is not None:
+            B, S = shared["pk"].shape[1], stacked["k"].shape[2]
+        else:
+            B = shared["layers"][0]["pk"].shape[0]
+            S = state["lazy"]["layers"][0]["k"].shape[1]
         Bk = tokens.shape[0]
-        K = Bk // shared[0]["pk"].shape[0]
-        S = layers[0]["k"].shape[1]
+        K = Bk // B
         ancestry = state["lazy"].get("ancestry")  # set by beam search only
         anc_local = None
         if ancestry is not None:
@@ -216,8 +278,18 @@ class GPT2Decoder(nn.Module):
                 anc_local = F.pad(anc_local, (0, S - anc_local.shape[1]))
             anc_local = anc_local.to(torch.int32).contiguous()
         x = self.backbone.wte(tokens) + self.backbone.wpe.weight[P + pos]
-        for block, cache, pre in zip(self.backbone.blocks, layers, shared):
-            x = block.cached_step(x, cache["k"], cache["v"], pos, pre["pk"],
-                                  pre["pv"], anc_local)
+        if stacked is not None:
+            nh = self.config.num_heads
+            x, _, _ = beam_decode_stack(
+                x, shared["stack"], stacked["k"], stacked["v"], shared["pk"],
+                shared["pv"], anc_local, pos, num_heads=nh, beam_size=K,
+                scale=1.0 / (self.config.hidden_dim // nh) ** 0.5)
+        else:
+            for block, cache, pre in zip(self.backbone.blocks,
+                                         state["lazy"]["layers"],
+                                         shared["layers"]):
+                x = block.cached_step(x, cache["k"], cache["v"], pos,
+                                      pre["pk"], pre["pv"], anc_local,
+                                      shared["fold"])
         logits = self.backbone.logits(self.backbone.ln_f(x))
         return logits, dict(state, pos=pos + 1)

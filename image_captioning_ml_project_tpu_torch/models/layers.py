@@ -5,6 +5,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.numerics import layer_norm
+
 
 class LayerNorm(nn.Module):
     """``flax.linen.LayerNorm`` numerics: f32 statistics whatever the input
@@ -20,8 +22,4 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mu = xf.mean(-1, keepdim=True)
-        var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        return ((xf - mu) * mul + self.bias.float()).to(x.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps)

@@ -58,30 +58,58 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def _compile(src: str, so: str) -> None:
+def _start(src: str, so: str):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp{os.getpid()}"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tmp
+
+
+def _finish(src: str, so: str, proc, tmp: str) -> None:
+    try:
+        _, err = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise RuntimeError(f"nvcc timed out building {os.path.basename(src)}")
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{os.path.basename(src)}:\n{proc.stderr}")
+                           f"{os.path.basename(src)}:\n{err}")
     with open(so[:-3] + ".log", "w") as f:  # ptxas resource usage
-        f.write(proc.stderr)
+        f.write(err)
     os.replace(tmp, so)
+
+
+def build_libraries(names) -> None:
+    """Build every ``csrc/<name>.cu`` of ``names`` whose hashed library is
+    missing: one nvcc process per source, all started together. Raises on
+    the first failed build, after every process has ended."""
+    with _lock:
+        jobs = []
+        for name in names:
+            src, so = _sources(name)[0], library_path(name)
+            if not os.path.exists(so):
+                jobs.append((src, so, *_start(src, so)))
+        errors = []
+        for src, so, proc, tmp in jobs:
+            try:
+                _finish(src, so, proc, tmp)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its hashed library is missing, then load
     it (once per process)."""
+    build_libraries([name])
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            src = _sources(name)[0]
-            so = library_path(name)
-            if not os.path.exists(so):
-                _compile(src, so)
-            lib = ctypes.CDLL(so)
+            lib = ctypes.CDLL(library_path(name))
             _libs[name] = lib
         return lib
 

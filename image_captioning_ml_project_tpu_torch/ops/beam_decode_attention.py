@@ -1,7 +1,8 @@
-"""Beam-decode attention step: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Beam-decode attention step, split and folded-QKV: the hand-written CUDA
+kernels and their plain PyTorch versions.
 
-Counterpart of ``image_captioning_ml_project_tpu.ops.pallas_decode.
+:func:`beam_decode_attention` is the counterpart of
+``image_captioning_ml_project_tpu.ops.pallas_decode.
 fused_beam_decode_attention`` (the Pallas TPU kernel). One GPT-2 layer's
 decode-step attention over all ``Bk = B * K`` beam rows: per head, each
 row's query is scored against its image's shared prefix keys, against the
@@ -10,10 +11,16 @@ reads image-local beam ``anc[r, t]``), and against the step's own key; the
 f32 softmax weights are rounded to the value dtype and mix V in f32. The
 step's K/V row is appended to the caches at ``pos`` in place.
 
-:func:`beam_decode_attention` dispatches on the tensors' device: on a CPU
-tensor it runs :func:`beam_decode_attention_plain`; on a CUDA tensor it
-launches ``csrc/beam_decode_attention.cu`` (see the note there for what
-bounds it on the card and how the design answers) or raises.
+:func:`beam_decode_attention_qkv` is the counterpart of
+``fused_beam_decode_attention_qkv``: the same step with the layer's QKV
+projection before it and its output projection after it, both with
+``nn.Dense`` rounding (:func:`.numerics.dense`).
+
+Each dispatches on the tensors' device: on a CPU tensor it runs its plain
+version; on a CUDA tensor it launches ``csrc/beam_decode_attention.cu`` or
+``csrc/beam_decode_attention_qkv.cu`` (see the notes there and in
+``csrc/beam_attention.cuh`` for what bounds them on the card and how the
+designs answer) or raises.
 """
 
 from __future__ import annotations
@@ -25,8 +32,10 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import load_library
+from ._checks import (DTYPES, check_dtype, check_tensor, check_widths,
+                      splitk_workspace)
+from .numerics import dense
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 48 * 1024  # default dynamic shared memory of one block
 
 
@@ -81,43 +90,24 @@ def beam_decode_attention_plain(
     return out.reshape(Bk, H).to(q.dtype), k_cache, v_cache
 
 
-def _check(q, k_new, v_new, k_cache, v_cache, prefix_k, prefix_v,
-           anc_local, pos, num_heads, beam_size):
-    """Raise on anything the CUDA kernel does not take."""
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"beam_decode_attention kernel takes float32 or "
-                        f"bfloat16, got {q.dtype}")
-    if q.dim() != 2 or k_cache.dim() != 3:
-        raise ValueError(f"expected q [Bk, H] and caches [Bk, S, H], got "
-                         f"{tuple(q.shape)} and {tuple(k_cache.shape)}")
-    Bk, H = q.shape
+def _check_caches(x, k_cache, v_cache, prefix_k, prefix_v, anc_local, pos,
+                  num_heads, beam_size):
+    """Raise on caches, prefix, ancestry or ``pos`` that the attention
+    kernel does not take, for rows x [Bk, H]; returns the prefix length."""
+    if x.dim() != 2 or k_cache.dim() != 3:
+        raise ValueError(f"expected rows [Bk, H] and caches [Bk, S, H], got "
+                         f"{tuple(x.shape)} and {tuple(k_cache.shape)}")
+    Bk, H = x.shape
     S = k_cache.shape[1]
-    tensors = {"q": q, "k_new": k_new, "v_new": v_new, "k_cache": k_cache,
-               "v_cache": v_cache}
-    if prefix_k is not None or prefix_v is not None:
-        tensors.update(prefix_k=prefix_k, prefix_v=prefix_v)
-    for name, t in tensors.items():
-        if t is None:
-            raise ValueError(f"{name} is None: give both prefix tensors or "
-                             f"neither")
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"{name} is {t.dtype} on {t.device}; expected "
-                             f"{q.dtype} on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name in ("k_new", "v_new"):
-        if tensors[name].shape != q.shape:
-            raise ValueError(f"{name} shape {tuple(tensors[name].shape)} != "
-                             f"q shape {tuple(q.shape)}")
-    for name in ("k_cache", "v_cache"):
-        if tensors[name].shape != (Bk, S, H):
-            raise ValueError(f"{name} shape {tuple(tensors[name].shape)} != "
-                             f"{(Bk, S, H)}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        check_tensor(name, t, (Bk, S, H), x.dtype, x.device)
     if beam_size < 1 or Bk % beam_size:
         raise ValueError(f"Bk={Bk} rows are not whole beams of {beam_size}")
     if num_heads < 1 or H % num_heads:
         raise ValueError(f"width {H} does not split into {num_heads} heads")
     P = 0
+    if (prefix_k is None) != (prefix_v is None):
+        raise ValueError("give both prefix tensors or neither")
     if prefix_k is not None:
         B = Bk // beam_size
         if prefix_k.dim() != 3 or prefix_k.shape[0] != B \
@@ -126,12 +116,14 @@ def _check(q, k_new, v_new, k_cache, v_cache, prefix_k, prefix_v,
                              f"{tuple(prefix_k.shape)} and "
                              f"{tuple(prefix_v.shape)}")
         P = prefix_k.shape[1]
+        for name, t in (("prefix_k", prefix_k), ("prefix_v", prefix_v)):
+            check_tensor(name, t, (B, P, H), x.dtype, x.device)
     if anc_local is not None:
         if (anc_local.dtype != torch.int32 or anc_local.shape != (Bk, S)
-                or anc_local.device != q.device
+                or anc_local.device != x.device
                 or not anc_local.is_contiguous()):
             raise ValueError(f"anc_local must be a contiguous int32 [Bk={Bk},"
-                             f" S={S}] tensor on {q.device}")
+                             f" S={S}] tensor on {x.device}")
     if not 0 <= pos < S:
         raise ValueError(f"pos={pos} outside the cache's {S} positions")
     smem = 4 * (H // num_heads + S + P + 1 + 4) + 4 * S
@@ -139,6 +131,27 @@ def _check(q, k_new, v_new, k_cache, v_cache, prefix_k, prefix_v,
         raise ValueError(f"S={S}, P={P} need {smem} bytes of shared memory "
                          f"per block, above the kernel's {_SMEM_LIMIT}")
     return P
+
+
+def _check(q, k_new, v_new, k_cache, v_cache, prefix_k, prefix_v,
+           anc_local, pos, num_heads, beam_size):
+    """Raise on anything the split CUDA kernel does not take; returns the
+    prefix length."""
+    check_dtype("beam_decode_attention", q)
+    if q.dim() != 2:
+        raise ValueError(f"expected q [Bk, H], got {tuple(q.shape)}")
+    check_tensor("q", q, q.shape, q.dtype, q.device)
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != q shape "
+                             f"{tuple(q.shape)}")
+        check_tensor(name, t, q.shape, q.dtype, q.device)
+    return _check_caches(q, k_cache, v_cache, prefix_k, prefix_v, anc_local,
+                         pos, num_heads, beam_size)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
 
 
 @functools.lru_cache(maxsize=None)
@@ -159,14 +172,11 @@ def _launch(q, k_new, v_new, k_cache, v_cache, prefix_k, prefix_v,
     Bk, H = q.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(_DTYPES[q.dtype], q.device.index, out.data_ptr(), q.data_ptr(),
+    err = fn(DTYPES[q.dtype], q.device.index, out.data_ptr(), q.data_ptr(),
              k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
-             v_cache.data_ptr(),
-             prefix_k.data_ptr() if prefix_k is not None else None,
-             prefix_v.data_ptr() if prefix_v is not None else None,
-             anc_local.data_ptr() if anc_local is not None else None,
-             Bk, beam_size, k_cache.shape[1], P, H, num_heads, int(pos),
-             float(scale), stream)
+             v_cache.data_ptr(), _ptr(prefix_k), _ptr(prefix_v),
+             _ptr(anc_local), Bk, beam_size, k_cache.shape[1], P, H,
+             num_heads, int(pos), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"beam_decode_attention kernel launch failed: "
                            f"cudaError {err}")
@@ -203,3 +213,111 @@ def beam_decode_attention(
 
 
 beam_decode_attention.launches = 0
+
+
+# -- folded QKV: projections inside the kernel -------------------------------
+
+
+def beam_decode_attention_qkv_plain(
+        x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
+        wo: torch.Tensor, bo: torch.Tensor, k_cache: torch.Tensor,
+        v_cache: torch.Tensor, prefix_k: Optional[torch.Tensor],
+        prefix_v: Optional[torch.Tensor], anc_local: Optional[torch.Tensor],
+        pos: int, *, num_heads: int, beam_size: int, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the folded kernel: ``nn.Dense`` QKV
+    projection, :func:`beam_decode_attention_plain`, ``nn.Dense`` output
+    projection. Appends in place; returns ``(out [Bk, H], k_cache,
+    v_cache)``."""
+    H = x.shape[1]
+    q, k_new, v_new = (t.contiguous()
+                       for t in dense(x, wqkv, bqkv).split(H, dim=-1))
+    att, _, _ = beam_decode_attention_plain(
+        q, k_new, v_new, k_cache, v_cache, prefix_k, prefix_v, anc_local,
+        pos, num_heads=num_heads, beam_size=beam_size, scale=scale)
+    return dense(att, wo, bo), k_cache, v_cache
+
+
+def _check_qkv(x, wqkv, bqkv, wo, bo, k_cache, v_cache, prefix_k, prefix_v,
+               anc_local, pos, num_heads, beam_size):
+    """Raise on anything the folded CUDA kernel does not take; returns the
+    prefix length."""
+    check_dtype("beam_decode_attention_qkv", x)
+    if x.dim() != 2:
+        raise ValueError(f"expected x [Bk, H], got {tuple(x.shape)}")
+    H = x.shape[1]
+    check_widths("beam_decode_attention_qkv", H, num_heads)
+    check_tensor("x", x, x.shape, x.dtype, x.device, aligned=True)
+    for name, t, shape in (("wqkv", wqkv, (3 * H, H)),
+                           ("bqkv", bqkv, (3 * H,)), ("wo", wo, (H, H)),
+                           ("bo", bo, (H,))):
+        check_tensor(name, t, shape, x.dtype, x.device, aligned=True)
+    return _check_caches(x, k_cache, v_cache, prefix_k, prefix_v, anc_local,
+                         pos, num_heads, beam_size)
+
+
+@functools.lru_cache(maxsize=None)
+def _qkv_kernel_fn():
+    fn = load_library("beam_decode_attention_qkv").beam_decode_attention_qkv
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int64] + [ctypes.c_void_p] * 10
+                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_qkv(x, wqkv, bqkv, wo, bo, k_cache, v_cache, prefix_k, prefix_v,
+                anc_local, pos, num_heads, beam_size, scale):
+    P = _check_qkv(x, wqkv, bqkv, wo, bo, k_cache, v_cache, prefix_k,
+                   prefix_v, anc_local, pos, num_heads, beam_size)
+    fn = _qkv_kernel_fn()
+    Bk, H = x.shape
+    out = torch.empty_like(x)
+    qkv = torch.empty((Bk, 3 * H), dtype=x.dtype, device=x.device)
+    att = torch.empty_like(x)
+    ws = splitk_workspace(Bk, H, x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(DTYPES[x.dtype], x.device.index, out.data_ptr(),
+             qkv.data_ptr(), att.data_ptr(), ws.data_ptr(), ws.numel(),
+             x.data_ptr(), wqkv.data_ptr(),
+             bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+             k_cache.data_ptr(), v_cache.data_ptr(), _ptr(prefix_k),
+             _ptr(prefix_v), _ptr(anc_local), Bk, beam_size,
+             k_cache.shape[1], P, H, num_heads, int(pos), float(scale),
+             stream)
+    if err != 0:
+        raise RuntimeError(f"beam_decode_attention_qkv kernel launch failed:"
+                           f" cudaError {err}")
+    beam_decode_attention_qkv.launches += 1
+    return out, k_cache, v_cache
+
+
+def beam_decode_attention_qkv(
+        x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
+        wo: torch.Tensor, bo: torch.Tensor, k_cache: torch.Tensor,
+        v_cache: torch.Tensor, prefix_k: Optional[torch.Tensor],
+        prefix_v: Optional[torch.Tensor], anc_local: Optional[torch.Tensor],
+        pos: int, *, num_heads: int, beam_size: int, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One layer's decode-step attention block with its projections.
+
+    x [Bk, H] is the layer's (normalised) input rows; wqkv [3H, H], bqkv
+    [3H], wo [H, H], bo [H] are the QKV and output projections in the
+    ``nn.Linear`` layout; the caches, prefix, ancestry and ``pos`` are as
+    for :func:`beam_decode_attention`. Returns ``(out [Bk, H], k_cache,
+    v_cache)``: the projected attention output, before the residual. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel
+    (counted in ``beam_decode_attention_qkv.launches``) or raises.
+    """
+    args = (x, wqkv, bqkv, wo, bo, k_cache, v_cache, prefix_k, prefix_v,
+            anc_local, pos)
+    if x.device.type == "cuda":
+        return _launch_qkv(*args, num_heads, beam_size, scale)
+    if x.device.type == "cpu":
+        return beam_decode_attention_qkv_plain(
+            *args, num_heads=num_heads, beam_size=beam_size, scale=scale)
+    raise ValueError(f"beam_decode_attention_qkv has no kernel for "
+                     f"{x.device}")
+
+
+beam_decode_attention_qkv.launches = 0

@@ -15,15 +15,21 @@ Layouts carried across:
 
 Every flax leaf must be consumed: a leaf no rule maps raises, and so does
 a leaf a rule expects but the tree lacks.
+
+:func:`stack_layer_weights` builds, once at model load, the layer-stacked
+operands the whole-stack kernels read (the JAX package's
+``_stacked_weights`` and the encoder fold's stack, which are free under
+``jit`` but would be a copy per batch in eager PyTorch).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -177,3 +183,43 @@ def init_flax_params(config, seed: int) -> Dict[str, Any]:
                "image_to_prefix": dense(ec.feature_dim, P * H),
                "image_prefix": normal(1, P, H, std=1.0)}
     return {"params": {"encoder": encoder, "decoder": decoder}}
+
+
+def _stacked(params: List[nn.Parameter]) -> torch.Tensor:
+    """One contiguous [L, ...] tensor of the layers' parameters; each
+    parameter becomes a view of its slice, so the weights exist once."""
+    stacked = torch.stack([p.detach() for p in params])
+    for i, p in enumerate(params):
+        p.data = stacked[i]
+    return stacked
+
+
+def _stack(layers, get) -> Dict[str, torch.Tensor]:
+    """The STACK_KEYS operands of ``layers``; ``get(layer)`` names each
+    layer's (qkv, out, norm1, norm2, fc, proj) modules."""
+    mods = [get(layer) for layer in layers]
+    out = {}
+    for i, (w, b) in enumerate((("wqkv", "bqkv"), ("wo", "bo"),
+                                ("g1", "b1"), ("g2", "b2"),
+                                ("wfc", "bfc"), ("wpj", "bpj"))):
+        out[w] = _stacked([m[i].weight for m in mods])
+        out[b] = _stacked([m[i].bias for m in mods])
+    return out
+
+
+def stack_layer_weights(model) -> None:
+    """Set ``model.decoder.stack`` (GPT-2 blocks) and
+    ``model.encoder.backbone.stack`` (CLIP layers): the layer-stacked
+    weights of the whole-stack kernels, keyed as the JAX package's
+    ``STACK_WEIGHT_KEYS``. Matrices keep the ``nn.Linear`` layout
+    ``[L, out, in]``; the LayerNorm scales and biases (g1, b1, g2, b2) stay
+    in their float32 dtype, as flax keeps them. Call after the dtype cast:
+    every layer's parameters become views of the stacked tensors."""
+    model.decoder.stack = _stack(
+        model.decoder.backbone.blocks,
+        lambda b: (b.attn.c_attn, b.attn.c_proj, b.ln_1, b.ln_2,
+                   b.mlp.c_fc, b.mlp.c_proj))
+    model.encoder.backbone.stack = _stack(
+        model.encoder.backbone.layers,
+        lambda m: (m.attention.qkv, m.attention.out, m.layer_norm1,
+                   m.layer_norm2, m.fc1, m.fc2))

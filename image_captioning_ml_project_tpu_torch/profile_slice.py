@@ -9,17 +9,25 @@ It decodes synthetic uint8 images through the flagship model
 (:func:`.main.flagship_config`: CLIP ViT-B/32 + GPT-2 12 layers, width 768,
 vocab 50257, beam 5, max length 20, bf16 weights drawn from ``--seed``)
 directly through ``encode``/``init_cache``/``beam_search``, without the
-server, and prints:
+server, on the configuration the JAX package's switches select
+(``ICT_DECODE_STACK``, ``ICT_DECODE_FOLD``, ``ICT_ENCODER_FOLD``; by default
+the whole-stack decode and the encoder fold; all three ``0`` give the split
+configuration), and prints:
+
+0. the configuration profiled: the switches and the decode path and
+   encoder they select;
 
 1. for batches of 1, 8 and 64: the host wall time of the CLIP encode, the
    prefix forward (``init_cache``) and the beam loop, each with the device
    synchronised, as medians of 7 runs after 2 warm-up runs, with the
    total and images/s;
-2. one ``model.step`` at batch 64 (320 beam rows): the host time to enqueue
-   it, and the time with the device synchronised (median of 20);
+2. one ``model.step`` at batches 1, 8 and 64 (5, 40 and 320 beam rows):
+   the host time to enqueue it, and the time with the device synchronised
+   (median of 20);
 3. ``torch.profiler`` over one batch of 64: the device busy time (the sum of
-   the kernels' self device times), the number of kernel launches, and the
-   kernels ranked by device time; ``--trace`` writes the Chrome trace.
+   the kernels' self device times), the number of kernel launches (in all
+   and per decode step), and the kernels ranked by device time; ``--trace``
+   writes the Chrome trace.
 
 The card's name, power limit and SM clock (``nvidia-smi``) open and close
 the output.
@@ -28,6 +36,7 @@ the output.
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
 import subprocess
 import sys
@@ -39,6 +48,8 @@ from torch.profiler import ProfilerActivity, profile
 from .inference.decoding import _tile_state, beam_search
 from .main import flagship_config
 from .models.captioning_model import load_model
+from .models.encoders import encoder_fold_enabled
+from .models.gpt2 import decode_path
 
 
 def _card() -> str:
@@ -93,20 +104,28 @@ def time_batches(model, cfg, images, sizes=(1, 8, 64), runs=7):
               f"{B / total:.1f} images/s", flush=True)
 
 
+def _step_state(model, cfg, images, pos):
+    """A tiled decode state at suffix position ``pos`` under an identity
+    ancestry, and the step's tokens."""
+    ic = cfg.inference
+    Bk = images.shape[0] * ic.beam_size
+    state = _tile_state(model.init_cache(images, ic.max_length),
+                        ic.beam_size)
+    state["lazy"]["ancestry"] = torch.arange(
+        Bk, device=images.device, dtype=torch.int32)[:, None].repeat(
+            1, ic.max_length)
+    state["pos"] = pos
+    tokens = torch.full((Bk,), cfg.model.bos_token_id, dtype=torch.long,
+                        device=images.device)
+    return state, tokens
+
+
 def time_step(model, cfg, images, pos=5, runs=20):
     """One decode step at suffix position ``pos`` over all beam rows, under
     an identity ancestry; the step re-appends at ``pos`` each run."""
-    ic = cfg.inference
-    Bk = images.shape[0] * ic.beam_size
+    Bk = images.shape[0] * cfg.inference.beam_size
     with torch.inference_mode():
-        state = _tile_state(model.init_cache(images, ic.max_length),
-                            ic.beam_size)
-        state["lazy"]["ancestry"] = torch.arange(
-            Bk, device=images.device, dtype=torch.int32)[:, None].repeat(
-                1, ic.max_length)
-        state["pos"] = pos
-        tokens = torch.full((Bk,), cfg.model.bos_token_id, dtype=torch.long,
-                            device=images.device)
+        state, tokens = _step_state(model, cfg, images, pos)
         times = []
         for _ in range(3 + runs):
             torch.cuda.synchronize()
@@ -122,21 +141,41 @@ def time_step(model, cfg, images, pos=5, runs=20):
           f"{synced * 1e3:.3f} ms", flush=True)
 
 
+def configuration() -> str:
+    switches = " ".join(f"{k}={os.environ.get(k, '1')}" for k in (
+        "ICT_DECODE_STACK", "ICT_DECODE_FOLD", "ICT_ENCODER_FOLD"))
+    encoder = ("whole-stack encoder kernel" if encoder_fold_enabled()
+               else "per-layer CLIP modules")
+    return (f"configuration: {switches} -> decode path {decode_path()}, "
+            f"{encoder}")
+
+
 def profile_batch(model, cfg, images, trace=None):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _decode(model, cfg, images)
+        steps = _decode(model, cfg, images)[3]
     wall = time.perf_counter() - t0
     events = prof.key_averages()
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")
                and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     launches = sum(e.count for e in kernels)
+    with torch.inference_mode():
+        state, tokens = _step_state(model, cfg, images, pos=5)
+        model.step(state, tokens)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as step_prof:
+            model.step(state, tokens)
+            torch.cuda.synchronize()
+    per_step = sum(e.count for e in step_prof.key_averages()
+                   if e.self_device_time_total > 0)
     print(f"profiled B={images.shape[0]}: wall {wall * 1e3:.1f} ms "
           f"(profiler on); device busy {busy * 1e3:.2f} ms "
           f"({100 * busy / wall:.1f}% of that wall); kernel launches "
-          f"{launches}", flush=True)
+          f"{launches} over {steps} decode steps ({launches / steps:.0f} "
+          f"per step, encode and prefix forward included); one model.step "
+          f"alone launches {per_step} kernels", flush=True)
     print(events.table(sort_by="self_cuda_time_total", row_limit=25,
                        max_name_column_width=70), flush=True)
     if trace:
@@ -154,6 +193,7 @@ def main(argv=None):
         sys.exit("profile_slice: no CUDA device")
     card = _card()
     print(card, flush=True)
+    print(configuration(), flush=True)
     cfg = flagship_config()
     cfg.seed = args.seed
     dev = torch.device("cuda:0")
@@ -162,7 +202,8 @@ def main(argv=None):
     images = torch.randint(0, 256, (64, cfg.image_size, cfg.image_size, 3),
                            generator=g, dtype=torch.uint8).to(dev)
     time_batches(model, cfg, images)
-    time_step(model, cfg, images)
+    for B in (1, 8, 64):
+        time_step(model, cfg, images[:B])
     profile_batch(model, cfg, images, args.trace)
     print(card, flush=True)
 

@@ -1,7 +1,8 @@
-"""Beam-decode attention (port: ops/beam_decode_attention.py) against the
-JAX package's Pallas kernel in interpret mode and its pure-jnp oracle, and
-the wrapper's checks of what the CUDA kernel takes. The kernel itself is
-held against this plain version on the card in test_torch_cuda.py."""
+"""Beam-decode attention, split and folded-QKV (port:
+ops/beam_decode_attention.py) against the JAX package's Pallas kernels in
+interpret mode (and the split kernel's pure-jnp oracle), and the wrappers'
+checks of what the CUDA kernels take. The kernels themselves are held
+against these plain versions on the card in test_torch_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,7 +10,8 @@ import pytest
 import torch
 
 from image_captioning_ml_project_tpu.ops.pallas_decode import (
-    fused_beam_decode_attention, reference_beam_decode_attention)
+    fused_beam_decode_attention, fused_beam_decode_attention_qkv,
+    reference_beam_decode_attention)
 from image_captioning_ml_project_tpu_torch.ops import beam_decode_attention \
     as bda
 from torch_port_helpers import bf16_ulp
@@ -131,3 +133,89 @@ def test_cpu_tensor_takes_plain_version_without_counting():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w.numpy())
     assert bda.beam_decode_attention.launches == before
+
+
+# -- folded QKV ---------------------------------------------------------------
+
+
+def _qkv_inputs(seed, anc_random):
+    """Rows, flax-layout projections [in, out] (GPT-2's initial scale) and
+    caches; the port takes the projections transposed."""
+    rs = np.random.RandomState(seed)
+    arrs, anc = _inputs(seed, anc_random, prefix=True)
+    arrs = {k: arrs[k] for k in ("k_cache", "v_cache", "prefix_k",
+                                 "prefix_v")}
+    arrs.update(x=rs.randn(B * K, H), wqkv=rs.randn(H, 3 * H) * 0.05,
+                bqkv=rs.randn(3 * H) * 0.02, wo=rs.randn(H, H) * 0.05,
+                bo=rs.randn(H) * 0.02)
+    return {k: v.astype(np.float32) for k, v in arrs.items()}, anc
+
+
+def _port_qkv(arrs, anc, pos, fn=bda.beam_decode_attention_qkv):
+    t = {k: torch.from_numpy(np.ascontiguousarray(
+        v.T if k in ("wqkv", "wo") else v)) for k, v in arrs.items()}
+    out = fn(t["x"], t["wqkv"], t["bqkv"], t["wo"], t["bo"], t["k_cache"],
+             t["v_cache"], t["prefix_k"], t["prefix_v"],
+             None if anc is None else torch.from_numpy(anc), pos,
+             num_heads=NH, beam_size=K, scale=SCALE)
+    return [x.numpy() for x in out]
+
+
+@pytest.mark.parametrize("anc_random", [True, False], ids=["anc", "anc_none"])
+@pytest.mark.parametrize("pos", [0, 3, S - 1])
+def test_qkv_plain_matches_pallas_kernel(pos, anc_random):
+    """The folded kernel's plain version against the Pallas folded kernel
+    (interpret mode): f32 output and appended caches to atol 1e-5."""
+    arrs, anc = _qkv_inputs(100 + pos * 2 + anc_random, anc_random)
+    j = {k: jnp.asarray(v) for k, v in arrs.items()}
+    want = fused_beam_decode_attention_qkv(
+        j["x"], j["wqkv"], j["bqkv"], j["wo"], j["bo"], j["k_cache"],
+        j["v_cache"], j["prefix_k"], j["prefix_v"],
+        None if anc is None else jnp.asarray(anc), jnp.asarray(pos),
+        num_heads=NH, beam_size=K, scale=SCALE, interpret=True)
+    got = _port_qkv(arrs, anc, pos)
+    for g, w, name in zip(got, want, ("out", "k_cache", "v_cache")):
+        np.testing.assert_allclose(g, np.asarray(w), atol=1e-5, rtol=0,
+                                   err_msg=name)
+
+
+def _qkv_args(dtype=torch.float32):
+    a = _torch_args(dtype)
+    z = lambda *s: torch.zeros(*s, dtype=dtype)  # noqa: E731
+    x = a.pop("q")
+    a.pop("k_new")
+    a.pop("v_new")
+    return dict(x=x, wqkv=z(3 * H, H), bqkv=z(3 * H), wo=z(H, H), bo=z(H),
+                **a)
+
+
+@pytest.mark.parametrize("change, match", [
+    (lambda a: a.update(x=a["x"].half()), "float32"),
+    (lambda a: a.update(wqkv=a["wqkv"].T.contiguous()), "wqkv shape"),
+    (lambda a: a.update(bo=a["bo"].to(torch.bfloat16)), "bo is"),
+    (lambda a: a.update(wo=a["wo"].T), "contiguous"),
+    (lambda a: a.update(x=torch.zeros(B * K, 36), wqkv=torch.zeros(108, 36),
+                        bqkv=torch.zeros(108), wo=torch.zeros(36, 36),
+                        bo=torch.zeros(36), num_heads=4), "multiple of 8"),
+    (lambda a: a.update(pos=-1), "pos"),
+    (lambda a: a.update(prefix_k=None), "both prefix"),
+])
+def test_qkv_checks_raise_on_what_it_does_not_take(change, match):
+    args = _qkv_args()
+    change(args)
+    with pytest.raises((TypeError, ValueError), match=match):
+        bda._check_qkv(**args)
+
+
+def test_qkv_checks_accept_served_shapes():
+    assert bda._check_qkv(**_qkv_args(torch.bfloat16)) == P
+
+
+def test_qkv_cpu_tensor_takes_plain_version_without_counting():
+    arrs, anc = _qkv_inputs(7, True)
+    before = bda.beam_decode_attention_qkv.launches
+    got = _port_qkv(arrs, anc, 4)
+    want = _port_qkv(arrs, anc, 4, fn=bda.beam_decode_attention_qkv_plain)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert bda.beam_decode_attention_qkv.launches == before

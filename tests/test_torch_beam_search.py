@@ -3,7 +3,10 @@
 penalty 0.8, min length 2) in the port and in the JAX package, from the
 same weights and images: tokens identical and scores within 1e-4 at f32.
 A vocabulary of 1000 takes the materialised log-softmax candidate path, one
-of 5000 the fused path (LSE + block maxima + fused top-k)."""
+of 5000 the fused path (LSE + block maxima + fused top-k). The port runs its
+default configuration (whole-stack decode, encoder fold) against the JAX
+package's XLA decode and, on the same switches, against its Pallas
+whole-stack decode and encoder kernels in interpret mode."""
 
 import functools
 
@@ -24,8 +27,8 @@ B = 3
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_decoder(vocab, hf_compat):
-    cfg, model = both_models(0, vocab=vocab)[:2]
+def _jax_decoder(vocab, hf_compat, decode_kernel="xla"):
+    cfg, model = both_models(0, vocab=vocab, decode_kernel=decode_kernel)[:2]
     mc, ic = cfg.model, cfg.inference
 
     @jax.jit
@@ -73,6 +76,25 @@ def test_beam_search_without_hf_rules_matches_jax():
     images = images_uint8(20, n=B)
     want = _jax_decoder(1000, False)(variables, jax_images(images))
     got = _port_decode(cfg, port, images, False)
+    np.testing.assert_array_equal(got.tokens.numpy(),
+                                  np.asarray(want.tokens))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_beam_search_on_default_configuration_matches_jax(seed, monkeypatch):
+    """The default configuration in both packages: whole-stack decode and
+    encoder fold (JAX's Pallas kernels in interpret mode, the encoder
+    forced on as its CPU tests do; the port's plain versions)."""
+    for name in ("ICT_DECODE_STACK", "ICT_DECODE_FOLD"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("ICT_ENCODER_FOLD", "force")
+    cfg, _, variables, port = both_models(seed, vocab=5000,
+                                          decode_kernel="pallas")
+    images = images_uint8(seed + 30, n=B)
+    want = _jax_decoder(5000, True, "pallas")(variables, jax_images(images))
+    got = _port_decode(cfg, port, images, True)
     np.testing.assert_array_equal(got.tokens.numpy(),
                                   np.asarray(want.tokens))
     np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),

@@ -1,6 +1,8 @@
 """The port's hand-written kernels on the card, against their plain PyTorch
-versions: beam-decode attention (CUDA C++) and LSE/block-max (Triton), then
-a tiny model's decode on the card against the same decode on the CPU.
+versions: beam-decode attention, folded-QKV attention, the whole-stack
+GPT-2 decode step and the whole-stack CLIP encoder (CUDA C++), and
+LSE/block-max (Triton); then a tiny model's decode on the card against the
+same decode on the CPU, on each decode configuration.
 
 Every test needs an NVIDIA GPU (marker ``cuda``) and skips elsewhere. The
 file imports neither JAX nor the repository's conftest helpers, so it runs
@@ -22,7 +24,11 @@ from image_captioning_ml_project_tpu_torch.models.captioning_model import (
     load_model)
 from image_captioning_ml_project_tpu_torch.ops import beam_decode_attention \
     as bda
+from image_captioning_ml_project_tpu_torch.ops import beam_decode_stack as bds
+from image_captioning_ml_project_tpu_torch.ops import encoder_stack as es
 from image_captioning_ml_project_tpu_torch.ops import lse as port_lse
+from image_captioning_ml_project_tpu_torch.ops._checks import (LN_KEYS,
+                                                                stack_shapes)
 
 pytestmark = pytest.mark.cuda
 
@@ -34,6 +40,8 @@ def dev():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the plain versions' bf16 GEMMs round once, from f32 sums
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda:0")
 
 
@@ -123,9 +131,167 @@ def test_lse_kernel_reads_a_row_strided_view(dev):
     assert torch.equal(bm.cpu(), want_bm)
 
 
+def _stack_weights(L, H, F, dtype, seed):
+    """Layer-stacked weights at GPT-2's initial scale (LayerNorm f32)."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, shape in stack_shapes(L, H, F).items():
+        t = torch.randn(shape, generator=g)
+        out[name] = (t * 0.1 + (1.0 if name[0] == "g" else 0.0)
+                     if name in LN_KEYS else (t * 0.02).to(dtype))
+    return out
+
+
+def _close(got, want, dtype, f32_rel, bf16_ulps):
+    """float32: within ``f32_rel`` of the largest magnitude (the GEMMs sum
+    in another order than cuBLAS); bfloat16: within ``bf16_ulps`` bf16 ulps
+    of it (an f32 sum that lands near a rounding boundary rounds the other
+    way, and the layers carry that on)."""
+    err = float((got.float() - want.float()).abs().max())
+    mag = float(want.float().abs().max())
+    tol = f32_rel * mag if dtype == torch.float32 \
+        else bf16_ulps * _bf16_ulp(want.float())
+    assert err <= tol, (err, tol)
+
+
+def _untouched_but_pos(got, before, pos):
+    rest = [t for t in range(got.shape[-2]) if t != pos]
+    assert torch.equal(got[..., rest, :], before[..., rest, :])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,S,P,NH,H,pos,anc", [
+    (64, 5, 20, 10, 12, 768, 19, True),   # served shapes, last step
+    (64, 5, 20, 10, 12, 768, 0, True),    # first step
+    (3, 1, 7, 2, 2, 48, 3, False),        # K=1, no ancestry, ragged tiles
+])
+def test_attention_qkv_kernel_matches_plain(dev, dtype, B, K, S, P, NH, H,
+                                            pos, anc):
+    inputs = _attention_inputs(B, K, S, P, H, seed=S + pos + 1)
+    w = _stack_weights(1, H, 4 * H, dtype, seed=H)
+    t = {k: (v.to(dev) if k == "anc_local" else v.to(dev, dtype))
+         for k, v in inputs.items()}
+    ws = [w[k][0].to(dev) for k in ("wqkv", "bqkv", "wo", "bo")]
+    out = {}
+    for fn in (bda.beam_decode_attention_qkv,
+               bda.beam_decode_attention_qkv_plain):
+        kc, vc = t["k_cache"].clone(), t["v_cache"].clone()
+        before = bda.beam_decode_attention_qkv.launches
+        o, kc, vc = fn(t["q"], *ws, kc, vc, t["prefix_k"], t["prefix_v"],
+                       t["anc_local"] if anc else None, pos, num_heads=NH,
+                       beam_size=K, scale=(H // NH) ** -0.5)
+        torch.cuda.synchronize()
+        launched = bda.beam_decode_attention_qkv.launches - before
+        assert launched == (fn is bda.beam_decode_attention_qkv)
+        _untouched_but_pos(kc, t["k_cache"], pos)
+        _untouched_but_pos(vc, t["v_cache"], pos)
+        out[fn] = (o, kc[:, pos], vc[:, pos])
+    got, want = out.values()
+    _close(got[0], want[0], dtype, 1e-5, 4)
+    for g, w_ in zip(got[1:], want[1:]):
+        _close(g, w_, dtype, 1e-5, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,B,K,S,P,NH,H,pos,anc", [
+    (12, 64, 5, 20, 10, 12, 768, 19, True),   # served shapes
+    (2, 4, 3, 9, 2, 4, 64, 0, True),          # first step, small
+    (3, 3, 1, 7, 3, 2, 48, 5, False),         # K=1, no ancestry
+])
+def test_stack_kernel_matches_plain(dev, dtype, L, B, K, S, P, NH, H, pos,
+                                    anc):
+    g = torch.Generator().manual_seed(L * 100 + pos)
+    Bk = B * K
+    x = torch.randn((Bk, H), generator=g).to(dev, dtype)
+    caches = [torch.randn((L, Bk, S, H), generator=g).to(dev, dtype)
+              for _ in range(2)]
+    pk, pv = (torch.randn((L, B, P, H), generator=g).to(dev, dtype)
+              for _ in range(2))
+    a = torch.randint(0, K, (Bk, S), generator=g, dtype=torch.int32).to(dev)
+    w = {k: v.to(dev) for k, v in _stack_weights(L, H, 4 * H, dtype,
+                                                 seed=H).items()}
+    out = []
+    for fn in (bds.beam_decode_stack, bds.beam_decode_stack_plain):
+        kc, vc = caches[0].clone(), caches[1].clone()
+        before = bds.beam_decode_stack.launches
+        o, kc, vc = fn(x, w, kc, vc, pk, pv, a if anc else None, pos,
+                       num_heads=NH, beam_size=K, scale=(H // NH) ** -0.5)
+        torch.cuda.synchronize()
+        assert bds.beam_decode_stack.launches - before == (
+            fn is bds.beam_decode_stack)
+        _untouched_but_pos(kc, caches[0], pos)
+        _untouched_but_pos(vc, caches[1], pos)
+        out.append((o, kc[..., pos, :], vc[..., pos, :]))
+    for got, want in zip(*out):
+        _close(got, want, dtype, 1e-4, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,B,T,NH,H", [
+    (12, 64, 50, 12, 768),  # served: CLIP ViT-B/32 at 224x224
+    (2, 3, 7, 4, 64),       # few tokens, ragged tiles
+    (1, 2, 80, 2, 128),     # attention above 48 KB of shared memory
+])
+def test_encoder_kernel_matches_plain(dev, dtype, L, B, T, NH, H):
+    g = torch.Generator().manual_seed(T)
+    x = torch.randn((B, T, H), generator=g).to(dev, dtype)
+    w = {k: v.to(dev) for k, v in _stack_weights(L, H, 4 * H, dtype,
+                                                 seed=T).items()}
+    before = es.encoder_stack.launches
+    with torch.inference_mode():
+        got = es.encoder_stack(x, w, num_heads=NH)
+        want = es.encoder_stack_plain(x, w, num_heads=NH)
+    torch.cuda.synchronize()
+    assert es.encoder_stack.launches == before + 1
+    _close(got, want, dtype, 1e-4, 8)
+
+
+def test_fused_kernels_raise_on_what_they_do_not_take(dev):
+    x = torch.zeros((6, 36), device=dev)
+    w = {k: v.to(dev) for k, v in _stack_weights(1, 36, 144, torch.float32,
+                                                 seed=0).items()}
+    caches = torch.zeros((1, 6, 4, 36), device=dev)
+    prefix = torch.zeros((1, 2, 1, 36), device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bds.beam_decode_stack(x, w, caches, caches.clone(), prefix,
+                              prefix.clone(), None, 0, num_heads=4,
+                              beam_size=3, scale=1.0)
+    with pytest.raises(ValueError, match="expected"):
+        es.encoder_stack(torch.zeros((2, 5, 64), device=dev),
+                         {k: v.cpu() for k, v in _stack_weights(
+                             1, 64, 256, torch.float32, seed=0).items()},
+                         num_heads=4)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bda.beam_decode_attention_qkv(
+            x.half(), *(w[k][0].half() for k in ("wqkv", "bqkv", "wo", "bo")),
+            caches[0].half(), caches[0].half(), None, None, None, 0,
+            num_heads=4, beam_size=3, scale=1.0)
+
+
+_CONFIGS = {"stack": ("1", "1", "1"), "fold": ("0", "1", "1"),
+            "split": ("0", "0", "0")}
+
+
+@pytest.mark.parametrize("config", ["fold", "split"])
+def test_tiny_model_decode_on_each_configuration_matches_cpu(
+        dev, config, monkeypatch):
+    """f32, per decode configuration (the default one is the test
+    below)."""
+    for name, value in zip(("ICT_DECODE_STACK", "ICT_DECODE_FOLD",
+                            "ICT_ENCODER_FOLD"), _CONFIGS[config]):
+        monkeypatch.setenv(name, value)
+    _tiny_decode_matches_cpu(dev, 5000)
+
+
 @pytest.mark.parametrize("vocab", [1000, 5000])
 def test_tiny_model_decode_on_the_card_matches_cpu(dev, vocab):
-    """f32: the kernels' decode equals the plain versions' decode."""
+    """f32: the kernels' decode equals the plain versions' decode (on the
+    configuration the switches choose, by default stack + encoder
+    fold)."""
+    _tiny_decode_matches_cpu(dev, vocab)
+
+
+def _tiny_decode_matches_cpu(dev, vocab):
     c = flagship_config()
     e, d = c.model.encoder, c.model.decoder
     e.hidden_size = e.feature_dim = d.hidden_dim = 64

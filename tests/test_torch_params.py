@@ -1,7 +1,9 @@
 """Weight bridge (port: params.py) and the bf16 cast policy (port:
 utils/amp.py): every flax leaf is mapped, an extra or a missing leaf
 raises, the seeded initialisation has the flax layout, and norms stay f32
-under the cast."""
+under the cast. The layer-stacked weights of the whole-stack kernels equal
+the JAX package's (``_stacked_weights`` and the encoder fold's stack) and
+are the model's parameters, not copies."""
 
 import copy
 
@@ -18,7 +20,8 @@ from image_captioning_ml_project_tpu_torch.models.layers import LayerNorm
 from image_captioning_ml_project_tpu_torch.params import (from_flax,
                                                           init_flax_params)
 from image_captioning_ml_project_tpu_torch.utils.amp import cast_float_params
-from torch_port_helpers import both_models, tiny_config
+from torch_port_helpers import both_models, images_uint8, jax_images, \
+    tiny_config
 
 torch.set_num_threads(1)
 
@@ -113,3 +116,62 @@ def test_cast_float_params_keeps_norms_f32_like_jax():
     n_norm = sum(isinstance(m, LayerNorm) for m in model.modules())
     assert len(kept) == 2 * n_norm
     assert cast_float_params(model) is model
+
+
+_MATRICES = ("wqkv", "wo", "wfc", "wpj")
+
+
+def _assert_stack_equal(port_stack, jax_stack):
+    assert set(port_stack) == set(jax_stack)
+    for key, want in jax_stack.items():
+        want = np.asarray(want)
+        if key in _MATRICES:  # flax [L, in, out]; port nn.Linear [L, out, in]
+            want = want.transpose(0, 2, 1)
+        np.testing.assert_array_equal(port_stack[key].float().numpy(),
+                                      want.astype(np.float32), err_msg=key)
+
+
+@pytest.mark.parametrize("fused_qkv", [False, True],
+                         ids=["unfused_qkv", "fused_qkv"])
+def test_stacked_weights_equal_jax(fused_qkv, monkeypatch):
+    """The decoder stack equals JAX's ``_stacked_weights()``; the encoder
+    stack equals what JAX's ``_fold_forward`` hands its kernel (q/k/v
+    concatenated); each layer's parameter is a view of its slice."""
+    _, model, variables, port = both_models(0, fused_qkv=fused_qkv)
+    _assert_stack_equal(port.decoder.stack, model.apply(
+        variables, method=lambda m: m.decoder._stacked_weights()))
+
+    import image_captioning_ml_project_tpu.ops.pallas_encoder as pe
+
+    seen = []
+    real = pe.fused_encoder_stack
+    monkeypatch.setattr(pe, "fused_encoder_stack",
+                        lambda x, stack, *a, **k: (seen.append(stack),
+                                                   real(x, stack, *a,
+                                                        **k))[1])
+    monkeypatch.setenv("ICT_ENCODER_FOLD", "force")
+    model.apply(variables, jax_images(images_uint8(0)), method=model.encode)
+    _assert_stack_equal(port.encoder.backbone.stack, seen[0])
+
+    block = port.decoder.backbone.blocks[1]
+    assert block.mlp.c_fc.weight.data_ptr() == \
+        port.decoder.stack["wfc"][1].data_ptr()
+    layer = port.encoder.backbone.layers[1]
+    assert layer.layer_norm2.bias.data_ptr() == \
+        port.encoder.backbone.stack["b2"][1].data_ptr()
+
+
+def test_stacked_weights_follow_the_cast():
+    """In a bf16 model the stacked matrices and biases are bf16 and the
+    LayerNorm scales and biases stay f32, as JAX's ``_stacked_weights``
+    keeps them."""
+    cfg, _, variables, _ = both_models(0)
+    cfg = copy.deepcopy(cfg)
+    cfg.model.dtype = "bfloat16"
+    port = load_model(cfg, "cpu", params=variables)
+    for stack in (port.decoder.stack, port.encoder.backbone.stack):
+        for key, t in stack.items():
+            want = (torch.float32 if key in ("g1", "b1", "g2", "b2")
+                    else torch.bfloat16)
+            assert t.dtype == want and t.is_contiguous(), key
+    assert port.decoder.stack["wqkv"].shape == (2, 192, 64)
