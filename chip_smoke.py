@@ -11,31 +11,47 @@ prints no result line:
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; TF32 and bf16 reduced-precision GEMM reductions off for the
    comparisons;
-2. build: compiles the four ``csrc/*.cu`` libraries with nvcc from the
+2. build: compiles the five ``csrc/*.cu`` libraries with nvcc from the
    checkout, one process each, all started together, and prints ptxas's
    register and spill lines (the Triton kernel compiles at its first
    launch);
-3. kernels: each of the five kernels against its plain PyTorch version on
-   the card, at the served shapes, in float32 and bfloat16, with its
-   tolerance, and both timed (CUDA events, median of 30 runs);
-4. reference: the full-width model in float32 decodes two images on the
+3. kernels: each of the six kernels against its plain PyTorch version on
+   the card, at the served shapes of each family that runs it (the
+   beam-decode attention kernels prefix-free for the Transformer decoder
+   and behind a 10-row prefix for GPT-2; the LSE over vocabularies of
+   30000 and 50257), in float32 and bfloat16, with its tolerance, and
+   both timed (CUDA events, median of 30 runs), beside the
+   least time the card could take for the same work (``bound_ms``: the
+   larger of the bytes over 3.35 TB/s and the operations over the peak
+   rate of their type) and, where one PyTorch call computes the same
+   function, that call's time (``library_ms``);
+4. reference: the full-width models in float32 decode two images on the
    card (through the kernels) and on the CPU (plain versions), on each
-   decode configuration (stack + encoder fold, fold, split); tokens must be
-   identical and scores agree to 1e-4;
+   decode configuration (CLIP + GPT-2: stack + encoder fold, fold, split;
+   ViT + Transformer decoder: fold, split); tokens must be identical and
+   scores agree to 1e-4;
 5. encode A/B: the bf16 CLIP encode of 64 images with and without the
    encoder fold, timed in turns;
-6. serve: ``CaptionService`` at full width on the card — CLIP ViT-B/32 +
-   GPT-2 (12 layers, width 768, vocab 50257), bf16 weights from the seed,
-   beam 5, max length 20, batch 64, buckets 1/8/64 — behind its HTTP front
-   end. On the default configuration three rounds of 64 concurrent
+6. serve: ``CaptionService`` at full width on the card, bf16 weights from
+   the seed, beam 5, max length 20, batch 64, buckets 1/8/64, behind its
+   HTTP front end. First the Transformer family, this slice's path —
+   ViT-B/16 + 6-layer Transformer decoder (width 768, 12 heads, vocab
+   30000): on its default (fold) configuration one round of 64 concurrent
    requests and three single ones; then one round of 64 with
+   ``ICT_DECODE_FOLD=0`` (split). Then CLIP ViT-B/32 + GPT-2 (12 layers,
+   width 768, vocab 50257): on the default configuration three rounds of
+   64 and three single requests; then one round of 64 with
    ``ICT_DECODE_STACK=0`` (fold) and one with all three switches ``0``
    (split). Every request must be captioned, and the launch counters, set
-   to 0 before each configuration's rounds, must show that every decode
-   step (and layer) and every encoded batch went through the kernels.
+   to 0 just before each configuration's rounds and read just after, must
+   show that every decode step (and layer) and every encoded batch went
+   through the kernels.
 
 The last two lines are a JSON summary of the kernels and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. Each kernel's entry holds its numbers
+and launches for the Transformer family where that family runs it, else
+for the flagship; the other family's, where it has its own shape, are
+under ``other_shapes``.
 """
 
 import argparse
@@ -96,90 +112,163 @@ def bf16_ulp(ref):
     return 2.0 ** (math.floor(math.log2(mag)) - 7) if mag > 0 else 2.0 ** -133
 
 
+# the card's published peaks (H100 SXM data sheet, dense): device memory,
+# bf16 on the tensor cores, float32 on the CUDA cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "f32": 67e12}
+
+
+def bound(nbytes, ops):
+    """The least time the card could take: the larger of ``nbytes`` over
+    the memory rate and the operations over their type's peak; ``ops``
+    maps a peak of :data:`PEAK_OPS_PER_S` to a count. Operations of two
+    types run on separate units, so the larger of their times bounds them.
+    Returns ``{"bound_ms", "bound_by"}``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(n / PEAK_OPS_PER_S[k] * 1e3 for k, n in ops.items())
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def cache_rows_read(torch, anc, pos, K):
+    """Distinct cache rows (beam row, position) that positions < ``pos``
+    read through the ancestry ``anc`` [Bk, S]: the K beams of an image
+    often read the same row, which is read once."""
+    Bk, S = anc.shape
+    rows = (torch.arange(Bk, device=anc.device)[:, None] // K * K
+            + anc[:, :pos].long())
+    return int(torch.unique(rows * S + torch.arange(pos, device=anc.device)
+                            ).numel())
+
+
+def attention_work(torch, anc, pos, B, K, H, P, item, layers=1):
+    """Bytes and f32 operations of the beam attention over ``layers``
+    layers: the distinct cache rows read, the prefix, the ancestry, the
+    step's rows appended; scores and the mix, 4 operations per head dim of
+    each (row, position)."""
+    Bk = B * K
+    rows = cache_rows_read(torch, anc, pos, K)
+    nbytes = layers * (2 * rows * H + 2 * B * P * H + 2 * Bk * H) * item \
+        + Bk * pos * 4
+    return nbytes, layers * 4 * Bk * H * (pos + P + 1)
+
+
+# the shapes the beam-decode kernels meet at batch 64, 5 beams, 20 steps,
+# width 768, 12 heads: GPT-2 behind its 10-row image prefix, and the
+# Transformer decoder, prefix-free
+ATTENTION_SHAPES = (("transformer", 0), ("flagship", 10))
+
+
+def shape_entry(shape, err, ms, plain_ms, bnd, library_ms=None):
+    """One shape's numbers for the summary line."""
+    return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **bnd, library_ms=library_ms)
+
+
 def check_attention(torch, dev, results):
     from image_captioning_ml_project_tpu_torch.ops.beam_decode_attention import (
         beam_decode_attention, beam_decode_attention_plain)
 
-    B, K, S, H, NH, P = 64, 5, 20, 768, 12, 10
+    B, K, S, H, NH = 64, 5, 20, 768, 12
     Bk = B * K
     scale = 1.0 / (H // NH) ** 0.5
     g = torch.Generator(device=dev).manual_seed(1234)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    worst_bf16 = 0.0
-    timing = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        def randn(*shape):
-            return torch.randn(shape, generator=g, device=dev).to(dtype)
+    out = {}
+    for family, P in ATTENTION_SHAPES:
+        worst_bf16, timing = 0.0, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            def randn(*shape):
+                return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-        for pos in (0, 7, 19):
-            q, kn, vn = randn(Bk, H), randn(Bk, H), randn(Bk, H)
-            kc, vc = randn(Bk, S, H), randn(Bk, S, H)
-            pk, pv = randn(B, P, H), randn(B, P, H)
-            anc = torch.randint(0, K, (Bk, S), generator=g, device=dev,
-                                dtype=torch.int32)
-            kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-            args = dict(num_heads=NH, beam_size=K, scale=scale)
-            got, _, _ = beam_decode_attention(q, kn, vn, kc1, vc1, pk, pv,
-                                              anc, pos, **args)
-            want, _, _ = beam_decode_attention_plain(q, kn, vn, kc2, vc2, pk,
-                                                     pv, anc, pos, **args)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            if dtype == torch.float32:
-                tol = 1e-5 + 1e-5 * float(want.abs().max())
-                ok = torch.allclose(got, want, atol=1e-5, rtol=1e-5)
-            else:
-                tol = 2 * bf16_ulp(want.float())
-                ok = err <= tol
-                worst_bf16 = max(worst_bf16, err)
-            caches_equal = torch.equal(kc1, kc2) and torch.equal(vc1, vc2)
-            print(f"attention {str(dtype)[6:]} pos={pos}: max_abs_err={err:.3e}"
-                  f" (tol {tol:.3e}), caches bit-identical={caches_equal}",
-                  flush=True)
-            check(ok, f"attention {dtype} pos={pos}: error {err} > {tol}")
-            check(caches_equal, f"attention {dtype} pos={pos}: caches differ")
-            if dtype == torch.bfloat16:
-                ms = time_ms(torch, lambda: beam_decode_attention(
-                    q, kn, vn, kc1, vc1, pk, pv, anc, pos, **args),
-                    flush=flush)
-                plain_ms = time_ms(torch, lambda: beam_decode_attention_plain(
-                    q, kn, vn, kc2, vc2, pk, pv, anc, pos, **args),
-                    flush=flush)
-                timing[pos] = (ms, plain_ms)
-                print(f"attention bf16 pos={pos}: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms (L2 flushed before each run)",
-                      flush=True)
-    ms, plain_ms = timing[19]
-    results["beam_decode_attention"] = dict(max_abs_err=worst_bf16, ms=ms,
-                                            plain_ms=plain_ms)
+            for pos in (0, 7, 19):
+                q, kn, vn = randn(Bk, H), randn(Bk, H), randn(Bk, H)
+                kc, vc = randn(Bk, S, H), randn(Bk, S, H)
+                pk, pv = (randn(B, P, H), randn(B, P, H)) if P else (None,
+                                                                     None)
+                anc = torch.randint(0, K, (Bk, S), generator=g, device=dev,
+                                    dtype=torch.int32)
+                kc1, vc1 = kc.clone(), vc.clone()
+                kc2, vc2 = kc.clone(), vc.clone()
+                args = dict(num_heads=NH, beam_size=K, scale=scale)
+                got, _, _ = beam_decode_attention(q, kn, vn, kc1, vc1, pk, pv,
+                                                  anc, pos, **args)
+                want, _, _ = beam_decode_attention_plain(
+                    q, kn, vn, kc2, vc2, pk, pv, anc, pos, **args)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                if dtype == torch.float32:
+                    tol = 1e-5 + 1e-5 * float(want.abs().max())
+                    ok = torch.allclose(got, want, atol=1e-5, rtol=1e-5)
+                else:
+                    tol = 2 * bf16_ulp(want.float())
+                    ok = err <= tol
+                    worst_bf16 = max(worst_bf16, err)
+                caches_equal = torch.equal(kc1, kc2) and torch.equal(vc1, vc2)
+                what = f"attention {str(dtype)[6:]} P={P} pos={pos}"
+                print(f"{what}: max_abs_err={err:.3e} (tol {tol:.3e}), "
+                      f"caches bit-identical={caches_equal}", flush=True)
+                check(ok, f"{what}: error {err} > {tol}")
+                check(caches_equal, f"{what}: caches differ")
+                if dtype == torch.bfloat16:
+                    ms = time_ms(torch, lambda: beam_decode_attention(
+                        q, kn, vn, kc1, vc1, pk, pv, anc, pos, **args),
+                        flush=flush)
+                    plain_ms = time_ms(
+                        torch, lambda: beam_decode_attention_plain(
+                            q, kn, vn, kc2, vc2, pk, pv, anc, pos, **args),
+                        flush=flush)
+                    nbytes, ops = attention_work(torch, anc, pos, B, K, H, P,
+                                                 2)
+                    timing[pos] = (ms, plain_ms, bound(
+                        nbytes + 4 * Bk * H * 2, {"f32": ops}))
+                    print(f"attention bf16 P={P} pos={pos}: kernel {ms:.4f} "
+                          f"ms, plain {plain_ms:.4f} ms (L2 flushed before "
+                          f"each run)", flush=True)
+        # no one PyTorch call reads a cache through a beam ancestry and
+        # appends
+        out[family] = shape_entry(
+            f"B={B} K={K} S={S} H={H} P={P} pos=19 bf16", worst_bf16,
+            *timing[19])
+    results["beam_decode_attention"] = out
 
 
 def check_lse(torch, dev, results):
     from image_captioning_ml_project_tpu_torch.ops.lse import (
         lse_and_block_max, lse_and_block_max_plain)
 
-    R, V = 320, 50257
+    R = 320
     g = torch.Generator(device=dev).manual_seed(4321)
-    logits = (torch.randn((R, V), generator=g, device=dev) * 3).to(
-        torch.bfloat16)
-    lse, bm = lse_and_block_max(logits)
-    lse_p, bm_p = lse_and_block_max_plain(logits)
-    torch.cuda.synchronize()
-    err = float((lse - lse_p).abs().max())
-    rel = float(((lse - lse_p).abs() / lse_p.abs()).max())
-    bm_exact = bool(torch.equal(bm, bm_p))
-    print(f"lse_and_block_max bf16 [{R}, {V}]: lse max_abs_err={err:.3e} "
-          f"max_rel_err={rel:.3e} (rtol 1e-5), block maxima exact={bm_exact}",
-          flush=True)
-    check(rel <= 1e-5, f"lse relative error {rel} > 1e-5")
-    check(bm_exact, "block maxima differ from the plain version")
-    ms = time_ms(torch, lambda: lse_and_block_max(logits))
-    plain_ms = time_ms(torch, lambda: lse_and_block_max_plain(logits))
-    print(f"lse_and_block_max bf16 [{R}, {V}]: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms (logits L2-warm, as after the LM head)",
-          flush=True)
-    results["lse_and_block_max"] = dict(max_abs_err=err, ms=ms,
-                                        plain_ms=plain_ms)
+    out = {}
+    # the Transformer decoder's vocabulary and GPT-2's
+    for family, V in (("transformer", 30000), ("flagship", 50257)):
+        logits = (torch.randn((R, V), generator=g, device=dev) * 3).to(
+            torch.bfloat16)
+        lse, bm = lse_and_block_max(logits)
+        lse_p, bm_p = lse_and_block_max_plain(logits)
+        torch.cuda.synchronize()
+        err = float((lse - lse_p).abs().max())
+        rel = float(((lse - lse_p).abs() / lse_p.abs()).max())
+        bm_exact = bool(torch.equal(bm, bm_p))
+        print(f"lse_and_block_max bf16 [{R}, {V}]: lse max_abs_err={err:.3e} "
+              f"max_rel_err={rel:.3e} (rtol 1e-5), block maxima "
+              f"exact={bm_exact}", flush=True)
+        check(rel <= 1e-5, f"lse [{R}, {V}]: relative error {rel} > 1e-5")
+        check(bm_exact, f"lse [{R}, {V}]: block maxima differ from the plain "
+                        f"version")
+        ms = time_ms(torch, lambda: lse_and_block_max(logits))
+        plain_ms = time_ms(torch, lambda: lse_and_block_max_plain(logits))
+        print(f"lse_and_block_max bf16 [{R}, {V}]: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (logits L2-warm, as after the LM head)",
+              flush=True)
+        nblk = -(-V // 512)
+        # one read of the logits, the LSE and block maxima written; a max,
+        # an exp and a sum per logit. No one PyTorch call gives both
+        # outputs.
+        out[family] = shape_entry(
+            f"[{R}, {V}] bf16", err, ms, plain_ms,
+            bound(R * V * 2 + R * 4 * (1 + nblk), {"f32": 3 * R * V}))
+    results["lse_and_block_max"] = out
 
 
 def max_err(got, want):
@@ -232,57 +321,71 @@ def _dense_weights(torch, g, dev, dtype, L, H, F):
     return out
 
 
+def stack_bytes(w):
+    return sum(t.numel() * t.element_size() for t in w.values())
+
+
 def check_attention_qkv(torch, dev, results):
     from image_captioning_ml_project_tpu_torch.ops.beam_decode_attention import (
         beam_decode_attention_qkv, beam_decode_attention_qkv_plain)
 
-    B, K, S, H, NH, P = 64, 5, 20, 768, 12, 10
+    B, K, S, H, NH = 64, 5, 20, 768, 12
     Bk = B * K
     scale = 1.0 / (H // NH) ** 0.5
     g = torch.Generator(device=dev).manual_seed(2345)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    worst, timing = 0.0, {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype)[6:]
-        w = _dense_weights(torch, g, dev, dtype, 1, H, 4 * H)
+    out = {}
+    for family, P in ATTENTION_SHAPES:
+        worst, timing = 0.0, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            w = _dense_weights(torch, g, dev, dtype, 1, H, 4 * H)
 
-        def randn(*shape):
-            return torch.randn(shape, generator=g, device=dev).to(dtype)
+            def randn(*shape):
+                return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-        for pos in (0, 7, 19):
-            x = randn(Bk, H)
-            kc, vc = randn(Bk, S, H), randn(Bk, S, H)
-            pk, pv = randn(B, P, H), randn(B, P, H)
-            anc = torch.randint(0, K, (Bk, S), generator=g, device=dev,
-                                dtype=torch.int32)
-            kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-            ws = (w["wqkv"][0], w["bqkv"][0], w["wo"][0], w["bo"][0])
-            args = dict(num_heads=NH, beam_size=K, scale=scale)
-            got, _, _ = beam_decode_attention_qkv(x, *ws, kc1, vc1, pk, pv,
-                                                  anc, pos, **args)
-            want, _, _ = beam_decode_attention_qkv_plain(
-                x, *ws, kc2, vc2, pk, pv, anc, pos, **args)
-            torch.cuda.synchronize()
-            what = f"attention_qkv {name} pos={pos}"
-            err = check_close(what, got, want, name, 1e-5, 4)
-            for c, (a, b, o) in (("k", (kc1, kc2, kc)), ("v", (vc1, vc2, vc))):
-                check_appended(f"{what} {c}_cache", a, b, o, pos, name, 1e-5,
-                               1)
-            if dtype == torch.bfloat16:
-                worst = max(worst, err)
-                ms = time_ms(torch, lambda: beam_decode_attention_qkv(
-                    x, *ws, kc1, vc1, pk, pv, anc, pos, **args), flush=flush)
-                plain_ms = time_ms(
-                    torch, lambda: beam_decode_attention_qkv_plain(
-                        x, *ws, kc2, vc2, pk, pv, anc, pos, **args),
-                    flush=flush)
-                timing[pos] = (ms, plain_ms)
-                print(f"attention_qkv bf16 pos={pos}: kernel {ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms (L2 flushed before each run)",
-                      flush=True)
-    ms, plain_ms = timing[19]
-    results["beam_decode_attention_qkv"] = dict(max_abs_err=worst, ms=ms,
-                                                plain_ms=plain_ms)
+            for pos in (0, 7, 19):
+                x = randn(Bk, H)
+                kc, vc = randn(Bk, S, H), randn(Bk, S, H)
+                pk, pv = (randn(B, P, H), randn(B, P, H)) if P else (None,
+                                                                     None)
+                anc = torch.randint(0, K, (Bk, S), generator=g, device=dev,
+                                    dtype=torch.int32)
+                kc1, vc1 = kc.clone(), vc.clone()
+                kc2, vc2 = kc.clone(), vc.clone()
+                ws = (w["wqkv"][0], w["bqkv"][0], w["wo"][0], w["bo"][0])
+                args = dict(num_heads=NH, beam_size=K, scale=scale)
+                got, _, _ = beam_decode_attention_qkv(
+                    x, *ws, kc1, vc1, pk, pv, anc, pos, **args)
+                want, _, _ = beam_decode_attention_qkv_plain(
+                    x, *ws, kc2, vc2, pk, pv, anc, pos, **args)
+                torch.cuda.synchronize()
+                what = f"attention_qkv {name} P={P} pos={pos}"
+                err = check_close(what, got, want, name, 1e-5, 4)
+                for c, (a, b, o) in (("k", (kc1, kc2, kc)),
+                                     ("v", (vc1, vc2, vc))):
+                    check_appended(f"{what} {c}_cache", a, b, o, pos, name,
+                                   1e-5, 1)
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+                    ms = time_ms(torch, lambda: beam_decode_attention_qkv(
+                        x, *ws, kc1, vc1, pk, pv, anc, pos, **args),
+                        flush=flush)
+                    plain_ms = time_ms(
+                        torch, lambda: beam_decode_attention_qkv_plain(
+                            x, *ws, kc2, vc2, pk, pv, anc, pos, **args),
+                        flush=flush)
+                    nbytes, ops = attention_work(torch, anc, pos, B, K, H, P,
+                                                 2)
+                    nbytes += (2 * Bk * H + 4 * H * H + 4 * H) * 2
+                    timing[pos] = (ms, plain_ms, bound(nbytes, {
+                        "f32": ops, "bf16_tensor": 8 * Bk * H * H}))
+                    print(f"attention_qkv bf16 P={P} pos={pos}: kernel "
+                          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (L2 flushed "
+                          f"before each run)", flush=True)
+        out[family] = shape_entry(
+            f"B={B} K={K} S={S} H={H} P={P} pos=19 bf16", worst, *timing[19])
+    results["beam_decode_attention_qkv"] = out
 
 
 def check_stack(torch, dev, results):
@@ -325,13 +428,18 @@ def check_stack(torch, dev, results):
                     x, w, kc1, vc1, pk, pv, anc, pos, **args))
                 plain_ms = time_ms(torch, lambda: beam_decode_stack_plain(
                     x, w, kc2, vc2, pk, pv, anc, pos, **args))
-                timing[pos] = (ms, plain_ms)
+                nbytes, ops = attention_work(torch, anc, pos, B, K, H, P, 2,
+                                             layers=L)
+                nbytes += stack_bytes(w) + 2 * Bk * H * 2
+                timing[pos] = (ms, plain_ms, bound(nbytes, {
+                    "f32": ops, "bf16_tensor": L * 24 * Bk * H * H}))
                 print(f"stack bf16 pos={pos}: kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms (170 MB of weights per step: above "
                       f"L2, no flush)", flush=True)
-    ms, plain_ms = timing[19]
-    results["beam_decode_stack"] = dict(max_abs_err=worst, ms=ms,
-                                        plain_ms=plain_ms)
+    ms, plain_ms, bnd = timing[19]
+    results["beam_decode_stack"] = {"flagship": shape_entry(
+        f"L={L} B={B} K={K} S={S} H={H} P={P} pos=19 bf16", worst, ms,
+        plain_ms, bnd)}
 
 
 def check_encoder(torch, dev, results):
@@ -360,14 +468,93 @@ def check_encoder(torch, dev, results):
     print(f"encoder bf16 [{B}, {T}, {H}] x {L} layers: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms (170 MB of weights: above L2, no flush)",
           flush=True)
-    results["encoder_stack"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # GEMMs: 2 * rows * 12 H^2 per layer on the tensor cores; attention: 4
+    # operations per head dim of each (token, token) pair, in f32
+    results["encoder_stack"] = {"flagship": shape_entry(
+        f"L={L} B={B} T={T} H={H} bf16", err, ms, plain_ms,
+        bound(stack_bytes(w) + 2 * B * T * H * 2,
+              {"bf16_tensor": L * 24 * B * T * H * H,
+               "f32": L * 4 * B * T * T * H}))}
+
+
+def check_cross(torch, dev, results):
+    """The Transformer decoder's cross-attention step at the served shapes
+    (64 images x 5 beams, 12 heads, width 768, 196 memory rows), masked and
+    unmasked, against its plain version; timed in bf16 beside
+    ``scaled_dot_product_attention`` on the same inputs in their layouts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_captioning_ml_project_tpu_torch.ops.cross_attention import (
+        cross_attention, cross_attention_plain)
+
+    B, K, NH, H, Sm = 64, 5, 12, 768, 196
+    hd = H // NH
+    kw = dict(num_heads=NH, beam_size=K, scale=1.0 / hd ** 0.5)
+    g = torch.Generator(device=dev).manual_seed(5678)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        q = torch.randn((B * K, H), generator=g, device=dev).to(dtype)
+        mkt = torch.randn((B, H, Sm), generator=g, device=dev).to(dtype)
+        mv = torch.randn((B, Sm, H), generator=g, device=dev).to(dtype)
+        mask = torch.rand((B, Sm), generator=g, device=dev) < 0.25
+        mask[:, 0] = False
+        for masked in (True, False):
+            m = mask if masked else None
+            got = cross_attention(q, mkt, mv, m, **kw)
+            want = cross_attention_plain(q, mkt, mv, m, **kw)
+            torch.cuda.synchronize()
+            # f32: the sums in another order; bf16: a weight within an f32
+            # rounding of a bf16 boundary rounds the other way
+            err = check_close(f"cross_attention {name} masked={masked}",
+                              got, want, name, 1e-5, 2)
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+    ms = time_ms(torch, lambda: cross_attention(q, mkt, mv, mask, **kw),
+                 flush=flush)
+    plain_ms = time_ms(torch, lambda: cross_attention_plain(
+        q, mkt, mv, mask, **kw), flush=flush)
+    # the one PyTorch call: q [B, NH, K, hd], keys viewed from mem_kt
+    # (strided: hd is not the contiguous axis), values viewed from mem_v,
+    # the mask as SDPA's (True = attend)
+    q4 = q.view(B, K, NH, hd).transpose(1, 2)
+    k4 = mkt.view(B, NH, hd, Sm).transpose(2, 3)
+    v4 = mv.view(B, Sm, NH, hd).transpose(1, 2)
+    attend = ~mask[:, None, None, :]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=attend, scale=kw["scale"])
+
+    lib_ms = time_ms(torch, sdpa, flush=flush)
+    sdpa_err = max_err(sdpa().transpose(1, 2).reshape(B * K, H),
+                       cross_attention_plain(q, mkt, mv, mask, **kw))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sdpa()
+        torch.cuda.synchronize()
+    launched = sorted({e.key[:60] for e in prof.key_averages()
+                       if e.self_device_time_total > 0})
+    print(f"cross_attention bf16 [{B}x{K}, {H}] x {Sm} memory rows: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+          f"(L2 flushed before each run); SDPA's max_abs_err against the "
+          f"plain version {sdpa_err:.3e}; SDPA's device kernels {launched}",
+          flush=True)
+    nbytes = (2 * B * K * H + 2 * B * Sm * H) * 2 + B * Sm
+    results["cross_attention"] = {"transformer": shape_entry(
+        f"B={B} K={K} H={H} Sm={Sm} masked bf16", worst, ms, plain_ms,
+        bound(nbytes, {"f32": 4 * B * K * Sm * H}), lib_ms)}
 
 
 SWITCHES = ("ICT_DECODE_STACK", "ICT_DECODE_FOLD", "ICT_ENCODER_FOLD")
-# the decode configurations: (name, the switches' values)
+# the decode configurations: (name, the switches' values); the Transformer
+# decoder reads ICT_DECODE_FOLD alone
 CONFIGS = (("stack + encoder fold", ("1", "1", "1")),
            ("fold", ("0", "1", "1")),
            ("split", ("0", "0", "0")))
+TRANSFORMER_CONFIGS = (("transformer fold", ("1", "1", "1")),
+                       ("transformer split", ("1", "0", "1")))
 
 
 def set_switches(values):
@@ -388,10 +575,10 @@ def decode(torch, model, cfg, images):
                            min_length=ic.min_length)
 
 
-def check_reference(torch, dev, cfg, tree, images):
+def check_reference(torch, dev, cfg, tree, images, configs):
     """The card's float32 decode through the kernels against the CPU's
     plain-version decode of the same weights and images, on each decode
-    configuration."""
+    configuration of ``configs``."""
     import copy
 
     from image_captioning_ml_project_tpu_torch.models.captioning_model import (
@@ -402,7 +589,7 @@ def check_reference(torch, dev, cfg, tree, images):
     x = torch.from_numpy(images)
     models = {where.type: load_model(cfg32, where, params=tree)
               for where in (dev, torch.device("cpu"))}
-    for name, values in CONFIGS:
+    for name, values in configs:
         set_switches(values)
         out = {}
         for where, model in models.items():
@@ -459,26 +646,37 @@ def encode_ab(torch, dev, cfg, tree, smi, runs=20):
     del model
 
 
-def serve(torch, dev, cfg, tree, smi):
-    from image_captioning_ml_project_tpu_torch.data.tokenizer import WordVocab
-    from image_captioning_ml_project_tpu_torch.inference.server import (
-        CaptionService, make_http_server)
+def counters():
+    """Each kernel's wrapper by name; its ``launches`` is the kernel's
+    count."""
     from image_captioning_ml_project_tpu_torch.ops.beam_decode_attention import (
         beam_decode_attention, beam_decode_attention_qkv)
     from image_captioning_ml_project_tpu_torch.ops.beam_decode_stack import (
         beam_decode_stack)
+    from image_captioning_ml_project_tpu_torch.ops.cross_attention import (
+        cross_attention)
     from image_captioning_ml_project_tpu_torch.ops.encoder_stack import (
         encoder_stack)
     from image_captioning_ml_project_tpu_torch.ops.lse import (
         lse_and_block_max)
 
-    counters = {"beam_decode_stack": beam_decode_stack,
-                "beam_decode_attention_qkv": beam_decode_attention_qkv,
-                "beam_decode_attention": beam_decode_attention,
-                "encoder_stack": encoder_stack,
-                "lse_and_block_max": lse_and_block_max}
-    # the GPT-2 BPE files are not in the repository: a word vocabulary of
-    # the same size stands in for them
+    return {f.__name__: f for f in (
+        beam_decode_stack, encoder_stack, lse_and_block_max,
+        beam_decode_attention_qkv, beam_decode_attention, cross_attention)}
+
+
+def serve(torch, dev, cfg, tree, smi, plan):
+    """``CaptionService`` for ``cfg`` behind its HTTP front end; ``plan``
+    lists (name, switches, rounds of 64, single requests), each driven with
+    the launch counters set to 0 just before and read just after. Returns
+    {name: run}."""
+    from image_captioning_ml_project_tpu_torch.data.tokenizer import WordVocab
+    from image_captioning_ml_project_tpu_torch.inference.server import (
+        CaptionService, make_http_server)
+
+    kernels = counters()
+    # no tokenizer files are in the repository: a word vocabulary of the
+    # model's size stands in for them
     words = {w: i for i, w in enumerate(WordVocab.specials)}
     words.update({f"w{i}": i for i in range(len(words),
                                               cfg.model.vocab_size)})
@@ -495,21 +693,19 @@ def serve(torch, dev, cfg, tree, smi):
     server.start()
     g = torch.Generator().manual_seed(cfg.seed)
     size = cfg.image_size
-    images = torch.randint(0, 256, (64 * 5 + 3, size, size, 3),
-                           generator=g, dtype=torch.uint8).numpy()
-    layers = cfg.model.decoder.num_layers
+    need = sum(64 * rounds + singles for _, _, rounds, singles in plan)
+    images = torch.randint(0, 256, (need, size, size, 3), generator=g,
+                           dtype=torch.uint8).numpy()
     served = {}
 
-    def drive(name, rounds, singles):
+    def drive(name, rounds, singles, lo):
         """Serve ``rounds`` bursts of 64 and ``singles`` single requests on
-        the switches set now; the counters are set to 0 just before and
-        read just after."""
-        for fn in counters.values():
+        the switches set now, from image ``lo`` on."""
+        for fn in kernels.values():
             fn.launches = 0
         steps0 = service.stats.decode_steps
         batches0 = service.stats.batches
         captions, batch_s, single_s = [], [], []
-        lo = sum(len(v["captions"]) for v in served.values())
         for _ in range(rounds):
             t0 = time.perf_counter()
             reqs = [service.submit_async(img) for img in images[lo:lo + 64]]
@@ -523,8 +719,7 @@ def serve(torch, dev, cfg, tree, smi):
         run = {"captions": captions,
                "steps": service.stats.decode_steps - steps0,
                "batches": service.stats.batches - batches0,
-               "launches": {k: fn.launches for k, fn in counters.items()}}
-        served[name] = run
+               "launches": {k: fn.launches for k, fn in kernels.items()}}
         print(f"[{name}] served {len(captions)} requests in {run['batches']}"
               f" batches; decode steps {run['steps']}; launches "
               f"{run['launches']}", flush=True)
@@ -541,61 +736,101 @@ def serve(torch, dev, cfg, tree, smi):
                   f"{[round(t, 4) for t in single_s]} s [{smi}]", flush=True)
         return run
 
-    def expect(run, name, want):
-        got = run["launches"][name]
-        check(got == want, f"{name} launched {got} times, expected {want}")
-
     try:
         url = f"http://127.0.0.1:{httpd.server_address[1]}"
         with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
             health = json.loads(r.read())
         print(f"/healthz: {health}", flush=True)
         check(health.get("ok") is True, "/healthz is not ok")
-
-        # the main path: the default configuration
+        lo = 0
+        for name, switches, rounds, singles in plan:
+            set_switches(switches)
+            served[name] = drive(name, rounds, singles, lo)
+            lo += 64 * rounds + singles
         set_switches(CONFIGS[0][1])
-        main_run = drive(CONFIGS[0][0], 3, 3)
-        set_switches(CONFIGS[1][1])
-        fold_run = drive(CONFIGS[1][0], 1, 0)
-        set_switches(CONFIGS[2][1])
-        split_run = drive(CONFIGS[2][0], 1, 0)
-        set_switches(CONFIGS[0][1])
-        print(f"captions[0]: {main_run['captions'][0]!r}", flush=True)
+        print(f"captions[0]: {served[plan[0][0]]['captions'][0]!r}",
+              flush=True)
         with urllib.request.urlopen(f"{url}/stats", timeout=30) as r:
-            done = sum(len(v["captions"]) for v in served.values())
-            check(json.loads(r.read())["completed"] >= done,
+            check(json.loads(r.read())["completed"] >= lo,
                   "/stats misses completed requests")
     finally:
         httpd.shutdown()
         httpd.server_close()
         service.stop()
+    return served
 
-    steps = main_run["steps"]
-    expect(main_run, "beam_decode_stack", steps)
-    expect(main_run, "encoder_stack", main_run["batches"])
-    expect(main_run, "lse_and_block_max", steps)
-    expect(main_run, "beam_decode_attention_qkv", 0)
-    expect(main_run, "beam_decode_attention", 0)
-    expect(fold_run, "beam_decode_attention_qkv", fold_run["steps"] * layers)
-    expect(fold_run, "beam_decode_stack", 0)
-    expect(fold_run, "lse_and_block_max", fold_run["steps"])
-    expect(split_run, "beam_decode_attention", split_run["steps"] * layers)
-    expect(split_run, "lse_and_block_max", split_run["steps"])
-    for name in ("beam_decode_stack", "beam_decode_attention_qkv",
-                 "encoder_stack"):
-        expect(split_run, name, 0)
-    # each kernel's count from the run of the path that carries it
-    return {"beam_decode_stack": steps,
-            "encoder_stack": main_run["launches"]["encoder_stack"],
-            "lse_and_block_max": main_run["launches"]["lse_and_block_max"],
-            "beam_decode_attention_qkv":
-                fold_run["launches"]["beam_decode_attention_qkv"],
-            "beam_decode_attention":
-                split_run["launches"]["beam_decode_attention"]}
+
+def expect(run, want):
+    """Every counter of ``run`` equals ``want``'s entry, 0 where absent."""
+    for name, got in run["launches"].items():
+        check(got == want.get(name, 0),
+              f"{name} launched {got} times, expected {want.get(name, 0)}")
+
+
+def serve_all(torch, dev, smi, trees):
+    """The Transformer family, then CLIP + GPT-2 (module docstring, phase
+    6); checks every counter of every run. Returns {kernel: {family:
+    count}}, each family's count from the run of its configuration that
+    carries the kernel."""
+    cfg, tree = trees["transformer"]
+    layers = cfg.model.decoder.num_layers
+    runs = serve(torch, dev, cfg, tree, smi,
+                 [(name, values, rounds, singles) for (name, values), rounds,
+                  singles in zip(TRANSFORMER_CONFIGS, (1, 1), (3, 0))])
+    tf_fold, tf_split = (runs[name] for name, _ in TRANSFORMER_CONFIGS)
+    expect(tf_fold, {"cross_attention": tf_fold["steps"] * layers,
+                     "beam_decode_attention_qkv": tf_fold["steps"] * layers,
+                     "lse_and_block_max": tf_fold["steps"]})
+    expect(tf_split, {"cross_attention": tf_split["steps"] * layers,
+                      "beam_decode_attention": tf_split["steps"] * layers,
+                      "lse_and_block_max": tf_split["steps"]})
+
+    cfg, tree = trees["flagship"]
+    layers = cfg.model.decoder.num_layers
+    runs = serve(torch, dev, cfg, tree, smi,
+                 [(name, values, rounds, singles) for (name, values), rounds,
+                  singles in zip(CONFIGS, (3, 1, 1), (3, 0, 0))])
+    main_run, fold_run, split_run = (runs[name] for name, _ in CONFIGS)
+    expect(main_run, {"beam_decode_stack": main_run["steps"],
+                      "encoder_stack": main_run["batches"],
+                      "lse_and_block_max": main_run["steps"]})
+    expect(fold_run, {"beam_decode_attention_qkv": fold_run["steps"] * layers,
+                      "encoder_stack": fold_run["batches"],
+                      "lse_and_block_max": fold_run["steps"]})
+    expect(split_run, {"beam_decode_attention": split_run["steps"] * layers,
+                       "lse_and_block_max": split_run["steps"]})
+    carriers = {
+        "cross_attention": {"transformer": tf_fold},
+        "beam_decode_attention_qkv": {"transformer": tf_fold,
+                                      "flagship": fold_run},
+        "beam_decode_attention": {"transformer": tf_split,
+                                  "flagship": split_run},
+        "lse_and_block_max": {"transformer": tf_fold, "flagship": main_run},
+        "beam_decode_stack": {"flagship": main_run},
+        "encoder_stack": {"flagship": main_run}}
+    return {name: {family: run["launches"][name]
+                   for family, run in by_family.items()}
+            for name, by_family in carriers.items()}
+
+
+def kernel_entry(name, route, source, replaces, numbers, launches):
+    """The summary line's entry for one kernel: the numbers at the shape
+    of this slice's family where the kernel runs on it, else the
+    flagship's, with the launches of the same family's run; the other
+    family's shape, where it has one, under ``other_shapes``."""
+    first = "transformer" if "transformer" in numbers else "flagship"
+    entry = {"name": name, "route": route, "source": source,
+             "replaces": replaces, "launches": launches[first],
+             **numbers[first]}
+    others = [dict(family=f, launches=launches[f], **n)
+              for f, n in numbers.items() if f != first]
+    if others:
+        entry["other_shapes"] = others
+    return entry
 
 
 LIBRARIES = ("beam_decode_attention", "beam_decode_attention_qkv",
-             "beam_decode_stack", "encoder_stack")
+             "beam_decode_stack", "encoder_stack", "cross_attention")
 
 
 def main():
@@ -611,7 +846,8 @@ def main():
                  "false)")
     sys.path.insert(0, ROOT)
     try:
-        from image_captioning_ml_project_tpu_torch.main import flagship_config
+        from image_captioning_ml_project_tpu_torch.main import (
+            flagship_config, transformer_config)
         from image_captioning_ml_project_tpu_torch.ops import _build
         from image_captioning_ml_project_tpu_torch.params import (
             init_flax_params)
@@ -664,25 +900,31 @@ def main():
         check_attention_qkv(torch, dev, results)
         check_stack(torch, dev, results)
         check_encoder(torch, dev, results)
+        check_cross(torch, dev, results)
 
         phase("reference")
-        cfg = flagship_config()
-        cfg.seed = args.seed
-        t0 = time.perf_counter()
-        tree = init_flax_params(cfg, cfg.seed)
-        print(f"weights drawn from seed {cfg.seed}: "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        g = torch.Generator().manual_seed(cfg.seed + 1)
-        ref_images = torch.randint(0, 256, (2, cfg.image_size,
-                                            cfg.image_size, 3),
-                                   generator=g, dtype=torch.uint8).numpy()
-        check_reference(torch, dev, cfg, tree, ref_images)
+        trees = {}
+        for name, make, configs in (
+                ("transformer", transformer_config, TRANSFORMER_CONFIGS),
+                ("flagship", flagship_config, CONFIGS)):
+            cfg = make()
+            cfg.seed = args.seed
+            t0 = time.perf_counter()
+            trees[name] = (cfg, init_flax_params(cfg, cfg.seed))
+            print(f"{name}: weights drawn from seed {cfg.seed}: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            g = torch.Generator().manual_seed(cfg.seed + 1)
+            ref_images = torch.randint(0, 256, (2, cfg.image_size,
+                                                cfg.image_size, 3),
+                                       generator=g, dtype=torch.uint8).numpy()
+            check_reference(torch, dev, cfg, trees[name][1], ref_images,
+                            configs)
 
         phase("encode A/B")
-        encode_ab(torch, dev, cfg, tree, smi)
+        encode_ab(torch, dev, *trees["flagship"], smi)
 
         phase("serve")
-        launches = serve(torch, dev, cfg, tree, smi)
+        launches = serve_all(torch, dev, smi, trees)
 
         # the port stands alone: nothing of JAX or the JAX package ran
         foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -709,11 +951,12 @@ def main():
         "beam_decode_attention": (
             "cuda", f"{PKG}/csrc/beam_decode_attention.cu",
             f"{jax_pkg}/pallas_decode.py:361"),
+        "cross_attention": (
+            "cuda", f"{PKG}/csrc/cross_attention.cu",
+            f"{jax_pkg}/pallas_cross.py:99"),
     }
-    kernels = [{"name": name, "route": route, "source": src,
-                "replaces": rep, "launches": launches[name],
-                **results[name]}
-               for name, (route, src, rep) in sources.items()]
+    kernels = [kernel_entry(name, *where, results[name], launches[name])
+               for name, where in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": kind, "count": count}}))

@@ -7,6 +7,10 @@ Same flags as the JAX CLI's serve path
     python -m image_captioning_ml_project_tpu_torch.main --mode serve \\
         --config flagship.json --vocab vocab.json
 
+``--config`` takes a JSON file, or the name of a built-in configuration:
+``flagship`` (:func:`flagship_config`, CLIP + GPT-2) or ``transformer``
+(:func:`transformer_config`, ViT + Transformer decoder); without it the
+JAX package's default configuration (ViT-B/16 + 6-layer GPT-2) is served.
 With no checkpoint the weights are drawn from ``--seed`` (checkpoint
 restore is not yet ported). Training, evaluation and the demo are not yet
 ported and raise.
@@ -54,12 +58,57 @@ def flagship_config() -> Config:
     return c
 
 
+def transformer_config() -> Config:
+    """The Transformer-decoder family at the widths of the JAX package's
+    ``scripts/bench_transformer.py``: ViT-B/16 (12 layers, width 768, 12
+    heads, 224x224 input: 196 patch tokens) -> 6-layer Transformer decoder
+    (width 768, 12 heads, learned positions for 24 tokens) over vocab
+    30000, beam 5, max length 20, length penalty 0.8, min length 5; bf16
+    weights."""
+    c = get_default_config()
+    c.model.encoder.encoder_type = EncoderType.VIT
+    c.model.encoder.hidden_size = 768
+    c.model.encoder.num_layers = 12
+    c.model.encoder.num_heads = 12
+    c.model.encoder.patch_size = 16
+    c.model.encoder.feature_dim = 768
+    c.model.decoder.decoder_type = DecoderType.TRANSFORMER
+    c.model.decoder.hidden_dim = 768
+    c.model.decoder.num_layers = 6
+    c.model.decoder.num_heads = 12
+    c.model.decoder.max_length = 24
+    c.model.attention.attention_type = AttentionType.MULTI_HEAD
+    c.model.vocab_size = 30_000
+    c.model.dtype = "bfloat16"
+    c.image_size = 224
+    c.inference.beam_size = 5
+    c.inference.max_length = 20
+    c.inference.length_penalty = 0.8
+    c.inference.min_length = 5
+    return c
+
+
+CONFIGS = {"flagship": flagship_config, "transformer": transformer_config}
+
+
+def resolve_config(name: Optional[str]) -> Config:
+    """``--config``: a built-in configuration's name (:data:`CONFIGS`), a
+    JSON file, or None for the JAX package's default configuration."""
+    if name is None:
+        return get_default_config()
+    if name in CONFIGS:
+        return CONFIGS[name]()
+    return load_config(name)
+
+
 def build_argparser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Image captioning on NVIDIA GPUs (PyTorch/CUDA port)")
     parser.add_argument("--mode", type=str, default="serve",
                         choices=["train", "eval", "demo", "serve"])
-    parser.add_argument("--config", type=str, default=None)
+    parser.add_argument("--config", type=str, default=None,
+                        help="JSON config file, or a built-in configuration:"
+                             " " + ", ".join(CONFIGS))
     parser.add_argument("--save_config", type=str, default=None)
     parser.add_argument("--checkpoint", type=str, default=None)
     parser.add_argument("--output_dir", type=str, default=None)
@@ -149,7 +198,7 @@ def main(argv=None):
             and not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available; pass --device cpu to "
                          "serve on the CPU")
-    config = load_config(args.config) if args.config else get_default_config()
+    config = resolve_config(args.config)
     _update_config_from_args(config, args)
     if args.save_config:
         save_config(config, args.save_config)

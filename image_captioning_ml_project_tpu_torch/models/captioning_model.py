@@ -1,10 +1,11 @@
-"""Composed captioning model: CLIP vision tower -> GPT-2 decoder.
+"""Composed captioning model: vision encoder -> caption decoder.
 
 Counterpart of ``image_captioning_ml_project_tpu.models.captioning_model.
-ImageCaptioningModel`` for the encoder/decoder pair this slice ports, with
-the same uniform decode interface (``init_cache``/``step``) consumed by
-:mod:`..inference.decoding`. Other encoder or decoder families, and the
-Q-Former, raise ``NotImplementedError`` naming their ROADMAP item.
+ImageCaptioningModel`` for the families ported so far (encoders: CLIP,
+ViT; decoders: GPT-2, Transformer), with the same uniform decode interface
+(``init_cache``/``step``) consumed by :mod:`..inference.decoding`. Other
+encoder or decoder families, and the Q-Former, raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -14,34 +15,24 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from ..config import Config, DecoderType, EncoderType
+from ..config import Config
 from ..params import from_flax, init_flax_params, stack_layer_weights
 from ..utils.amp import cast_float_params
-from .encoders import CLIPEncoder
-from .gpt2 import GPT2Decoder
+from .decoders import build_decoder
+from .encoders import build_encoder
 
 
 class ImageCaptioningModel(nn.Module):
     def __init__(self, config: Config):
         super().__init__()
         mc = config.model
-        if (mc.encoder.encoder_type != EncoderType.CLIP
-                or mc.encoder.use_object_features):
-            raise NotImplementedError(
-                f"encoder {mc.encoder.encoder_type.value!r} is not yet ported"
-                f" to PyTorch (ROADMAP.md Queue 1: other encoders)")
-        if mc.decoder.decoder_type != DecoderType.GPT2:
-            raise NotImplementedError(
-                f"decoder {mc.decoder.decoder_type.value!r} is not yet "
-                f"ported to PyTorch (ROADMAP.md Queue 1: Transformer/LSTM "
-                f"decoders)")
         if mc.use_q_former:
             raise NotImplementedError(
                 "the Q-Former is not yet ported to PyTorch (ROADMAP.md "
-                "Queue 1: other encoders and the Q-Former)")
+                "Queue 1 item 6: other encoders and the Q-Former)")
         self.config = config
-        self.encoder = CLIPEncoder(mc.encoder, config.image_size)
-        self.decoder = GPT2Decoder(
+        self.encoder = build_encoder(mc.encoder, config.image_size)
+        self.decoder = build_decoder(
             mc.decoder, vocab_size=mc.vocab_size,
             pad_token_id=mc.pad_token_id, feature_dim=mc.encoder.feature_dim)
 
@@ -74,7 +65,8 @@ def load_model(config: Config, device,
     (:func:`..params.init_flax_params`). The weights are cast once to
     ``config.model.dtype``, norms excepted
     (:func:`..utils.amp.cast_float_params`), and then stacked over layers
-    for the whole-stack kernels (:func:`..params.stack_layer_weights`).
+    for the whole-stack kernels and concatenated for the folded decode
+    (:func:`..params.stack_layer_weights`).
     """
     if params is None:
         params = init_flax_params(config, config.seed)

@@ -1,0 +1,302 @@
+"""Transformer caption decoder with KV-cached generation, in PyTorch, and
+the decoder factory.
+
+Counterpart of the Transformer part of ``image_captioning_ml_project_tpu.
+models.decoders`` on its kernel paths: post-LN decoder layers (self-
+attention, cross-attention over the projected image features, exact-GELU
+FFN; LayerNorm eps 1e-5) with learned positions. Generation keeps one
+self-attention cache per layer under the decode state's ``lazy`` subtree
+(tiled once over beams, then read through beam search's ancestry map) and
+the cross-attention memory K/V per image under ``shared``, never tiled
+over beams: the keys pre-transposed ``[B, H, Sm]``, as the JAX decoder
+stores them. Each layer's decode step runs:
+
+* the self-attention step through the beam-decode kernels in their
+  prefix-free mode: by default
+  :func:`..ops.beam_decode_attention.beam_decode_attention_qkv` with the
+  QKV and output projections inside (the fold), and under
+  ``ICT_DECODE_FOLD=0`` :func:`..ops.beam_decode_attention.
+  beam_decode_attention` between the projection layers (the split); the
+  switch is the JAX package's, read once per decode at ``init_cache``;
+* the cross-attention step through :func:`..ops.cross_attention.
+  cross_attention`, with ``q_proj`` before it and ``out_proj`` after it.
+
+On a CUDA tensor each is a hand-written kernel, on a CPU tensor its plain
+version. The JAX package's TPU paddings are left out: the self-attention
+caches hold exactly ``max_length`` positions and the memory keeps its
+``Sm`` real rows, masked by the encoder's attention mask only.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import DecoderType
+from ..ops.beam_decode_attention import (beam_decode_attention,
+                                         beam_decode_attention_qkv)
+from ..ops.cross_attention import cross_attention
+from .gpt2 import GPT2Decoder, decode_fold_enabled
+from .layers import LayerNorm
+
+_NEG_INF = -1e9
+
+
+class CachedMHA(nn.Module):
+    """Multi-head attention with separate q/k/v/out projections. ``wqkv``
+    and ``bqkv`` are set at model load (:func:`..params.
+    stack_layer_weights`): the q/k/v weights and biases concatenated, with
+    the three projections' parameters views of them."""
+
+    def __init__(self, hidden_dim: int, num_heads: int):
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.num_heads = num_heads
+        self.q_proj = nn.Linear(hidden_dim, hidden_dim)
+        self.k_proj = nn.Linear(hidden_dim, hidden_dim)
+        self.v_proj = nn.Linear(hidden_dim, hidden_dim)
+        self.out_proj = nn.Linear(hidden_dim, hidden_dim)
+        self.wqkv: Optional[torch.Tensor] = None
+        self.bqkv: Optional[torch.Tensor] = None
+
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, _ = x.shape
+        return x.reshape(B, T, self.num_heads, -1)
+
+    def _mix(self, scores: torch.Tensor, v: torch.Tensor,
+             q_input: torch.Tensor) -> torch.Tensor:
+        """f32 scores [B, nh, T, S] -> softmax -> weights in the value
+        dtype -> mix of v [B, S, nh, hd] -> out_proj."""
+        w = torch.softmax(scores, dim=-1).to(v.dtype)
+        B, T = q_input.shape[:2]
+        return self.out_proj(torch.einsum("bnqk,bknd->bqnd", w, v)
+                             .reshape(B, T, self.hidden_dim))
+
+    def _scores(self, q_input: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+        """f32 ``q . k`` divided by ``sqrt(hd)``, as the JAX module divides
+        (the decode step's kernels multiply by the reciprocal instead)."""
+        q = self._heads(self.q_proj(q_input))
+        return torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) \
+            / (q.shape[-1] ** 0.5)
+
+    def full(self, q_input: torch.Tensor, kv_input: torch.Tensor,
+             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """q_input [B, T, H] over kv_input [B, S, H], with an additive
+        bias broadcast to [B, nh, T, S]."""
+        k, v = self.project_kv(kv_input)
+        scores = self._scores(q_input, k)
+        if bias is not None:
+            scores = scores + bias
+        return self._mix(scores, v, q_input)
+
+    def project_kv(self, kv_input: torch.Tensor):
+        """K/V of a memory: [B, S, nh, hd] each."""
+        return (self._heads(self.k_proj(kv_input)),
+                self._heads(self.v_proj(kv_input)))
+
+    def attend_precomputed(self, q_input: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor,
+                           key_padding_mask: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+        """q_input [B, T, H] against precomputed k/v [B, S, nh, hd];
+        ``key_padding_mask`` [B, S] True = masked."""
+        scores = self._scores(q_input, k)
+        if key_padding_mask is not None:
+            scores = scores.masked_fill(key_padding_mask[:, None, None, :],
+                                        _NEG_INF)
+        return self._mix(scores, v, q_input)
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Post-LN decoder layer with an exact-GELU FFN (torch
+    ``nn.TransformerDecoderLayer`` semantics, dropout off: inference)."""
+
+    def __init__(self, hidden_dim: int, num_heads: int):
+        super().__init__()
+        h = hidden_dim
+        self.hidden_dim = h
+        self.num_heads = num_heads
+        self.self_attn = CachedMHA(h, num_heads)
+        self.cross_attn = CachedMHA(h, num_heads)
+        self.linear1 = nn.Linear(h, 4 * h)
+        self.linear2 = nn.Linear(4 * h, h)
+        self.norm1 = LayerNorm(h, eps=1e-5)
+        self.norm2 = LayerNorm(h, eps=1e-5)
+        self.norm3 = LayerNorm(h, eps=1e-5)
+
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear2(F.gelu(self.linear1(x)))
+
+    def full(self, x: torch.Tensor, memory: torch.Tensor,
+             self_bias: Optional[torch.Tensor] = None,
+             memory_key_padding_mask: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+        x = self.norm1(x + self.self_attn.full(x, x, bias=self_bias))
+        x = self.norm2(x + self.cross_attn.attend_precomputed(
+            x, *self.cross_attn.project_kv(memory),
+            key_padding_mask=memory_key_padding_mask))
+        return self.norm3(x + self._ffn(x))
+
+    def init_memory_cache(self, memory: torch.Tensor) -> Dict[str, Any]:
+        """The cross-attention K/V of the image memory [B, Sm, H]: keys
+        pre-transposed ``mem_k`` [B, H, Sm], values ``mem_v`` [B, Sm, H].
+        Per image, not per beam: they live under the state's ``shared``."""
+        k, v = self.cross_attn.project_kv(memory)
+        B, Sm = memory.shape[:2]
+        return {"mem_k": k.reshape(B, Sm, -1).transpose(1, 2).contiguous(),
+                "mem_v": v.reshape(B, Sm, -1).contiguous()}
+
+    def _self_attend_step(self, x, cache, pos, anc_local, beam_size, fold):
+        """The self-attention step over x [Bk, H] (prefix-free), appending
+        this step's K/V at ``pos`` of the caches in place."""
+        sa = self.self_attn
+        args = dict(num_heads=self.num_heads, beam_size=beam_size,
+                    scale=1.0 / (self.hidden_dim // self.num_heads) ** 0.5)
+        if fold:
+            if sa.wqkv is None:
+                raise RuntimeError("the folded decode needs the concatenated "
+                                   "QKV weights: build the model with "
+                                   "load_model")
+            out, _, _ = beam_decode_attention_qkv(
+                x, sa.wqkv, sa.bqkv, sa.out_proj.weight, sa.out_proj.bias,
+                cache["k"], cache["v"], None, None, anc_local, pos, **args)
+            return out
+        out, _, _ = beam_decode_attention(
+            sa.q_proj(x), sa.k_proj(x), sa.v_proj(x), cache["k"], cache["v"],
+            None, None, anc_local, pos, **args)
+        return sa.out_proj(out)
+
+    def _cross_attend_step(self, x, mem, mem_pad, beam_size):
+        """x [Bk, H] against the image memory, ``q_proj`` and ``out_proj``
+        around the kernel; the scale is a reciprocal multiply, as on both
+        JAX step paths."""
+        ca = self.cross_attn
+        out = cross_attention(
+            ca.q_proj(x), mem["mem_k"], mem["mem_v"], mem_pad,
+            num_heads=self.num_heads, beam_size=beam_size,
+            scale=1.0 / (self.hidden_dim // self.num_heads) ** 0.5)
+        return ca.out_proj(out)
+
+    def cached_step(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                    pos: int, mem: Dict[str, torch.Tensor],
+                    mem_pad: Optional[torch.Tensor],
+                    anc_local: Optional[torch.Tensor],
+                    fold: bool) -> torch.Tensor:
+        """x [Bk, H] -> [Bk, H]; the self-attention caches ``cache``
+        [Bk, S, H] are appended at ``pos`` in place; ``mem`` holds the
+        image memory's K/V and ``mem_pad`` [B, Sm] its mask."""
+        K = x.shape[0] // mem["mem_k"].shape[0]
+        x = self.norm1(x + self._self_attend_step(x, cache, pos, anc_local,
+                                                  K, fold))
+        x = self.norm2(x + self._cross_attend_step(x, mem, mem_pad, K))
+        return self.norm3(x + self._ffn(x))
+
+
+class TransformerDecoder(nn.Module):
+    """Transformer caption decoder: token embedding + learned positions,
+    post-LN decoder layers over the visually projected encoder features,
+    an output layer over the vocabulary."""
+
+    def __init__(self, config, vocab_size: int, pad_token_id: int,
+                 feature_dim: int):
+        super().__init__()
+        h = config.hidden_dim
+        self.config = config
+        self.pad_token_id = pad_token_id
+        self.embedding = nn.Embedding(vocab_size, h)
+        self.position_encoding = nn.Embedding(config.max_length, h)
+        self.layers = nn.ModuleList(
+            TransformerDecoderLayer(h, config.num_heads)
+            for _ in range(config.num_layers))
+        self.output_layer = nn.Linear(h, vocab_size)
+        self.visual_projection = nn.Linear(feature_dim, h)
+
+    def forward(self, encoder_features: Dict[str, torch.Tensor],
+                captions: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Teacher-forced forward: logits [B, T, V] under a causal and
+        caption-padding bias."""
+        memory = self.visual_projection(encoder_features["features"])
+        mem_mask = encoder_features.get("attention_mask")
+        mem_pad = None if mem_mask is None else ~mem_mask.bool()
+        T = captions.shape[1]
+        dev = captions.device
+        x = self.embedding(captions) + self.position_encoding.weight[:T][None]
+        causal = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
+        zero = torch.zeros((), device=dev)
+        neg = torch.full((), _NEG_INF, device=dev)
+        bias = (torch.where(causal, zero, neg)[None, None]
+                + torch.where(captions == self.pad_token_id, neg,
+                              zero)[:, None, None, :])
+        for layer in self.layers:
+            x = layer.full(x, memory, self_bias=bias,
+                           memory_key_padding_mask=mem_pad)
+        return {"logits": self.output_layer(x), "hidden_states": x}
+
+    # -- uniform decode interface -------------------------------------------
+
+    def init_cache(self, encoder_features: Dict[str, torch.Tensor],
+                   max_length: int) -> Dict[str, Any]:
+        """Zeroed self-attention caches ``[B, max_length, H]`` per layer
+        under ``lazy``; each layer's memory K/V, the memory mask ``mem_pad``
+        [B, Sm] (True = masked) and the decode path (``fold``, from
+        :func:`.gpt2.decode_fold_enabled`, read here once per decode) under
+        ``shared``. ``pos`` counts generated positions."""
+        memory = self.visual_projection(encoder_features["features"])
+        B, Sm, H = memory.shape
+        mem_mask = encoder_features.get("attention_mask")
+        mem_pad = (torch.zeros((B, Sm), dtype=torch.bool,
+                               device=memory.device)
+                   if mem_mask is None else (~mem_mask.bool()).contiguous())
+        caches = [{"k": memory.new_zeros((B, max_length, H)),
+                   "v": memory.new_zeros((B, max_length, H))}
+                  for _ in self.layers]
+        shared = {"layers": [layer.init_memory_cache(memory)
+                             for layer in self.layers],
+                  "mem_pad": mem_pad, "fold": decode_fold_enabled()}
+        return {"lazy": {"layers": caches}, "shared": shared, "pos": 0}
+
+    def step(self, state: Dict[str, Any], tokens: torch.Tensor
+             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """tokens [Bk] -> (logits [Bk, V], state at pos + 1). The
+        self-attention caches are appended in place."""
+        pos = state["pos"]
+        shared = state["shared"]
+        Bk = tokens.shape[0]
+        K = Bk // shared["layers"][0]["mem_k"].shape[0]
+        S = state["lazy"]["layers"][0]["k"].shape[1]
+        ancestry = state["lazy"].get("ancestry")  # set by beam search only
+        anc_local = None
+        if ancestry is not None:
+            own = torch.arange(Bk, device=ancestry.device,
+                               dtype=ancestry.dtype)[:, None] // K * K
+            anc_local = ancestry - own                 # [Bk, L] in 0..K-1
+            if anc_local.shape[1] < S:
+                anc_local = F.pad(anc_local, (0, S - anc_local.shape[1]))
+            anc_local = anc_local.to(torch.int32).contiguous()
+        x = self.embedding(tokens) + self.position_encoding.weight[pos]
+        for layer, cache, mem in zip(self.layers, state["lazy"]["layers"],
+                                     shared["layers"]):
+            x = layer.cached_step(x, cache, pos, mem, shared["mem_pad"],
+                                  anc_local, shared["fold"])
+        return self.output_layer(x), dict(state, pos=pos + 1)
+
+
+def build_decoder(config, vocab_size: int, pad_token_id: int,
+                  feature_dim: int) -> nn.Module:
+    """The decoder of ``config`` (a ``DecoderConfig``) over encoder
+    features of width ``feature_dim``; the LSTM raises
+    ``NotImplementedError`` naming its ROADMAP item."""
+    if config.decoder_type == DecoderType.GPT2:
+        return GPT2Decoder(config, vocab_size=vocab_size,
+                           pad_token_id=pad_token_id, feature_dim=feature_dim)
+    if config.decoder_type == DecoderType.TRANSFORMER:
+        return TransformerDecoder(config, vocab_size=vocab_size,
+                                  pad_token_id=pad_token_id,
+                                  feature_dim=feature_dim)
+    raise NotImplementedError(
+        f"decoder {config.decoder_type.value!r} is not yet ported to PyTorch "
+        f"(ROADMAP.md Queue 1 item 5: the LSTM decoder and the attention "
+        f"variants)")

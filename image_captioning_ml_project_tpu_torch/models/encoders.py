@@ -1,16 +1,20 @@
-"""CLIP vision tower (HF ``CLIPVisionModel``-compatible), in PyTorch.
+"""Vision encoders in PyTorch: the CLIP vision tower (HF
+``CLIPVisionModel``-compatible) and ViT (HF ``ViTModel``-compatible).
 
-Counterpart of the CLIP part of ``image_captioning_ml_project_tpu.models.
-encoders``. As there, ``ICT_ENCODER_FOLD`` (default on; ``0`` off;
-``force`` means on) chooses, once per forward, between the whole-stack
-encoder kernel (:func:`..ops.encoder_stack.encoder_stack`, inference only:
-it is skipped in training mode) and the per-layer modules. Images are
-NHWC, as in the JAX package. A ``uint8`` batch is
-normalised on its device with the ImageNet constants (the JAX trainer's
+Counterpart of the CLIP and ViT parts of ``image_captioning_ml_project_tpu.
+models.encoders``. For CLIP, as there, ``ICT_ENCODER_FOLD`` (default on;
+``0`` off; ``force`` means on) chooses, once per forward, between the
+whole-stack encoder kernel (:func:`..ops.encoder_stack.encoder_stack`,
+inference only: it is skipped in training mode) and the per-layer modules.
+ViT has no such fold in the JAX package and none here: its layers are plain
+PyTorch modules. Images are NHWC, as in the JAX package. A ``uint8`` batch
+is normalised on its device with the ImageNet constants (the JAX trainer's
 ``normalize_images`` before ``model.encode``); a float batch is taken as
 already normalised. Every encoder returns the uniform dict
 ``{"features": [B, S, D], "pooled_features": [B, D], "attention_mask":
-[B, S]}``.
+[B, S]}``. :func:`build_encoder` picks the encoder from the config; the
+other encoder families raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..config import EncoderType
 from ..data.coco import normalize_images
 from ..ops.encoder_stack import encoder_stack
 from .layers import LayerNorm
@@ -78,16 +83,20 @@ class CLIPLayer(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    """Stride-P patch embedding as space-to-depth plus one matmul (no bias:
-    CLIP's patch conv has none). The patch vector is flattened in
-    (kh, kw, c) order, matching the flax conv kernel ``[P, P, C, H]``
-    reshaped to ``[P*P*C, H]``; ``weight`` holds its transpose."""
+    """Stride-P patch embedding as space-to-depth plus one matmul, with a
+    bias for ViT and none for CLIP (whose patch conv has none). The patch
+    vector is flattened in (kh, kw, c) order, matching the flax conv kernel
+    ``[P, P, C, H]`` reshaped to ``[P*P*C, H]``; ``weight`` holds its
+    transpose."""
 
-    def __init__(self, hidden_size: int, patch_size: int, channels: int = 3):
+    def __init__(self, hidden_size: int, patch_size: int, channels: int = 3,
+                 use_bias: bool = False):
         super().__init__()
         self.patch_size = patch_size
         self.weight = nn.Parameter(
             torch.empty(hidden_size, patch_size * patch_size * channels))
+        self.bias = (nn.Parameter(torch.zeros(hidden_size)) if use_bias
+                     else None)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         B, Hi, Wi, C = images.shape
@@ -96,7 +105,7 @@ class PatchEmbed(nn.Module):
         x = images[:, :gh * P, :gw * P]  # conv-VALID drops the remainder
         x = x.reshape(B, gh, P, gw, P, C).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(B, gh, gw, P * P * C).to(self.weight.dtype)
-        return F.linear(x, self.weight)
+        return F.linear(x, self.weight, self.bias)
 
 
 class CLIPVisionBackbone(nn.Module):
@@ -141,17 +150,64 @@ class CLIPVisionBackbone(nn.Module):
         return x, self.post_layernorm(x[:, 0])
 
 
-class CLIPEncoder(nn.Module):
-    """features = patch tokens of the last hidden state (not
-    post-layernormed), pooled = post-layernormed CLS; both projected to
-    ``feature_dim`` when it differs from the tower's width."""
+class ViTLayer(nn.Module):
+    """Pre-LN encoder layer (HF ``ViTLayer``): LayerNorm eps 1e-12, exact
+    (erf) GELU in the MLP."""
 
-    def __init__(self, config, image_size: int):
+    def __init__(self, hidden_size: int, num_heads: int, mlp_dim: int):
         super().__init__()
-        self.backbone = CLIPVisionBackbone(
-            hidden_size=config.hidden_size, num_layers=config.num_layers,
-            num_heads=config.num_heads, mlp_ratio=config.mlp_ratio,
-            patch_size=config.patch_size, image_size=image_size)
+        self.layernorm_before = LayerNorm(hidden_size, eps=1e-12)
+        self.attention = TransformerSelfAttention(hidden_size, num_heads)
+        self.layernorm_after = LayerNorm(hidden_size, eps=1e-12)
+        self.intermediate = nn.Linear(hidden_size, mlp_dim)
+        self.output = nn.Linear(mlp_dim, hidden_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attention(self.layernorm_before(x))
+        return x + self.output(F.gelu(self.intermediate(
+            self.layernorm_after(x))))
+
+
+class ViTBackbone(nn.Module):
+    """Patch embedding with bias + CLS token + learned positions, pre-LN
+    layers, a final LayerNorm over all tokens, and the tanh pooler on
+    CLS."""
+
+    def __init__(self, hidden_size: int = 768, num_layers: int = 12,
+                 num_heads: int = 12, mlp_ratio: int = 4,
+                 patch_size: int = 16, image_size: int = 224):
+        super().__init__()
+        h = hidden_size
+        tokens = (image_size // patch_size) ** 2 + 1
+        self.patch_embed = PatchEmbed(h, patch_size, use_bias=True)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, h))
+        self.position_embeddings = nn.Parameter(torch.zeros(1, tokens, h))
+        self.layers = nn.ModuleList(
+            ViTLayer(h, num_heads, h * mlp_ratio) for _ in range(num_layers))
+        self.layernorm = LayerNorm(h, eps=1e-12)
+        self.pooler = nn.Linear(h, h)
+
+    def forward(self, images: torch.Tensor):
+        B = images.shape[0]
+        x = self.patch_embed(images)
+        h = x.shape[-1]
+        x = x.reshape(B, -1, h)
+        x = torch.cat([self.cls_token.to(x.dtype).expand(B, 1, h), x], dim=1)
+        x = x + self.position_embeddings.to(x.dtype)
+        for layer in self.layers:
+            x = layer(x)
+        x = self.layernorm(x)
+        return x, torch.tanh(self.pooler(x[:, 0]))
+
+
+class ProjectedEncoder(nn.Module):
+    """features = the backbone's patch tokens (CLS dropped), pooled = its
+    pooled CLS vector; both projected to ``feature_dim`` when it differs
+    from the backbone's width."""
+
+    def __init__(self, backbone: nn.Module, config):
+        super().__init__()
+        self.backbone = backbone
         self.proj = (nn.Linear(config.hidden_size, config.feature_dim)
                      if config.hidden_size != config.feature_dim else None)
 
@@ -167,3 +223,43 @@ class CLIPEncoder(nn.Module):
         return {"features": features, "pooled_features": pooled,
                 "attention_mask": torch.ones((B, S), dtype=torch.bool,
                                              device=features.device)}
+
+
+class CLIPEncoder(ProjectedEncoder):
+    """features = patch tokens of the last hidden state (not
+    post-layernormed), pooled = post-layernormed CLS."""
+
+    def __init__(self, config, image_size: int):
+        super().__init__(CLIPVisionBackbone(
+            hidden_size=config.hidden_size, num_layers=config.num_layers,
+            num_heads=config.num_heads, mlp_ratio=config.mlp_ratio,
+            patch_size=config.patch_size, image_size=image_size), config)
+
+
+class ViTEncoder(ProjectedEncoder):
+    """features = patch tokens after the final LayerNorm, pooled = the tanh
+    pooler's CLS vector."""
+
+    def __init__(self, config, image_size: int):
+        super().__init__(ViTBackbone(
+            hidden_size=config.hidden_size, num_layers=config.num_layers,
+            num_heads=config.num_heads, mlp_ratio=config.mlp_ratio,
+            patch_size=config.patch_size, image_size=image_size), config)
+
+
+def build_encoder(config, image_size: int) -> nn.Module:
+    """The encoder of ``config`` (an ``EncoderConfig``) for square images
+    of ``image_size``, checked in the JAX package's order: object-region
+    features first, whatever the encoder type."""
+    if (config.use_object_features
+            or config.encoder_type == EncoderType.OBJECT_REGION):
+        raise NotImplementedError(
+            "object-region features are not yet ported to PyTorch "
+            "(ROADMAP.md Queue 1 item 6: other encoders)")
+    if config.encoder_type == EncoderType.CLIP:
+        return CLIPEncoder(config, image_size)
+    if config.encoder_type == EncoderType.VIT:
+        return ViTEncoder(config, image_size)
+    raise NotImplementedError(
+        f"encoder {config.encoder_type.value!r} is not yet ported to "
+        f"PyTorch (ROADMAP.md Queue 1 item 6: other encoders)")

@@ -43,15 +43,20 @@ from .layers import LayerNorm
 _NEG_INF = -1e9
 
 
+def decode_fold_enabled() -> bool:
+    """``ICT_DECODE_FOLD``: anything but ``"0"`` (the default) runs each
+    layer's self-attention step through the folded-QKV kernel; read by
+    this decoder and the Transformer decoder alike."""
+    return os.environ.get("ICT_DECODE_FOLD", "1") != "0"
+
+
 def decode_path() -> str:
     """The decode path the JAX package's switches select: ``"stack"``
     unless ``ICT_DECODE_STACK=0``, then ``"fold"`` unless
     ``ICT_DECODE_FOLD=0``, then ``"split"``."""
     if os.environ.get("ICT_DECODE_STACK", "1") != "0":
         return "stack"
-    if os.environ.get("ICT_DECODE_FOLD", "1") != "0":
-        return "fold"
-    return "split"
+    return "fold" if decode_fold_enabled() else "split"
 
 
 class GPT2Attention(nn.Module):

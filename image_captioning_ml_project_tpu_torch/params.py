@@ -5,9 +5,9 @@ Layouts carried across:
 
 * flax ``Dense`` kernels are ``[in, out]``; ``nn.Linear`` weights are
   ``[out, in]``, so every kernel is transposed;
-* the CLIP attention's unfused ``query``/``key``/``value`` Dense params
-  are concatenated into the one ``[h, 3h]`` QKV projection (a flax tree
-  saved with ``fused_qkv`` already has ``qkv``);
+* the CLIP and ViT attention's unfused ``query``/``key``/``value`` Dense
+  params are concatenated into the one ``[h, 3h]`` QKV projection (a flax
+  tree saved with ``fused_qkv`` already has ``qkv``);
 * the patch-embed conv kernel ``[P, P, C, H]`` is flattened in
   (kh, kw, c) order to ``[P*P*C, H]`` and transposed;
 * LayerNorm ``scale``/``bias`` become ``weight``/``bias``; ``Embed``
@@ -18,8 +18,10 @@ a leaf a rule expects but the tree lacks.
 
 :func:`stack_layer_weights` builds, once at model load, the layer-stacked
 operands the whole-stack kernels read (the JAX package's
-``_stacked_weights`` and the encoder fold's stack, which are free under
-``jit`` but would be a copy per batch in eager PyTorch).
+``_stacked_weights`` and the encoder fold's stack) and the Transformer
+decoder's concatenated ``[3H, H]`` QKV weights of the folded decode: XLA
+hoists these out of the decode loop under ``jit``, but in eager PyTorch
+each would be a copy per step or per batch.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from typing import Any, Dict, List, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from .config import DecoderType, EncoderType
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -73,45 +77,62 @@ class _Bridge:
                        if m})
 
 
-def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Map the JAX ``ImageCaptioningModel`` variables (CLIP encoder + GPT-2
-    decoder; nested dict of arrays, with or without the top-level
-    ``"params"``) to an f32 state dict of
-    :class:`..models.captioning_model.ImageCaptioningModel`."""
-    if "params" in tree and isinstance(tree["params"], Mapping):
-        tree = tree["params"]
-    br = _Bridge(_flatten(tree))
+def _qkv(br: _Bridge, src: str, dst: str) -> None:
+    """An encoder attention's QKV projection: the flax module's ``qkv``,
+    or its ``query``/``key``/``value`` concatenated."""
+    if f"{src}/qkv/kernel" in br.flat:
+        br.dense(f"{src}/qkv", f"{dst}.qkv")
+        return
+    parts = [(br.take(f"{src}/{n}/kernel"), br.take(f"{src}/{n}/bias"))
+             for n in ("query", "key", "value")]
+    br.put(f"{dst}.qkv.weight", np.concatenate([k for k, _ in parts],
+                                               axis=1).T)
+    br.put(f"{dst}.qkv.bias", np.concatenate([b for _, b in parts]))
 
-    enc = "encoder/backbone"
-    kernel = br.take(f"{enc}/patch_embed/kernel")             # [P, P, C, H]
-    br.put("encoder.backbone.patch_embed.weight",
-           kernel.reshape(-1, kernel.shape[-1]).T)
-    br.put("encoder.backbone.class_embedding",
-           br.take(f"{enc}/class_embedding"))
-    br.put("encoder.backbone.position_embeddings",
+
+def _patch_embed(br: _Bridge, src: str, dst: str) -> None:
+    kernel = br.take(f"{src}/kernel")                       # [P, P, C, H]
+    br.put(f"{dst}.weight", kernel.reshape(-1, kernel.shape[-1]).T)
+
+
+def _clip_encoder(br: _Bridge) -> None:
+    enc, out = "encoder/backbone", "encoder.backbone"
+    _patch_embed(br, f"{enc}/patch_embed", f"{out}.patch_embed")
+    br.put(f"{out}.class_embedding", br.take(f"{enc}/class_embedding"))
+    br.put(f"{out}.position_embeddings",
            br.take(f"{enc}/position_embeddings"))
-    br.norm(f"{enc}/pre_layernorm", "encoder.backbone.pre_layernorm")
-    br.norm(f"{enc}/post_layernorm", "encoder.backbone.post_layernorm")
+    br.norm(f"{enc}/pre_layernorm", f"{out}.pre_layernorm")
+    br.norm(f"{enc}/post_layernorm", f"{out}.post_layernorm")
     for i in br.indices(enc, "layer"):
-        src, dst = f"{enc}/layer_{i}", f"encoder.backbone.layers.{i}"
-        att = f"{src}/attention"
-        if f"{att}/qkv/kernel" in br.flat:
-            br.dense(f"{att}/qkv", f"{dst}.attention.qkv")
-        else:
-            parts = [(br.take(f"{att}/{n}/kernel"), br.take(f"{att}/{n}/bias"))
-                     for n in ("query", "key", "value")]
-            br.put(f"{dst}.attention.qkv.weight",
-                   np.concatenate([k for k, _ in parts], axis=1).T)
-            br.put(f"{dst}.attention.qkv.bias",
-                   np.concatenate([b for _, b in parts]))
-        br.dense(f"{att}/out", f"{dst}.attention.out")
+        src, dst = f"{enc}/layer_{i}", f"{out}.layers.{i}"
+        _qkv(br, f"{src}/attention", f"{dst}.attention")
+        br.dense(f"{src}/attention/out", f"{dst}.attention.out")
         br.norm(f"{src}/layer_norm1", f"{dst}.layer_norm1")
         br.norm(f"{src}/layer_norm2", f"{dst}.layer_norm2")
         br.dense(f"{src}/fc1", f"{dst}.fc1")
         br.dense(f"{src}/fc2", f"{dst}.fc2")
-    if "encoder/proj/kernel" in br.flat:
-        br.dense("encoder/proj", "encoder.proj")
 
+
+def _vit_encoder(br: _Bridge) -> None:
+    enc, out = "encoder/backbone", "encoder.backbone"
+    _patch_embed(br, f"{enc}/patch_embed", f"{out}.patch_embed")
+    br.put(f"{out}.patch_embed.bias", br.take(f"{enc}/patch_embed/bias"))
+    br.put(f"{out}.cls_token", br.take(f"{enc}/cls_token"))
+    br.put(f"{out}.position_embeddings",
+           br.take(f"{enc}/position_embeddings"))
+    br.norm(f"{enc}/layernorm", f"{out}.layernorm")
+    br.dense(f"{enc}/pooler", f"{out}.pooler")
+    for i in br.indices(enc, "layer"):
+        src, dst = f"{enc}/layer_{i}", f"{out}.layers.{i}"
+        _qkv(br, f"{src}/attention", f"{dst}.attention")
+        br.dense(f"{src}/attention/out", f"{dst}.attention.out")
+        br.norm(f"{src}/layernorm_before", f"{dst}.layernorm_before")
+        br.norm(f"{src}/layernorm_after", f"{dst}.layernorm_after")
+        br.dense(f"{src}/intermediate", f"{dst}.intermediate")
+        br.dense(f"{src}/output", f"{dst}.output")
+
+
+def _gpt2_decoder(br: _Bridge) -> None:
     dec = "decoder/backbone"
     br.put("decoder.backbone.wte.weight", br.take(f"{dec}/wte/embedding"))
     br.put("decoder.backbone.wpe.weight", br.take(f"{dec}/wpe/embedding"))
@@ -127,6 +148,48 @@ def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     br.dense("decoder/image_to_prefix", "decoder.image_to_prefix")
     br.put("decoder.image_prefix", br.take("decoder/image_prefix"))
 
+
+def _transformer_decoder(br: _Bridge) -> None:
+    br.put("decoder.embedding.weight", br.take("decoder/embedding/embedding"))
+    br.put("decoder.position_encoding.weight",
+           br.take("decoder/position_encoding/embedding"))
+    br.dense("decoder/output_layer", "decoder.output_layer")
+    br.dense("decoder/visual_projection", "decoder.visual_projection")
+    for i in br.indices("decoder", "layer"):
+        src, dst = f"decoder/layer_{i}", f"decoder.layers.{i}"
+        for att in ("self_attn", "cross_attn"):
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                br.dense(f"{src}/{att}/{proj}", f"{dst}.{att}.{proj}")
+        br.dense(f"{src}/linear1", f"{dst}.linear1")
+        br.dense(f"{src}/linear2", f"{dst}.linear2")
+        for n in ("norm1", "norm2", "norm3"):
+            br.norm(f"{src}/{n}", f"{dst}.{n}")
+
+
+def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Map the JAX ``ImageCaptioningModel`` variables (CLIP or ViT encoder,
+    GPT-2 or Transformer decoder, told apart by their leaves; nested dict
+    of arrays, with or without the top-level ``"params"``) to an f32 state
+    dict of :class:`..models.captioning_model.ImageCaptioningModel`."""
+    if "params" in tree and isinstance(tree["params"], Mapping):
+        tree = tree["params"]
+    br = _Bridge(_flatten(tree))
+    if "encoder/backbone/class_embedding" in br.flat:
+        _clip_encoder(br)
+    elif "encoder/backbone/cls_token" in br.flat:
+        _vit_encoder(br)
+    else:
+        raise ValueError("the flax tree holds neither a CLIP nor a ViT "
+                         "encoder (the encoders ported so far)")
+    if "encoder/proj/kernel" in br.flat:
+        br.dense("encoder/proj", "encoder.proj")
+    if "decoder/backbone/wte/embedding" in br.flat:
+        _gpt2_decoder(br)
+    elif "decoder/embedding/embedding" in br.flat:
+        _transformer_decoder(br)
+    else:
+        raise ValueError("the flax tree holds neither a GPT-2 nor a "
+                         "Transformer decoder (the decoders ported so far)")
     if br.flat:
         raise ValueError(f"unmapped flax leaves: {sorted(br.flat)}")
     return br.out
@@ -134,10 +197,12 @@ def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 def init_flax_params(config, seed: int) -> Dict[str, Any]:
     """Seeded weights in the flax layout of the JAX ``ImageCaptioningModel``
-    (CLIP + GPT-2), drawn from ``numpy.random.RandomState(seed)``: dense
-    kernels and embeddings N(0, 0.02²) (GPT-2's initialiser), the class
-    embedding N(0, 1/width), the learned image prefix N(0, 1) as flax draws
-    it, biases 0, norm scales 1."""
+    (CLIP or ViT encoder, GPT-2 or Transformer decoder), drawn from
+    ``numpy.random.RandomState(seed)``, encoder first: dense kernels,
+    embeddings and position embeddings N(0, 0.02²) (GPT-2's initialiser),
+    the CLIP class embedding and the ViT CLS token N(0, 1/width), the GPT-2
+    learned image prefix N(0, 1) as flax draws it, biases 0, norm scales
+    1."""
     rs = np.random.RandomState(seed)
     mc = config.model
     ec, dc = mc.encoder, mc.decoder
@@ -153,25 +218,56 @@ def init_flax_params(config, seed: int) -> Dict[str, Any]:
         return {"scale": np.ones(n, np.float32),
                 "bias": np.zeros(n, np.float32)}
 
-    h, p = ec.hidden_size, ec.patch_size
+    def attention(h):
+        return {n: dense(h, h) for n in ("query", "key", "value", "out")}
+
+    h, p, f = ec.hidden_size, ec.patch_size, ec.hidden_size * ec.mlp_ratio
     tokens = (config.image_size // p) ** 2 + 1
-    backbone = {"patch_embed": {"kernel": normal(p, p, 3, h)},
-                "class_embedding": normal(h, std=h ** -0.5),
-                "position_embeddings": normal(tokens, h),
-                "pre_layernorm": norm(h), "post_layernorm": norm(h)}
+    vit = ec.encoder_type == EncoderType.VIT
+    if vit:
+        backbone = {"patch_embed": {"kernel": normal(p, p, 3, h),
+                                    "bias": np.zeros(h, np.float32)},
+                    "cls_token": normal(1, 1, h, std=h ** -0.5),
+                    "position_embeddings": normal(1, tokens, h),
+                    "layernorm": norm(h), "pooler": dense(h, h)}
+    else:
+        backbone = {"patch_embed": {"kernel": normal(p, p, 3, h)},
+                    "class_embedding": normal(h, std=h ** -0.5),
+                    "position_embeddings": normal(tokens, h),
+                    "pre_layernorm": norm(h), "post_layernorm": norm(h)}
     for i in range(ec.num_layers):
-        backbone[f"layer_{i}"] = {
-            "attention": {n: dense(h, h)
-                          for n in ("query", "key", "value", "out")},
-            "layer_norm1": norm(h), "layer_norm2": norm(h),
-            "fc1": dense(h, h * ec.mlp_ratio),
-            "fc2": dense(h * ec.mlp_ratio, h)}
+        if vit:
+            backbone[f"layer_{i}"] = {
+                "attention": attention(h), "layernorm_before": norm(h),
+                "layernorm_after": norm(h), "intermediate": dense(h, f),
+                "output": dense(f, h)}
+        else:
+            backbone[f"layer_{i}"] = {
+                "attention": attention(h), "layer_norm1": norm(h),
+                "layer_norm2": norm(h), "fc1": dense(h, f),
+                "fc2": dense(f, h)}
     encoder = {"backbone": backbone}
     if h != ec.feature_dim:
         encoder["proj"] = dense(h, ec.feature_dim)
 
-    H, P = dc.hidden_dim, dc.prefix_length
-    gpt = {"wte": {"embedding": normal(mc.vocab_size, H)},
+    H, V = dc.hidden_dim, mc.vocab_size
+    if dc.decoder_type == DecoderType.TRANSFORMER:
+        decoder = {"embedding": {"embedding": normal(V, H)},
+                   "position_encoding": {"embedding": normal(dc.max_length,
+                                                             H)}}
+        for i in range(dc.num_layers):
+            decoder[f"layer_{i}"] = {
+                **{att: {n: dense(H, H) for n in ("q_proj", "k_proj",
+                                                  "v_proj", "out_proj")}
+                   for att in ("self_attn", "cross_attn")},
+                "linear1": dense(H, 4 * H), "linear2": dense(4 * H, H),
+                "norm1": norm(H), "norm2": norm(H), "norm3": norm(H)}
+        decoder["output_layer"] = dense(H, V)
+        decoder["visual_projection"] = dense(ec.feature_dim, H)
+        return {"params": {"encoder": encoder, "decoder": decoder}}
+
+    P = dc.prefix_length
+    gpt = {"wte": {"embedding": normal(V, H)},
            "wpe": {"embedding": normal(dc.gpt2_n_positions, H)},
            "ln_f": norm(H)}
     for i in range(dc.num_layers):
@@ -207,19 +303,52 @@ def _stack(layers, get) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _concatenated(params: List[nn.Parameter]) -> torch.Tensor:
+    """One contiguous tensor of the parameters joined on axis 0; each
+    parameter becomes a view of its rows, so the weights exist once."""
+    joined = torch.cat([p.detach() for p in params])
+    row = 0
+    for p in params:
+        p.data = joined[row:row + p.shape[0]]
+        row += p.shape[0]
+    return joined
+
+
 def stack_layer_weights(model) -> None:
-    """Set ``model.decoder.stack`` (GPT-2 blocks) and
-    ``model.encoder.backbone.stack`` (CLIP layers): the layer-stacked
-    weights of the whole-stack kernels, keyed as the JAX package's
-    ``STACK_WEIGHT_KEYS``. Matrices keep the ``nn.Linear`` layout
-    ``[L, out, in]``; the LayerNorm scales and biases (g1, b1, g2, b2) stay
-    in their float32 dtype, as flax keeps them. Call after the dtype cast:
-    every layer's parameters become views of the stacked tensors."""
-    model.decoder.stack = _stack(
-        model.decoder.backbone.blocks,
-        lambda b: (b.attn.c_attn, b.attn.c_proj, b.ln_1, b.ln_2,
-                   b.mlp.c_fc, b.mlp.c_proj))
-    model.encoder.backbone.stack = _stack(
-        model.encoder.backbone.layers,
-        lambda m: (m.attention.qkv, m.attention.out, m.layer_norm1,
-                   m.layer_norm2, m.fc1, m.fc2))
+    """Build the operands the decode and encode kernels read, once, after
+    the dtype cast; every layer's parameters become views of them.
+
+    * GPT-2 decoder: ``model.decoder.stack`` (its blocks) and CLIP encoder:
+      ``model.encoder.backbone.stack`` (its layers), the layer-stacked
+      weights of the whole-stack kernels, keyed as the JAX package's
+      ``STACK_WEIGHT_KEYS``. Matrices keep the ``nn.Linear`` layout
+      ``[L, out, in]``; the LayerNorm scales and biases (g1, b1, g2, b2)
+      stay in their float32 dtype, as flax keeps them.
+    * Transformer decoder: each layer's ``self_attn.wqkv`` [3H, H] and
+      ``bqkv`` [3H], the q/k/v projections concatenated in that order, as
+      the JAX fold concatenates them for its kernel.
+
+    Other decoders and encoders need no load-time operands.
+    """
+    # the models import this module: import them when it runs
+    from .models.decoders import TransformerDecoder
+    from .models.encoders import CLIPVisionBackbone
+    from .models.gpt2 import GPT2Decoder
+
+    dec, backbone = model.decoder, model.encoder.backbone
+    if isinstance(dec, GPT2Decoder):
+        dec.stack = _stack(
+            dec.backbone.blocks,
+            lambda b: (b.attn.c_attn, b.attn.c_proj, b.ln_1, b.ln_2,
+                       b.mlp.c_fc, b.mlp.c_proj))
+    elif isinstance(dec, TransformerDecoder):
+        for layer in dec.layers:
+            sa = layer.self_attn
+            projs = (sa.q_proj, sa.k_proj, sa.v_proj)
+            sa.wqkv = _concatenated([m.weight for m in projs])
+            sa.bqkv = _concatenated([m.bias for m in projs])
+    if isinstance(backbone, CLIPVisionBackbone):
+        backbone.stack = _stack(
+            backbone.layers,
+            lambda m: (m.attention.qkv, m.attention.out, m.layer_norm1,
+                       m.layer_norm2, m.fc1, m.fc2))

@@ -3,16 +3,20 @@
 Run from the repository root on a machine with a CUDA GPU::
 
     python -m image_captioning_ml_project_tpu_torch.profile_slice \\
-        [--seed N] [--trace PATH]
+        [--config flagship|transformer] [--seed N] [--trace PATH]
 
-It decodes synthetic uint8 images through the flagship model
-(:func:`.main.flagship_config`: CLIP ViT-B/32 + GPT-2 12 layers, width 768,
-vocab 50257, beam 5, max length 20, bf16 weights drawn from ``--seed``)
-directly through ``encode``/``init_cache``/``beam_search``, without the
-server, on the configuration the JAX package's switches select
-(``ICT_DECODE_STACK``, ``ICT_DECODE_FOLD``, ``ICT_ENCODER_FOLD``; by default
-the whole-stack decode and the encoder fold; all three ``0`` give the split
-configuration), and prints:
+It decodes synthetic uint8 images through a served model, bf16 weights
+drawn from ``--seed``: ``flagship`` (the default;
+:func:`.main.flagship_config`: CLIP ViT-B/32 + GPT-2 12 layers, width 768,
+vocab 50257) or ``transformer`` (:func:`.main.transformer_config`: ViT-B/16
++ 6-layer Transformer decoder, width 768, vocab 30000), beam 5, max length
+20, directly through ``encode``/``init_cache``/``beam_search``, without the
+server, on the configuration the JAX package's switches select. For the
+flagship these are ``ICT_DECODE_STACK``, ``ICT_DECODE_FOLD`` and
+``ICT_ENCODER_FOLD`` (by default the whole-stack decode and the encoder
+fold; all three ``0`` give the split configuration); for the Transformer
+decoder ``ICT_DECODE_FOLD`` alone (fold by default, split at ``0``). It
+prints:
 
 0. the configuration profiled: the switches and the decode path and
    encoder they select;
@@ -45,9 +49,11 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from .config import DecoderType
 from .inference.decoding import _tile_state, beam_search
-from .main import flagship_config
+from .main import CONFIGS
 from .models.captioning_model import load_model
+from .models.gpt2 import decode_fold_enabled
 from .models.encoders import encoder_fold_enabled
 from .models.gpt2 import decode_path
 
@@ -141,7 +147,14 @@ def time_step(model, cfg, images, pos=5, runs=20):
           f"{synced * 1e3:.3f} ms", flush=True)
 
 
-def configuration() -> str:
+def configuration(cfg) -> str:
+    if cfg.model.decoder.decoder_type == DecoderType.TRANSFORMER:
+        fold = decode_fold_enabled()
+        return (f"configuration: ICT_DECODE_FOLD="
+                f"{os.environ.get('ICT_DECODE_FOLD', '1')} -> Transformer "
+                f"decoder, self-attention "
+                f"{'fold' if fold else 'split'} + cross-attention kernel "
+                f"per layer; ViT encoder (PyTorch modules, no fold)")
     switches = " ".join(f"{k}={os.environ.get(k, '1')}" for k in (
         "ICT_DECODE_STACK", "ICT_DECODE_FOLD", "ICT_ENCODER_FOLD"))
     encoder = ("whole-stack encoder kernel" if encoder_fold_enabled()
@@ -185,6 +198,8 @@ def profile_batch(model, cfg, images, trace=None):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--config", choices=sorted(CONFIGS),
+                        default="flagship")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--trace", type=str, default=None,
                         help="write the profiled batch's Chrome trace here")
@@ -193,8 +208,8 @@ def main(argv=None):
         sys.exit("profile_slice: no CUDA device")
     card = _card()
     print(card, flush=True)
-    print(configuration(), flush=True)
-    cfg = flagship_config()
+    cfg = CONFIGS[args.config]()
+    print(f"{args.config}: {configuration(cfg)}", flush=True)
     cfg.seed = args.seed
     dev = torch.device("cuda:0")
     model = load_model(cfg, dev)

@@ -1,12 +1,18 @@
-"""The slice as a whole: the tiny CLIP + GPT-2 model through
+"""The slices as a whole: a tiny model of each ported pair through
 ``init_cache``/``step``/``beam_search`` (beam 5, max length 10, length
 penalty 0.8, min length 2) in the port and in the JAX package, from the
 same weights and images: tokens identical and scores within 1e-4 at f32.
 A vocabulary of 1000 takes the materialised log-softmax candidate path, one
-of 5000 the fused path (LSE + block maxima + fused top-k). The port runs its
-default configuration (whole-stack decode, encoder fold) against the JAX
-package's XLA decode and, on the same switches, against its Pallas
-whole-stack decode and encoder kernels in interpret mode."""
+of 5000 the fused path (LSE + block maxima + fused top-k).
+
+* CLIP + GPT-2: the port's default configuration (whole-stack decode,
+  encoder fold) against the JAX package's XLA decode and, on the same
+  switches, against its Pallas whole-stack decode and encoder kernels in
+  interpret mode;
+* ViT + Transformer decoder: the port's fold (default) and split
+  configurations against the JAX package's XLA decode;
+* the JAX package's default configuration (ViT-B/16 + GPT-2 with 8 heads
+  of 96, at its widths, one layer each, 32x32 images)."""
 
 import functools
 
@@ -15,11 +21,17 @@ import numpy as np
 import pytest
 import torch
 
+from image_captioning_ml_project_tpu.config import get_default_config
 from image_captioning_ml_project_tpu.inference.decoding import (
     beam_search as jax_beam_search)
+from image_captioning_ml_project_tpu.models.captioning_model import (
+    ImageCaptioningModel)
 from image_captioning_ml_project_tpu_torch.inference.decoding import (
     _gather_state, _tile_state, beam_search)
-from torch_port_helpers import both_models, images_uint8, jax_images
+from image_captioning_ml_project_tpu_torch.models.captioning_model import (
+    load_model)
+from torch_port_helpers import (IMAGE_SIZE, both_models, images_uint8,
+                                jax_images)
 
 torch.set_num_threads(1)
 
@@ -27,8 +39,13 @@ B = 3
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_decoder(vocab, hf_compat, decode_kernel="xla"):
-    cfg, model = both_models(0, vocab=vocab, decode_kernel=decode_kernel)[:2]
+def _jax_decoder(vocab, hf_compat, decode_kernel="xla", **family):
+    cfg, model = both_models(0, vocab=vocab, decode_kernel=decode_kernel,
+                             **family)[:2]
+    return _jitted_decode(cfg, model, hf_compat)
+
+
+def _jitted_decode(cfg, model, hf_compat=True):
     mc, ic = cfg.model, cfg.inference
 
     @jax.jit
@@ -94,6 +111,68 @@ def test_beam_search_on_default_configuration_matches_jax(seed, monkeypatch):
                                           decode_kernel="pallas")
     images = images_uint8(seed + 30, n=B)
     want = _jax_decoder(5000, True, "pallas")(variables, jax_images(images))
+    got = _port_decode(cfg, port, images, True)
+    np.testing.assert_array_equal(got.tokens.numpy(),
+                                  np.asarray(want.tokens))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),
+                               atol=1e-4, rtol=0)
+
+
+_VIT_TRANSFORMER = {"encoder": "vit", "decoder": "transformer"}
+
+
+@pytest.mark.parametrize("vocab", [1000, 5000],
+                         ids=["materialized", "fused"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_transformer_beam_search_matches_jax(seed, vocab):
+    """ViT + Transformer decoder, the port's default (fold)
+    configuration."""
+    cfg, _, variables, port = both_models(seed, vocab=vocab,
+                                          **_VIT_TRANSFORMER)
+    images = images_uint8(seed + 40, n=B)
+    want = _jax_decoder(vocab, True, **_VIT_TRANSFORMER)(
+        variables, jax_images(images))
+    got = _port_decode(cfg, port, images, True)
+    np.testing.assert_array_equal(got.tokens.numpy(),
+                                  np.asarray(want.tokens))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),
+                               atol=1e-4, rtol=0)
+
+
+def test_transformer_split_beam_search_matches_jax(monkeypatch):
+    """ViT + Transformer decoder, the split configuration
+    (``ICT_DECODE_FOLD=0``)."""
+    monkeypatch.setenv("ICT_DECODE_FOLD", "0")
+    cfg, _, variables, port = both_models(1, vocab=5000, **_VIT_TRANSFORMER)
+    images = images_uint8(50, n=B)
+    want = _jax_decoder(5000, True, **_VIT_TRANSFORMER)(
+        variables, jax_images(images))
+    got = _port_decode(cfg, port, images, True)
+    np.testing.assert_array_equal(got.tokens.numpy(),
+                                  np.asarray(want.tokens))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),
+                               atol=1e-4, rtol=0)
+
+
+def test_jax_default_configuration_matches_jax():
+    """The JAX package's default configuration (ViT-B/16 + GPT-2, width
+    768, 8 heads of 96) at its widths with one layer each, 32x32 images
+    and vocab 1000, f32: the port builds it through ``load_model`` and
+    decodes the JAX package's tokens."""
+    import jax.numpy as jnp
+
+    cfg = get_default_config()
+    cfg.model.encoder.num_layers = cfg.model.decoder.num_layers = 1
+    cfg.image_size = cfg.model.encoder.image_size = IMAGE_SIZE
+    cfg.model.vocab_size, cfg.model.dtype = 1000, "float32"
+    model = ImageCaptioningModel(cfg)
+    variables = jax.jit(model.init)(
+        jax.random.PRNGKey(0), jnp.zeros((2, IMAGE_SIZE, IMAGE_SIZE, 3)),
+        jnp.zeros((2, 5), jnp.int32))
+    port = load_model(cfg, "cpu", params=variables)
+    assert port.decoder.backbone.blocks[0].attn.num_heads == 8
+    images = images_uint8(60, n=2)
+    want = _jitted_decode(cfg, model)(variables, jax_images(images))
     got = _port_decode(cfg, port, images, True)
     np.testing.assert_array_equal(got.tokens.numpy(),
                                   np.asarray(want.tokens))

@@ -1,8 +1,9 @@
 """The port's hand-written kernels on the card, against their plain PyTorch
 versions: beam-decode attention, folded-QKV attention, the whole-stack
-GPT-2 decode step and the whole-stack CLIP encoder (CUDA C++), and
-LSE/block-max (Triton); then a tiny model's decode on the card against the
-same decode on the CPU, on each decode configuration.
+GPT-2 decode step, the whole-stack CLIP encoder and the Transformer
+decoder's cross-attention step (CUDA C++), and LSE/block-max (Triton);
+then a tiny model's decode on the card against the same decode on the CPU,
+on each decode configuration of CLIP + GPT-2 and of ViT + Transformer.
 
 Every test needs an NVIDIA GPU (marker ``cuda``) and skips elsewhere. The
 file imports neither JAX nor the repository's conftest helpers, so it runs
@@ -19,12 +20,14 @@ import torch
 
 from image_captioning_ml_project_tpu_torch.inference.decoding import (
     beam_search)
-from image_captioning_ml_project_tpu_torch.main import flagship_config
+from image_captioning_ml_project_tpu_torch.main import (flagship_config,
+                                                        transformer_config)
 from image_captioning_ml_project_tpu_torch.models.captioning_model import (
     load_model)
 from image_captioning_ml_project_tpu_torch.ops import beam_decode_attention \
     as bda
 from image_captioning_ml_project_tpu_torch.ops import beam_decode_stack as bds
+from image_captioning_ml_project_tpu_torch.ops import cross_attention as ca
 from image_captioning_ml_project_tpu_torch.ops import encoder_stack as es
 from image_captioning_ml_project_tpu_torch.ops import lse as port_lse
 from image_captioning_ml_project_tpu_torch.ops._checks import (LN_KEYS,
@@ -78,6 +81,9 @@ def _attention(inputs, dtype, device, pos, NH, K, anc=True, plain=False):
 @pytest.mark.parametrize("B,K,S,P,NH,H,pos,anc", [
     (64, 5, 20, 10, 12, 768, 19, True),   # served shapes, last step
     (64, 5, 20, 10, 12, 768, 0, True),    # first step
+    (64, 5, 20, 0, 12, 768, 19, True),    # Transformer decoder: no prefix
+    (64, 5, 20, 0, 12, 768, 7, True),
+    (64, 5, 20, 0, 12, 768, 0, True),
     (4, 3, 9, 0, 4, 64, 5, True),         # prefix-free, odd cache length
     (3, 1, 7, 2, 2, 48, 3, False),        # K=1, no ancestry, head dim 24
     (2, 2, 300, 5, 1, 320, 299, True),    # one head wider than the block
@@ -110,7 +116,8 @@ def test_attention_kernel_raises_on_what_it_does_not_take(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("R,V", [(320, 50257), (6, 1000), (3, 4097)])
+@pytest.mark.parametrize("R,V", [(320, 50257), (320, 30000), (6, 1000),
+                                 (3, 4097)])
 def test_lse_kernel_matches_plain(dev, dtype, R, V):
     g = torch.Generator().manual_seed(V)
     x = (torch.randn((R, V), generator=g) * 3).to(dtype)
@@ -163,6 +170,9 @@ def _untouched_but_pos(got, before, pos):
 @pytest.mark.parametrize("B,K,S,P,NH,H,pos,anc", [
     (64, 5, 20, 10, 12, 768, 19, True),   # served shapes, last step
     (64, 5, 20, 10, 12, 768, 0, True),    # first step
+    (64, 5, 20, 0, 12, 768, 19, True),    # Transformer decoder: no prefix
+    (64, 5, 20, 0, 12, 768, 7, True),
+    (64, 5, 20, 0, 12, 768, 0, True),
     (3, 1, 7, 2, 2, 48, 3, False),        # K=1, no ancestry, ragged tiles
 ])
 def test_attention_qkv_kernel_matches_plain(dev, dtype, B, K, S, P, NH, H,
@@ -177,7 +187,8 @@ def test_attention_qkv_kernel_matches_plain(dev, dtype, B, K, S, P, NH, H,
                bda.beam_decode_attention_qkv_plain):
         kc, vc = t["k_cache"].clone(), t["v_cache"].clone()
         before = bda.beam_decode_attention_qkv.launches
-        o, kc, vc = fn(t["q"], *ws, kc, vc, t["prefix_k"], t["prefix_v"],
+        o, kc, vc = fn(t["q"], *ws, kc, vc, t.get("prefix_k"),
+                       t.get("prefix_v"),
                        t["anc_local"] if anc else None, pos, num_heads=NH,
                        beam_size=K, scale=(H // NH) ** -0.5)
         torch.cuda.synchronize()
@@ -195,6 +206,7 @@ def test_attention_qkv_kernel_matches_plain(dev, dtype, B, K, S, P, NH, H,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L,B,K,S,P,NH,H,pos,anc", [
     (12, 64, 5, 20, 10, 12, 768, 19, True),   # served shapes
+    (6, 64, 5, 20, 10, 8, 768, 19, True),     # JAX default: head dim 96
     (2, 4, 3, 9, 2, 4, 64, 0, True),          # first step, small
     (3, 3, 1, 7, 3, 2, 48, 5, False),         # K=1, no ancestry
 ])
@@ -268,6 +280,57 @@ def test_fused_kernels_raise_on_what_they_do_not_take(dev):
             num_heads=4, beam_size=3, scale=1.0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,NH,H,Sm,masked", [
+    (64, 5, 12, 768, 196, True),   # served shapes (f32: 100 KB of smem)
+    (64, 5, 12, 768, 196, False),  # no mask
+    (3, 1, 2, 40, 13, True),       # K=1; rows too short for 16-byte copies
+    (2, 7, 4, 256, 33, True),      # more beams than warps hold at once
+])
+def test_cross_attention_kernel_matches_plain(dev, dtype, B, K, NH, H, Sm,
+                                              masked):
+    """f32 within 1e-5 (another summation order); bf16 within 2 ulps of the
+    output's largest magnitude (a weight near a bf16 rounding boundary
+    rounds the other way)."""
+    g = torch.Generator().manual_seed(B * Sm + K)
+    q = torch.randn((B * K, H), generator=g).to(dev, dtype)
+    mkt = torch.randn((B, H, Sm), generator=g).to(dev, dtype)
+    mv = torch.randn((B, Sm, H), generator=g).to(dev, dtype)
+    mask = None
+    if masked:
+        mask = (torch.rand((B, Sm), generator=g) < 0.25).to(dev)
+        mask[:, 0] = False
+    kw = dict(num_heads=NH, beam_size=K, scale=(H // NH) ** -0.5)
+    before = ca.cross_attention.launches
+    got = ca.cross_attention(q, mkt, mv, mask, **kw)
+    torch.cuda.synchronize()
+    assert ca.cross_attention.launches == before + 1
+    want = ca.cross_attention_plain(q, mkt, mv, mask, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert float((got.float() - want.float()).abs().max()) <= \
+            2 * _bf16_ulp(want.float())
+
+
+def test_cross_attention_kernel_raises_on_what_it_does_not_take(dev):
+    q = torch.zeros((6, 64), device=dev)
+    mkt, mv = torch.zeros((2, 64, 5), device=dev), torch.zeros((2, 5, 64),
+                                                               device=dev)
+    kw = dict(num_heads=4, beam_size=3, scale=1.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ca.cross_attention(q.half(), mkt.half(), mv.half(), None, **kw)
+    with pytest.raises(ValueError, match="pad_mask is torch.int32"):
+        ca.cross_attention(q, mkt, mv, torch.zeros((2, 5), device=dev,
+                                                   dtype=torch.int32), **kw)
+    with pytest.raises(ValueError, match="mem_v is"):
+        ca.cross_attention(q, mkt, mv.cpu(), None, **kw)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        big = torch.zeros((2, 64, 2000), device=dev)
+        ca.cross_attention(q, big, big.transpose(1, 2).contiguous(), None,
+                           **kw)
+
+
 _CONFIGS = {"stack": ("1", "1", "1"), "fold": ("0", "1", "1"),
             "split": ("0", "0", "0")}
 
@@ -291,8 +354,16 @@ def test_tiny_model_decode_on_the_card_matches_cpu(dev, vocab):
     _tiny_decode_matches_cpu(dev, vocab)
 
 
-def _tiny_decode_matches_cpu(dev, vocab):
-    c = flagship_config()
+@pytest.mark.parametrize("fold", ["1", "0"], ids=["fold", "split"])
+def test_tiny_transformer_decode_on_the_card_matches_cpu(dev, fold,
+                                                         monkeypatch):
+    """f32, ViT + Transformer decoder, both configurations."""
+    monkeypatch.setenv("ICT_DECODE_FOLD", fold)
+    _tiny_decode_matches_cpu(dev, 5000, transformer_config())
+
+
+def _tiny_decode_matches_cpu(dev, vocab, c=None):
+    c = c or flagship_config()
     e, d = c.model.encoder, c.model.decoder
     e.hidden_size = e.feature_dim = d.hidden_dim = 64
     e.num_layers = d.num_layers = 2

@@ -1,6 +1,6 @@
 """The port imports no JAX: in a fresh interpreter, importing every module
 of ``image_captioning_ml_project_tpu_torch`` and building and running a
-tiny model leaves ``jax``, ``flax`` and the JAX package
+tiny model of each ported family leaves ``jax``, ``flax`` and the JAX package
 ``image_captioning_ml_project_tpu`` out of ``sys.modules``. And
 ``chip_smoke.py`` refuses to run, printing no result, without a GPU or
 without the port beside it."""
@@ -22,19 +22,21 @@ import torch
 import image_captioning_ml_project_tpu_torch as port
 for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(m.name)
-from image_captioning_ml_project_tpu_torch.main import flagship_config
+from image_captioning_ml_project_tpu_torch.main import CONFIGS
 from image_captioning_ml_project_tpu_torch.models.captioning_model import (
     load_model)
-c = flagship_config()
-e, d = c.model.encoder, c.model.decoder
-e.hidden_size = e.feature_dim = d.hidden_dim = 32
-e.num_layers = d.num_layers = 1
-e.num_heads = d.num_heads = 2
-c.image_size, c.model.vocab_size, c.model.dtype = 64, 100, "float32"
-model = load_model(c, "cpu")
-with torch.inference_mode():
-    state = model.init_cache(torch.zeros(1, 64, 64, 3, dtype=torch.uint8), 4)
-    model.step(state, torch.ones(1, dtype=torch.long))
+for make in CONFIGS.values():
+    c = make()
+    e, d = c.model.encoder, c.model.decoder
+    e.hidden_size = e.feature_dim = d.hidden_dim = 32
+    e.num_layers = d.num_layers = 1
+    e.num_heads = d.num_heads = 2
+    c.image_size, c.model.vocab_size, c.model.dtype = 64, 100, "float32"
+    model = load_model(c, "cpu")
+    with torch.inference_mode():
+        state = model.init_cache(torch.zeros(1, 64, 64, 3,
+                                             dtype=torch.uint8), 4)
+        model.step(state, torch.ones(1, dtype=torch.long))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "image_captioning_ml_project_tpu"))

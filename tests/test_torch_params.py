@@ -1,9 +1,11 @@
 """Weight bridge (port: params.py) and the bf16 cast policy (port:
-utils/amp.py): every flax leaf is mapped, an extra or a missing leaf
-raises, the seeded initialisation has the flax layout, and norms stay f32
-under the cast. The layer-stacked weights of the whole-stack kernels equal
-the JAX package's (``_stacked_weights`` and the encoder fold's stack) and
-are the model's parameters, not copies."""
+utils/amp.py), for every ported family (CLIP and ViT encoders, GPT-2 and
+Transformer decoders): every flax leaf is mapped, an extra or a missing
+leaf raises, the seeded initialisation has the flax layout, and norms stay
+f32 under the cast. The layer-stacked weights of the whole-stack kernels
+equal the JAX package's (``_stacked_weights`` and the encoder fold's
+stack), and the Transformer decoder's concatenated QKV equals what the JAX
+fold hands its kernel; all are the model's parameters, not copies."""
 
 import copy
 
@@ -34,9 +36,15 @@ def _flax_leaf_count(variables):
     return len(jax.tree_util.tree_leaves(variables))
 
 
-@pytest.mark.parametrize("config", [{}, {"fused_qkv": True},
-                                    {"feature_dim": 48}],
-                         ids=["default", "fused_qkv", "projected"])
+_VIT_TRANSFORMER = {"encoder": "vit", "decoder": "transformer"}
+
+
+@pytest.mark.parametrize("config", [
+    {}, {"fused_qkv": True}, {"feature_dim": 48}, _VIT_TRANSFORMER,
+    dict(_VIT_TRANSFORMER, fused_qkv=True, feature_dim=48),
+    {"encoder": "vit"}], ids=["default", "fused_qkv", "projected",
+                              "vit_transformer", "vit_transformer_fused",
+                              "vit_gpt2"])
 def test_every_flax_leaf_maps_to_every_model_tensor(config):
     cfg, _, variables, _ = both_models(0, **config)
     sd = from_flax(variables)
@@ -59,13 +67,18 @@ def test_extra_leaf_raises():
         from_flax(tree)
 
 
-@pytest.mark.parametrize("path", [
-    ("encoder", "backbone", "layer_1", "fc2", "bias"),
-    ("decoder", "backbone", "block_0", "attn", "c_proj", "kernel"),
-    ("decoder", "image_prefix"),
+@pytest.mark.parametrize("config,path", [
+    ({}, ("encoder", "backbone", "layer_1", "fc2", "bias")),
+    ({}, ("decoder", "backbone", "block_0", "attn", "c_proj", "kernel")),
+    ({}, ("decoder", "image_prefix")),
+    (_VIT_TRANSFORMER, ("encoder", "backbone", "pooler", "kernel")),
+    (_VIT_TRANSFORMER, ("encoder", "backbone", "patch_embed", "bias")),
+    (_VIT_TRANSFORMER, ("decoder", "layer_1", "cross_attn", "k_proj",
+                        "bias")),
+    (_VIT_TRANSFORMER, ("decoder", "visual_projection", "kernel")),
 ])
-def test_missing_leaf_raises(path):
-    tree = copy.deepcopy(_np_tree(both_models(0)[2]))
+def test_missing_leaf_raises(config, path):
+    tree = copy.deepcopy(_np_tree(both_models(0, **config)[2]))
     node = tree["params"]
     for key in path[:-1]:
         node = node[key]
@@ -74,8 +87,11 @@ def test_missing_leaf_raises(path):
         from_flax(tree)
 
 
-@pytest.mark.parametrize("config", [{}, {"feature_dim": 48}],
-                         ids=["default", "projected"])
+@pytest.mark.parametrize("config", [
+    {}, {"feature_dim": 48}, _VIT_TRANSFORMER,
+    dict(_VIT_TRANSFORMER, feature_dim=48), {"encoder": "vit"}],
+    ids=["default", "projected", "vit_transformer",
+         "vit_transformer_projected", "vit_gpt2"])
 def test_seeded_init_has_the_flax_layout(config):
     cfg, _, variables, _ = both_models(0, **config)
     got = jax.tree_util.tree_map(lambda x: (x.shape, x.dtype),
@@ -175,3 +191,32 @@ def test_stacked_weights_follow_the_cast():
                     else torch.bfloat16)
             assert t.dtype == want and t.is_contiguous(), key
     assert port.decoder.stack["wqkv"].shape == (2, 192, 64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transformer_qkv_is_one_tensor_of_views(dtype):
+    """Each Transformer layer's self-attention q/k/v weights and biases are
+    views of one [3H, H] / [3H] tensor in the working dtype, equal to the
+    concatenation the JAX fold hands its kernel."""
+    cfg, _, variables, _ = both_models(0, **_VIT_TRANSFORMER)
+    cfg = copy.deepcopy(cfg)
+    cfg.model.dtype = dtype
+    port = load_model(cfg, "cpu", params=variables)
+    H = cfg.model.decoder.hidden_dim
+    tree = variables["params"]["decoder"]
+    for i, layer in enumerate(port.decoder.layers):
+        sa = layer.self_attn
+        assert sa.wqkv.shape == (3 * H, H) and sa.bqkv.shape == (3 * H,)
+        assert sa.wqkv.dtype == sa.bqkv.dtype == getattr(torch, dtype)
+        item = sa.wqkv.element_size()
+        for j, proj in enumerate((sa.q_proj, sa.k_proj, sa.v_proj)):
+            assert proj.weight.data_ptr() == \
+                sa.wqkv.data_ptr() + j * H * H * item
+            assert proj.bias.data_ptr() == sa.bqkv.data_ptr() + j * H * item
+        jax_sa = tree[f"layer_{i}"]["self_attn"]
+        want = np.concatenate([np.asarray(jax_sa[n]["kernel"])
+                               for n in ("q_proj", "k_proj", "v_proj")],
+                              axis=1).T
+        np.testing.assert_array_equal(
+            sa.wqkv.float().numpy(),
+            torch.from_numpy(want).to(sa.wqkv.dtype).float().numpy())

@@ -1,7 +1,9 @@
 """Serving (port: inference/server.py) and the CLI (port: main.py) on the
 CPU: concurrent submits over a bucket ladder give the captions of a direct
-``beam_search`` decode, the HTTP front end answers ``/caption`` for a PNG
-and its GET routes, and what is not yet ported says so."""
+``beam_search`` decode (CLIP + GPT-2 and ViT + Transformer decoder), the
+HTTP front end answers ``/caption`` for a PNG and its GET routes, the
+built-in configurations have their widths, and what is not yet ported
+says so."""
 
 import io
 import json
@@ -174,3 +176,57 @@ def test_cli_tokenizer_and_flagship_config(tmp_path):
     assert cfg.model.vocab_size == len(tok) == VOCAB
     assert (cfg.model.pad_token_id, cfg.model.bos_token_id,
             cfg.model.eos_token_id) == (0, 1, 2)
+
+
+def test_transformer_configuration_is_served():
+    """ViT + Transformer decoder behind ``CaptionService``: concurrent
+    submits give the direct decode's captions."""
+    cfg = tiny_config(vocab=VOCAB, encoder="vit", decoder="transformer")
+    cfg.seed = 3
+    tok = _vocab()
+    images = images_uint8(13, n=3)
+    want = _direct_captions(cfg, tok, images)
+    service = CaptionService(cfg, tok, "cpu", batch_size=2,
+                             bucket_sizes=[1, 2], max_wait_ms=30.0)
+    service.start(warmup=True)
+    try:
+        reqs = [service.submit_async(img) for img in images]
+        assert [service.result(r) for r in reqs] == want
+        assert service.stats.snapshot()["decode_steps"] > 0
+    finally:
+        service.stop()
+
+
+def test_cli_builtin_configurations():
+    """``--config transformer`` is the widths of the JAX package's
+    Transformer benchmark; no ``--config`` is the JAX package's default
+    (ViT-B/16 + 6-layer GPT-2 with 8 heads), which the port builds."""
+    from image_captioning_ml_project_tpu_torch.config import (
+        DecoderType, EncoderType)
+    from image_captioning_ml_project_tpu_torch.models.captioning_model \
+        import ImageCaptioningModel
+
+    cfg = port_main.resolve_config("transformer")
+    e, d = cfg.model.encoder, cfg.model.decoder
+    assert e.encoder_type == EncoderType.VIT
+    assert (e.hidden_size, e.num_layers, e.num_heads, e.patch_size,
+            cfg.image_size) == (768, 12, 12, 16, 224)
+    assert d.decoder_type == DecoderType.TRANSFORMER
+    assert (d.hidden_dim, d.num_layers, d.num_heads, d.max_length,
+            cfg.model.vocab_size) == (768, 6, 12, 24, 30000)
+    assert (cfg.inference.beam_size, cfg.inference.max_length,
+            cfg.model.dtype) == (5, 20, "bfloat16")
+    assert port_main.resolve_config("flagship").model.vocab_size == 50257
+    default = port_main.resolve_config(None)
+    assert default.model.encoder.encoder_type == EncoderType.VIT
+    assert default.model.decoder.decoder_type == DecoderType.GPT2
+    for c in (cfg, default):
+        with torch.device("meta"):
+            model = ImageCaptioningModel(c)
+        assert sum(p.numel() for p in model.parameters()) > 10 ** 8
+
+
+def test_lstm_decoder_names_its_roadmap_item():
+    cfg = tiny_config(decoder="lstm")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+        load_model(cfg, "cpu")

@@ -1,6 +1,7 @@
-"""Shared set-up of the tests/test_torch_*.py files: a tiny CLIP + GPT-2
-configuration, and the JAX model and the port's model built from one set
-of weights. Inputs are made with numpy from a seed and fed to both."""
+"""Shared set-up of the tests/test_torch_*.py files: a tiny configuration
+of each ported family (CLIP or ViT encoder, GPT-2 or Transformer decoder),
+and the JAX model and the port's model built from one set of weights.
+Inputs are made with numpy from a seed and fed to both."""
 
 import functools
 
@@ -21,19 +22,23 @@ IMAGE_SIZE = 32
 
 
 def tiny_config(vocab: int = 1000, decode_kernel: str = "xla",
-                fused_qkv: bool = False, feature_dim: int = 64):
-    """2 layers, width 64, 4 heads, patch 16 on 32x32 images, 3 prefix
-    tokens; f32 weights; beam 5, max length 10, length penalty 0.8,
-    min length 2."""
+                fused_qkv: bool = False, feature_dim: int = 64,
+                encoder: str = "clip", decoder: str = "gpt2",
+                width: int = 64):
+    """2 layers, encoder width 64, decoder width ``width``, 4 heads, patch
+    16 on 32x32 images (4 patch tokens), 3 prefix tokens (GPT-2) or 16
+    learned positions (Transformer); f32 weights; beam 5, max length 10,
+    length penalty 0.8, min length 2."""
     c = get_default_config()
     e, d = c.model.encoder, c.model.decoder
-    e.encoder_type = EncoderType.CLIP
+    e.encoder_type = EncoderType(encoder)
     e.hidden_size, e.num_layers, e.num_heads = 64, 2, 4
     e.patch_size, e.feature_dim, e.fused_qkv = 16, feature_dim, fused_qkv
     e.image_size = IMAGE_SIZE
-    d.decoder_type = DecoderType.GPT2
-    d.hidden_dim, d.num_layers, d.num_heads = 64, 2, 4
+    d.decoder_type = DecoderType(decoder)
+    d.hidden_dim, d.num_layers, d.num_heads = width, 2, 4
     d.prefix_length, d.dropout, d.gpt2_n_positions = 3, 0.0, 64
+    d.max_length = 16
     d.decode_kernel = decode_kernel
     c.image_size = IMAGE_SIZE
     c.model.vocab_size = vocab
