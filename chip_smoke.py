@@ -11,50 +11,59 @@ prints no result line:
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; TF32 and bf16 reduced-precision GEMM reductions off for the
    comparisons;
-2. build: compiles the five ``csrc/*.cu`` libraries with nvcc from the
+2. build: compiles the seven ``csrc/*.cu`` libraries with nvcc from the
    checkout, one process each, all started together, and prints ptxas's
    register and spill lines (the Triton kernel compiles at its first
    launch);
-3. kernels: each of the six kernels against its plain PyTorch version on
-   the card, at the served shapes of each family that runs it (the
+3. kernels: each of the eight kernels against its plain PyTorch version
+   on the card, at the served shapes of each family that runs it (the
    beam-decode attention kernels prefix-free for the Transformer decoder
    and behind a 10-row prefix for GPT-2; the LSE over vocabularies of
-   30000 and 50257), in float32 and bfloat16, with its tolerance, and
-   both timed (CUDA events, median of 30 runs), beside the
+   10000, 30000 and 50257; SDPA and the additive scores at the LSTM's 64
+   images x 5 beams over 49 feature rows, masked and not, and at its
+   teacher-forced 20 positions), in float32 and bfloat16, with its
+   tolerance, and both timed (CUDA events, median of 30 runs), beside the
    least time the card could take for the same work (``bound_ms``: the
    larger of the bytes over 3.35 TB/s and the operations over the peak
    rate of their type) and, where one PyTorch call computes the same
    function, that call's time (``library_ms``);
 4. reference: the full-width models in float32 decode two images on the
    card (through the kernels) and on the CPU (plain versions), on each
-   decode configuration (CLIP + GPT-2: stack + encoder fold, fold, split;
-   ViT + Transformer decoder: fold, split); tokens must be identical and
-   scores agree to 1e-4;
+   decode configuration (ResNet-101 + LSTM: soft, multi-head, adaptive and
+   AoA attention through their kernels, and soft without; ViT +
+   Transformer decoder: fold, split; CLIP + GPT-2: stack + encoder fold,
+   fold, split); tokens must be identical and scores agree to 1e-4;
 5. encode A/B: the bf16 CLIP encode of 64 images with and without the
    encoder fold, timed in turns;
 6. serve: ``CaptionService`` at full width on the card, bf16 weights from
    the seed, beam 5, max length 20, batch 64, buckets 1/8/64, behind its
-   HTTP front end. First the Transformer family, this slice's path —
-   ViT-B/16 + 6-layer Transformer decoder (width 768, 12 heads, vocab
-   30000): on its default (fold) configuration one round of 64 concurrent
-   requests and three single ones; then one round of 64 with
-   ``ICT_DECODE_FOLD=0`` (split). Then CLIP ViT-B/32 + GPT-2 (12 layers,
-   width 768, vocab 50257): on the default configuration three rounds of
-   64 and three single requests; then one round of 64 with
-   ``ICT_DECODE_STACK=0`` (fold) and one with all three switches ``0``
-   (split). Every request must be captioned, and the launch counters, set
-   to 0 just before each configuration's rounds and read just after, must
-   show that every decode step (and layer) and every encoded batch went
-   through the kernels.
+   HTTP front end. First the LSTM family, this slice's path — ResNet-101
+   + 6-layer LSTM (width 512, vocab 10000): with soft attention through
+   its kernel (``--config lstm``) one round of 64 concurrent requests and
+   three single ones; then one round of 64 with multi-head attention
+   through its kernel, and one with soft attention and ``use_pallas``
+   off. Then ViT-B/16 + 6-layer Transformer decoder (width 768, 12 heads,
+   vocab 30000): on its default (fold) configuration one round of 64 and
+   three single requests; then one round of 64 with ``ICT_DECODE_FOLD=0``
+   (split). Then CLIP ViT-B/32 + GPT-2 (12 layers, width 768, vocab
+   50257): on the default configuration three rounds of 64 and three
+   single requests; then one round of 64 with ``ICT_DECODE_STACK=0``
+   (fold) and one with all three switches ``0`` (split). Every request
+   must be captioned, and the launch counters, set to 0 just before each
+   configuration's rounds and read just after, must show that every
+   decode step (and layer) and every encoded batch went through the
+   kernels, and that no other kernel ran.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Each kernel's entry holds its numbers
 and launches for the Transformer family where that family runs it, else
-for the flagship; the other family's, where it has its own shape, are
-under ``other_shapes``.
+for the flagship, else for the LSTM; the other families', where they have
+their own shape (the LSE over the LSTM's vocabulary of 10000), are under
+``other_shapes``.
 """
 
 import argparse
+import copy
 import json
 import os
 import re
@@ -83,25 +92,42 @@ def phase(name):
     print(f"== {name}", flush=True)
 
 
-def time_ms(torch, fn, runs=30, flush=None):
-    """Median device time of ``fn`` in ms over ``runs`` launches (CUDA
-    events), after three warm-up calls; ``flush`` is overwritten before
-    each run so the kernel finds its inputs outside L2."""
+def time_ms(torch, fn, runs=30, flush=None, device=False):
+    """Median time of ``fn`` in ms over ``runs`` calls between two CUDA
+    events, after three warm-up calls; ``flush`` is overwritten before
+    each run so the kernel finds its inputs outside L2. The events bracket
+    the whole call: where the wrapper's host work outlasts the work queued
+    before it, the device waits and the time includes that host work.
+    With ``device``, also returns the device time: the median over
+    ``runs`` more calls, timed the same way but queued behind a spin
+    kernel (``torch.cuda._sleep``) that keeps the device busy while the
+    host enqueues them all, so that no host work falls between the
+    events."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+
+    def timed(n):
+        events = []
+        for _ in range(n):
+            if flush is not None:
+                flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in events)
+
     times = []
     for _ in range(runs):
-        if flush is not None:
-            flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        times.append(timed(1))
+    if not device:
+        return statistics.median(times)
+    torch.cuda._sleep(400_000_000)  # about 0.2 s of spinning
+    return statistics.median(times), timed(runs)
 
 
 def bf16_ulp(ref):
@@ -159,10 +185,13 @@ def attention_work(torch, anc, pos, B, K, H, P, item, layers=1):
 ATTENTION_SHAPES = (("transformer", 0), ("flagship", 10))
 
 
-def shape_entry(shape, err, ms, plain_ms, bnd, library_ms=None):
-    """One shape's numbers for the summary line."""
-    return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                **bnd, library_ms=library_ms)
+def shape_entry(shape, err, ms, plain_ms, bnd, library_ms=None,
+                device_ms=None):
+    """One shape's numbers for the summary line: ``ms`` the CUDA-event
+    time of the kernel's call, ``device_ms`` its kernels' device time
+    (:func:`time_ms`)."""
+    return dict(shape=shape, max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, **bnd, library_ms=library_ms)
 
 
 def check_attention(torch, dev, results):
@@ -211,9 +240,9 @@ def check_attention(torch, dev, results):
                 check(ok, f"{what}: error {err} > {tol}")
                 check(caches_equal, f"{what}: caches differ")
                 if dtype == torch.bfloat16:
-                    ms = time_ms(torch, lambda: beam_decode_attention(
+                    ms, dev_ms = time_ms(torch, lambda: beam_decode_attention(
                         q, kn, vn, kc1, vc1, pk, pv, anc, pos, **args),
-                        flush=flush)
+                        flush=flush, device=True)
                     plain_ms = time_ms(
                         torch, lambda: beam_decode_attention_plain(
                             q, kn, vn, kc2, vc2, pk, pv, anc, pos, **args),
@@ -221,7 +250,7 @@ def check_attention(torch, dev, results):
                     nbytes, ops = attention_work(torch, anc, pos, B, K, H, P,
                                                  2)
                     timing[pos] = (ms, plain_ms, bound(
-                        nbytes + 4 * Bk * H * 2, {"f32": ops}))
+                        nbytes + 4 * Bk * H * 2, {"f32": ops}), None, dev_ms)
                     print(f"attention bf16 P={P} pos={pos}: kernel {ms:.4f} "
                           f"ms, plain {plain_ms:.4f} ms (L2 flushed before "
                           f"each run)", flush=True)
@@ -240,8 +269,10 @@ def check_lse(torch, dev, results):
     R = 320
     g = torch.Generator(device=dev).manual_seed(4321)
     out = {}
-    # the Transformer decoder's vocabulary and GPT-2's
-    for family, V in (("transformer", 30000), ("flagship", 50257)):
+    # the LSTM's vocabulary (19.53 blocks of 512: the last one ragged), the
+    # Transformer decoder's and GPT-2's
+    for family, V in (("lstm", 10000), ("transformer", 30000),
+                      ("flagship", 50257)):
         logits = (torch.randn((R, V), generator=g, device=dev) * 3).to(
             torch.bfloat16)
         lse, bm = lse_and_block_max(logits)
@@ -256,7 +287,8 @@ def check_lse(torch, dev, results):
         check(rel <= 1e-5, f"lse [{R}, {V}]: relative error {rel} > 1e-5")
         check(bm_exact, f"lse [{R}, {V}]: block maxima differ from the plain "
                         f"version")
-        ms = time_ms(torch, lambda: lse_and_block_max(logits))
+        ms, dev_ms = time_ms(torch, lambda: lse_and_block_max(logits),
+                             device=True)
         plain_ms = time_ms(torch, lambda: lse_and_block_max_plain(logits))
         print(f"lse_and_block_max bf16 [{R}, {V}]: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms (logits L2-warm, as after the LM head)",
@@ -267,7 +299,8 @@ def check_lse(torch, dev, results):
         # outputs.
         out[family] = shape_entry(
             f"[{R}, {V}] bf16", err, ms, plain_ms,
-            bound(R * V * 2 + R * 4 * (1 + nblk), {"f32": 3 * R * V}))
+            bound(R * V * 2 + R * 4 * (1 + nblk), {"f32": 3 * R * V}),
+            device_ms=dev_ms)
     results["lse_and_block_max"] = out
 
 
@@ -368,9 +401,10 @@ def check_attention_qkv(torch, dev, results):
                                    1e-5, 1)
                 if dtype == torch.bfloat16:
                     worst = max(worst, err)
-                    ms = time_ms(torch, lambda: beam_decode_attention_qkv(
-                        x, *ws, kc1, vc1, pk, pv, anc, pos, **args),
-                        flush=flush)
+                    ms, dev_ms = time_ms(
+                        torch, lambda: beam_decode_attention_qkv(
+                            x, *ws, kc1, vc1, pk, pv, anc, pos, **args),
+                        flush=flush, device=True)
                     plain_ms = time_ms(
                         torch, lambda: beam_decode_attention_qkv_plain(
                             x, *ws, kc2, vc2, pk, pv, anc, pos, **args),
@@ -379,7 +413,8 @@ def check_attention_qkv(torch, dev, results):
                                                  2)
                     nbytes += (2 * Bk * H + 4 * H * H + 4 * H) * 2
                     timing[pos] = (ms, plain_ms, bound(nbytes, {
-                        "f32": ops, "bf16_tensor": 8 * Bk * H * H}))
+                        "f32": ops, "bf16_tensor": 8 * Bk * H * H}), None,
+                        dev_ms)
                     print(f"attention_qkv bf16 P={P} pos={pos}: kernel "
                           f"{ms:.4f} ms, plain {plain_ms:.4f} ms (L2 flushed "
                           f"before each run)", flush=True)
@@ -424,22 +459,22 @@ def check_stack(torch, dev, results):
                                1e-4, 8)
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
-                ms = time_ms(torch, lambda: beam_decode_stack(
-                    x, w, kc1, vc1, pk, pv, anc, pos, **args))
+                ms, dev_ms = time_ms(torch, lambda: beam_decode_stack(
+                    x, w, kc1, vc1, pk, pv, anc, pos, **args), device=True)
                 plain_ms = time_ms(torch, lambda: beam_decode_stack_plain(
                     x, w, kc2, vc2, pk, pv, anc, pos, **args))
                 nbytes, ops = attention_work(torch, anc, pos, B, K, H, P, 2,
                                              layers=L)
                 nbytes += stack_bytes(w) + 2 * Bk * H * 2
                 timing[pos] = (ms, plain_ms, bound(nbytes, {
-                    "f32": ops, "bf16_tensor": L * 24 * Bk * H * H}))
+                    "f32": ops, "bf16_tensor": L * 24 * Bk * H * H}), None,
+                    dev_ms)
                 print(f"stack bf16 pos={pos}: kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms (170 MB of weights per step: above "
                       f"L2, no flush)", flush=True)
-    ms, plain_ms, bnd = timing[19]
     results["beam_decode_stack"] = {"flagship": shape_entry(
-        f"L={L} B={B} K={K} S={S} H={H} P={P} pos=19 bf16", worst, ms,
-        plain_ms, bnd)}
+        f"L={L} B={B} K={K} S={S} H={H} P={P} pos=19 bf16", worst,
+        *timing[19])}
 
 
 def check_encoder(torch, dev, results):
@@ -459,7 +494,8 @@ def check_encoder(torch, dev, results):
             err = check_close(f"encoder {name} [{B}, {T}, {H}]", got, want,
                               name, 1e-4, 8)
             if dtype == torch.bfloat16:
-                ms = time_ms(torch, lambda: encoder_stack(x, w, num_heads=NH))
+                ms, dev_ms = time_ms(torch, lambda: encoder_stack(
+                    x, w, num_heads=NH), device=True)
                 plain_ms = time_ms(torch, lambda: encoder_stack_plain(
                     x, w, num_heads=NH))
         print(f"encoder {name}: output finite={bool(got.isfinite().all())}",
@@ -474,7 +510,7 @@ def check_encoder(torch, dev, results):
         f"L={L} B={B} T={T} H={H} bf16", err, ms, plain_ms,
         bound(stack_bytes(w) + 2 * B * T * H * 2,
               {"bf16_tensor": L * 24 * B * T * H * H,
-               "f32": L * 4 * B * T * T * H}))}
+               "f32": L * 4 * B * T * T * H}), device_ms=dev_ms)}
 
 
 def check_cross(torch, dev, results):
@@ -511,8 +547,9 @@ def check_cross(torch, dev, results):
                               got, want, name, 1e-5, 2)
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
-    ms = time_ms(torch, lambda: cross_attention(q, mkt, mv, mask, **kw),
-                 flush=flush)
+    ms, dev_ms = time_ms(torch, lambda: cross_attention(q, mkt, mv, mask,
+                                                        **kw),
+                         flush=flush, device=True)
     plain_ms = time_ms(torch, lambda: cross_attention_plain(
         q, mkt, mv, mask, **kw), flush=flush)
     # the one PyTorch call: q [B, NH, K, hd], keys viewed from mem_kt
@@ -544,7 +581,159 @@ def check_cross(torch, dev, results):
     nbytes = (2 * B * K * H + 2 * B * Sm * H) * 2 + B * Sm
     results["cross_attention"] = {"transformer": shape_entry(
         f"B={B} K={K} H={H} Sm={Sm} masked bf16", worst, ms, plain_ms,
-        bound(nbytes, {"f32": 4 * B * K * Sm * H}), lib_ms)}
+        bound(nbytes, {"f32": 4 * B * K * Sm * H}), lib_ms, dev_ms)}
+
+
+# the attention variants' shapes on the LSTM family's served path: 64 images
+# x 5 beams, one query per row, 7x7 = 49 ResNet feature rows, width 512 (8
+# heads of 64 for SDPA); and the teacher-forced shape, 64 images x 20
+# positions
+LSTM_ATTENTION_SHAPES = (("served", 64, 5, 1), ("teacher-forced", 64, 1, 20))
+LSTM_S, LSTM_H, LSTM_NH = 49, 512, 8
+
+
+def _attention_memory(torch, g, dev, dtype, B, K, Q):
+    """Queries [B*K, Q, H], per-image keys and values [B, S, H] and a
+    random mask [B, S] (a quarter of the keys, never the first)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    mask = torch.rand((B, LSTM_S), generator=g, device=dev) < 0.25
+    mask[:, 0] = False
+    return (randn(B * K, Q, LSTM_H), randn(B, LSTM_S, LSTM_H),
+            randn(B, LSTM_S, LSTM_H), mask)
+
+
+def check_sdpa(torch, dev, results):
+    """The multi-head variant's SDPA at the LSTM family's shapes, masked
+    and unmasked, against its plain version; the served shape timed in
+    bf16 beside ``scaled_dot_product_attention`` on the same q/k/v (its
+    time only: SDPA gives no weights, and the port never calls it)."""
+    from image_captioning_ml_project_tpu_torch.ops.sdpa import (sdpa,
+                                                                sdpa_plain)
+
+    NH, hd = LSTM_NH, LSTM_H // LSTM_NH
+    g = torch.Generator(device=dev).manual_seed(6789)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def heads(x):
+        N, T, _ = x.shape
+        return x.view(N, T, NH, hd).transpose(1, 2)
+
+    worst = 0.0
+    for label, B, K, Q in LSTM_ATTENTION_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            q, k, v, mask = _attention_memory(torch, g, dev, dtype, B, K, Q)
+            q, k, v = heads(q), heads(k), heads(v)
+            kw = dict(scale=hd ** -0.5, beam_size=K)
+            for masked in (True, False):
+                m = mask if masked else None
+                ctx, w = sdpa(q, k, v, m, **kw)
+                ctx_p, w_p = sdpa_plain(q, k, v, m, **kw)
+                torch.cuda.synchronize()
+                what = f"sdpa {name} {label} [{B}x{K}, Q={Q}] masked={masked}"
+                # f32: another summation order; bf16: a weight within an
+                # f32 rounding of a bf16 boundary rounds the other way
+                err = check_close(f"{what} context", ctx, ctx_p, name, 1e-5,
+                                  2)
+                check_close(f"{what} weights", w, w_p, "float32", 1e-5, 0)
+                if dtype == torch.bfloat16 and label == "served":
+                    worst = max(worst, err)
+            if dtype == torch.bfloat16 and label == "served":
+                ms, dev_ms = time_ms(torch, lambda: sdpa(q, k, v, mask,
+                                                         **kw),
+                                     flush=flush, device=True)
+                plain_ms = time_ms(torch, lambda: sdpa_plain(
+                    q, k, v, mask, **kw), flush=flush)
+                # SDPA on the same values: q [B, K, NH, 1, hd], the image's
+                # keys and values expanded over its beams (views), the mask
+                # as SDPA's (True = attend)
+                q5 = q.view(B, K, NH, Q, hd) if q.is_contiguous() else \
+                    q.reshape(B, K, NH, Q, hd)
+                k5 = k[:, None].expand(B, K, NH, LSTM_S, hd)
+                v5 = v[:, None].expand(B, K, NH, LSTM_S, hd)
+                attend = ~mask[:, None, None, None, :]
+
+                def library():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q5, k5, v5, attn_mask=attend, scale=kw["scale"])
+
+                lib_ms = time_ms(torch, library, flush=flush)
+                lib_err = max_err(library().reshape(B * K, NH, Q, hd),
+                                  sdpa_plain(q, k, v, mask, **kw)[0])
+                nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 \
+                    + w.numel() * 4 + mask.numel()
+                bnd = bound(nbytes, {"f32": 4 * B * K * Q * LSTM_S * LSTM_H})
+                print(f"sdpa bf16 served [{B}x{K}, Q={Q}, S={LSTM_S}, "
+                      f"{NH}x{hd}]: kernel {ms:.4f} ms (device "
+                      f"{dev_ms:.4f} ms), plain {plain_ms:.4f} "
+                      f"ms, SDPA {lib_ms:.4f} ms (L2 flushed before each "
+                      f"run; SDPA returns no weights); SDPA's max_abs_err "
+                      f"against the plain context {lib_err:.3e}; bound "
+                      f"{bnd['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB)",
+                      flush=True)
+                entry = shape_entry(
+                    f"B={B} K={K} Q={Q} S={LSTM_S} NH={NH} hd={hd} masked "
+                    f"bf16", worst, ms, plain_ms, bnd, lib_ms, dev_ms)
+    results["sdpa"] = {"lstm": entry}
+
+
+def check_additive(torch, dev, results):
+    """The soft variant's additive scores at the LSTM family's shapes,
+    masked and unmasked, against its plain version; the served shape timed
+    in bf16. No one PyTorch call computes them."""
+    from image_captioning_ml_project_tpu_torch.ops.additive_scores import (
+        additive_scores, additive_scores_plain)
+
+    g = torch.Generator(device=dev).manual_seed(7890)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    worst = 0.0
+    for label, B, K, Q in LSTM_ATTENTION_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            qp, kp, _, mask = _attention_memory(torch, g, dev, dtype, B, K,
+                                                Q)
+            qp, kp = qp * 0.5, kp * 0.5
+            ew = (torch.randn((1, LSTM_H), generator=g, device=dev)
+                  * 0.05).to(dtype)
+            eb = torch.randn((1,), generator=g, device=dev).to(dtype)
+            kw = dict(temperature=1.0, beam_size=K)
+            for masked in (True, False):
+                m = mask if masked else None
+                got = additive_scores(qp, kp, ew, eb, m, **kw)
+                want = additive_scores_plain(qp, kp, ew, m, **kw) \
+                    + eb.reshape(()) / kw["temperature"]
+                torch.cuda.synchronize()
+                keep = want > -1e8
+                what = (f"additive_scores {name} {label} [{B}x{K}, Q={Q}] "
+                        f"masked={masked}")
+                check(torch.equal(got[~keep], want[~keep]),
+                      f"{what}: masked scores differ")
+                # the sum and the tanh round as the plain version's do; only
+                # the f32 sum's order differs
+                err = check_close(what, got[keep], want[keep], "float32",
+                                  1e-5, 0)
+                if dtype == torch.bfloat16 and label == "served":
+                    worst = max(worst, err)
+            if dtype == torch.bfloat16 and label == "served":
+                ms, dev_ms = time_ms(torch, lambda: additive_scores(
+                    qp, kp, ew, eb, mask, **kw), flush=flush, device=True)
+                plain_ms = time_ms(torch, lambda: additive_scores_plain(
+                    qp, kp, ew, mask, **kw), flush=flush)
+                nbytes = (qp.numel() + kp.numel() + ew.numel()) * 2 \
+                    + got.numel() * 4 + mask.numel()
+                # an add, a tanh, a multiply and an add per (row, key, width)
+                bnd = bound(nbytes, {"f32": 4 * B * K * Q * LSTM_S * LSTM_H})
+                print(f"additive_scores bf16 served [{B}x{K}, Q={Q}, "
+                      f"S={LSTM_S}, H={LSTM_H}]: kernel {ms:.4f} ms (device "
+                      f"{dev_ms:.4f} ms), plain "
+                      f"{plain_ms:.4f} ms (L2 flushed before each run); "
+                      f"bound {bnd['bound_ms']:.4f} ms "
+                      f"({nbytes / 1e6:.2f} MB)", flush=True)
+                results["additive_scores"] = {"lstm": shape_entry(
+                    f"B={B} K={K} Q={Q} S={LSTM_S} H={LSTM_H} masked bf16",
+                    worst, ms, plain_ms, bnd, device_ms=dev_ms)}
 
 
 SWITCHES = ("ICT_DECODE_STACK", "ICT_DECODE_FOLD", "ICT_ENCODER_FOLD")
@@ -575,12 +764,11 @@ def decode(torch, model, cfg, images):
                            min_length=ic.min_length)
 
 
-def check_reference(torch, dev, cfg, tree, images, configs):
+def check_reference(torch, dev, cfg, tree, images, configs, peaked=False):
     """The card's float32 decode through the kernels against the CPU's
     plain-version decode of the same weights and images, on each decode
-    configuration of ``configs``."""
-    import copy
-
+    configuration of ``configs``; ``peaked`` first scales an LSTM's output
+    layer (:func:`peak_logits`)."""
     from image_captioning_ml_project_tpu_torch.models.captioning_model import (
         load_model)
 
@@ -589,6 +777,10 @@ def check_reference(torch, dev, cfg, tree, images, configs):
     x = torch.from_numpy(images)
     models = {where.type: load_model(cfg32, where, params=tree)
               for where in (dev, torch.device("cpu"))}
+    if peaked:
+        factor = peak_logits(torch, cfg32, models, images)
+        print(f"reference: output layer scaled {factor:.4g}x to first-step "
+              f"logits of std 3", flush=True)
     for name, values in configs:
         set_switches(values)
         out = {}
@@ -610,6 +802,50 @@ def check_reference(torch, dev, cfg, tree, images, configs):
         check(score_err <= 1e-4,
               f"[{name}] scores differ by {score_err} > 1e-4")
     set_switches(CONFIGS[0][1])
+
+
+# the LSTM family's configurations: (name, attention variant, use_pallas);
+# adaptive and AoA wrap the multi-head core at the served 8 heads
+LSTM_VARIANTS = (("lstm soft", "soft", True),
+                 ("lstm multi_head", "multi_head", True),
+                 ("lstm adaptive", "adaptive", True),
+                 ("lstm aoa", "aoa", True),
+                 ("lstm soft, use_pallas=False", "soft", False))
+
+
+def lstm_variant(cfg, attention, use_pallas, seed):
+    """``cfg`` with the given attention variant and kernel switch, and its
+    weights drawn from ``seed``."""
+    from image_captioning_ml_project_tpu_torch.config import AttentionType
+    from image_captioning_ml_project_tpu_torch.params import init_flax_params
+
+    cfg = copy.deepcopy(cfg)
+    cfg.model.attention.attention_type = AttentionType(attention)
+    cfg.model.attention.use_pallas = use_pallas
+    return cfg, init_flax_params(cfg, seed)
+
+
+def peak_logits(torch, cfg, models, images, target_std=3.0):
+    """Scale the LSTM's output layer, on every model of ``models``, so that
+    the CPU model's first-step logits have a standard deviation of
+    ``target_std`` over the vocabulary. The seeded LSTM's logits are either
+    nearly flat (the multi-head, adaptive and AoA contexts are small) or
+    saturated (the soft context mixes the large ResNet features): its beams
+    then sit in near-ties that either device's f32 summation order may
+    flip, or agree trivially with every score 0. Peaked as a trained
+    model's are, the card-against-CPU check is meaningful. Returns the
+    factor."""
+    cpu = models["cpu"]
+    with torch.inference_mode():
+        state = cpu.init_cache(torch.from_numpy(images),
+                               cfg.inference.max_length)
+        bos = torch.full((images.shape[0],), cfg.model.bos_token_id)
+        logits = cpu.step(state, bos)[0].float()
+        factor = target_std / float(logits.std(dim=-1).mean())
+        for model in models.values():
+            model.decoder.output_layer.weight.mul_(factor)
+            model.decoder.output_layer.bias.mul_(factor)
+    return factor
 
 
 def encode_ab(torch, dev, cfg, tree, smi, runs=20):
@@ -657,12 +893,16 @@ def counters():
         cross_attention)
     from image_captioning_ml_project_tpu_torch.ops.encoder_stack import (
         encoder_stack)
+    from image_captioning_ml_project_tpu_torch.ops.additive_scores import (
+        additive_scores)
     from image_captioning_ml_project_tpu_torch.ops.lse import (
         lse_and_block_max)
+    from image_captioning_ml_project_tpu_torch.ops.sdpa import sdpa
 
     return {f.__name__: f for f in (
         beam_decode_stack, encoder_stack, lse_and_block_max,
-        beam_decode_attention_qkv, beam_decode_attention, cross_attention)}
+        beam_decode_attention_qkv, beam_decode_attention, cross_attention,
+        sdpa, additive_scores)}
 
 
 def serve(torch, dev, cfg, tree, smi, plan):
@@ -768,10 +1008,32 @@ def expect(run, want):
 
 
 def serve_all(torch, dev, smi, trees):
-    """The Transformer family, then CLIP + GPT-2 (module docstring, phase
-    6); checks every counter of every run. Returns {kernel: {family:
-    count}}, each family's count from the run of its configuration that
-    carries the kernel."""
+    """The LSTM family, then the Transformer family, then CLIP + GPT-2
+    (module docstring, phase 6); checks every counter of every run.
+    Returns {kernel: {family: count}}, each family's count from the run of
+    its configuration that carries the kernel."""
+    cfg, tree = trees["lstm"]
+    runs = {}
+    # (variant, rounds of 64, single requests): soft with its kernel (the
+    # configuration ``--config lstm`` serves), multi-head with its kernel,
+    # and soft without either new kernel, in the same run
+    for (name, attention, pallas), rounds, singles in (
+            (LSTM_VARIANTS[0], 1, 3), (LSTM_VARIANTS[1], 1, 0),
+            (LSTM_VARIANTS[4], 1, 0)):
+        if attention == cfg.model.attention.attention_type.value:
+            vcfg = copy.deepcopy(cfg)
+            vcfg.model.attention.use_pallas = pallas
+            vtree = tree
+        else:
+            vcfg, vtree = lstm_variant(cfg, attention, pallas, cfg.seed)
+        runs.update(serve(torch, dev, vcfg, vtree, smi,
+                          [(name, CONFIGS[0][1], rounds, singles)]))
+    soft, mha, xla = (runs[LSTM_VARIANTS[i][0]] for i in (0, 1, 4))
+    expect(soft, {"additive_scores": soft["steps"],
+                  "lse_and_block_max": soft["steps"]})
+    expect(mha, {"sdpa": mha["steps"], "lse_and_block_max": mha["steps"]})
+    expect(xla, {"lse_and_block_max": xla["steps"]})
+
     cfg, tree = trees["transformer"]
     layers = cfg.model.decoder.num_layers
     runs = serve(torch, dev, cfg, tree, smi,
@@ -800,12 +1062,15 @@ def serve_all(torch, dev, smi, trees):
     expect(split_run, {"beam_decode_attention": split_run["steps"] * layers,
                        "lse_and_block_max": split_run["steps"]})
     carriers = {
+        "sdpa": {"lstm": mha},
+        "additive_scores": {"lstm": soft},
         "cross_attention": {"transformer": tf_fold},
         "beam_decode_attention_qkv": {"transformer": tf_fold,
                                       "flagship": fold_run},
         "beam_decode_attention": {"transformer": tf_split,
                                   "flagship": split_run},
-        "lse_and_block_max": {"transformer": tf_fold, "flagship": main_run},
+        "lse_and_block_max": {"lstm": soft, "transformer": tf_fold,
+                              "flagship": main_run},
         "beam_decode_stack": {"flagship": main_run},
         "encoder_stack": {"flagship": main_run}}
     return {name: {family: run["launches"][name]
@@ -815,10 +1080,12 @@ def serve_all(torch, dev, smi, trees):
 
 def kernel_entry(name, route, source, replaces, numbers, launches):
     """The summary line's entry for one kernel: the numbers at the shape
-    of this slice's family where the kernel runs on it, else the
-    flagship's, with the launches of the same family's run; the other
-    family's shape, where it has one, under ``other_shapes``."""
-    first = "transformer" if "transformer" in numbers else "flagship"
+    of the first family that runs it of the Transformer, the flagship and
+    the LSTM (the order in which their rows entered the summary), with
+    the launches of the same family's run; the other families' shapes,
+    where they have their own, under ``other_shapes``."""
+    first = next(f for f in ("transformer", "flagship", "lstm")
+                 if f in numbers)
     entry = {"name": name, "route": route, "source": source,
              "replaces": replaces, "launches": launches[first],
              **numbers[first]}
@@ -830,7 +1097,8 @@ def kernel_entry(name, route, source, replaces, numbers, launches):
 
 
 LIBRARIES = ("beam_decode_attention", "beam_decode_attention_qkv",
-             "beam_decode_stack", "encoder_stack", "cross_attention")
+             "beam_decode_stack", "encoder_stack", "cross_attention", "sdpa",
+             "additive_scores")
 
 
 def main():
@@ -847,7 +1115,7 @@ def main():
     sys.path.insert(0, ROOT)
     try:
         from image_captioning_ml_project_tpu_torch.main import (
-            flagship_config, transformer_config)
+            flagship_config, lstm_config, transformer_config)
         from image_captioning_ml_project_tpu_torch.ops import _build
         from image_captioning_ml_project_tpu_torch.params import (
             init_flax_params)
@@ -901,12 +1169,14 @@ def main():
         check_stack(torch, dev, results)
         check_encoder(torch, dev, results)
         check_cross(torch, dev, results)
+        check_sdpa(torch, dev, results)
+        check_additive(torch, dev, results)
 
         phase("reference")
         trees = {}
-        for name, make, configs in (
-                ("transformer", transformer_config, TRANSFORMER_CONFIGS),
-                ("flagship", flagship_config, CONFIGS)):
+        for name, make in (("lstm", lstm_config),
+                           ("transformer", transformer_config),
+                           ("flagship", flagship_config)):
             cfg = make()
             cfg.seed = args.seed
             t0 = time.perf_counter()
@@ -917,8 +1187,15 @@ def main():
             ref_images = torch.randint(0, 256, (2, cfg.image_size,
                                                 cfg.image_size, 3),
                                        generator=g, dtype=torch.uint8).numpy()
-            check_reference(torch, dev, cfg, trees[name][1], ref_images,
-                            configs)
+            if name == "lstm":
+                for variant, attention, pallas in LSTM_VARIANTS:
+                    check_reference(torch, dev, *lstm_variant(
+                        cfg, attention, pallas, cfg.seed), ref_images,
+                        [(variant, CONFIGS[0][1])], peaked=True)
+            else:
+                check_reference(torch, dev, cfg, trees[name][1], ref_images,
+                                TRANSFORMER_CONFIGS if name == "transformer"
+                                else CONFIGS)
 
         phase("encode A/B")
         encode_ab(torch, dev, *trees["flagship"], smi)
@@ -954,6 +1231,12 @@ def main():
         "cross_attention": (
             "cuda", f"{PKG}/csrc/cross_attention.cu",
             f"{jax_pkg}/pallas_cross.py:99"),
+        "sdpa": (
+            "cuda", f"{PKG}/csrc/sdpa.cu",
+            f"{jax_pkg}/pallas_attention.py:66"),
+        "additive_scores": (
+            "cuda", f"{PKG}/csrc/additive_scores.cu",
+            f"{jax_pkg}/pallas_attention.py:146"),
     }
     kernels = [kernel_entry(name, *where, results[name], launches[name])
                for name, where in sources.items()]

@@ -8,9 +8,12 @@ Same flags as the JAX CLI's serve path
         --config flagship.json --vocab vocab.json
 
 ``--config`` takes a JSON file, or the name of a built-in configuration:
-``flagship`` (:func:`flagship_config`, CLIP + GPT-2) or ``transformer``
-(:func:`transformer_config`, ViT + Transformer decoder); without it the
-JAX package's default configuration (ViT-B/16 + 6-layer GPT-2) is served.
+``flagship`` (:func:`flagship_config`, CLIP + GPT-2), ``transformer``
+(:func:`transformer_config`, ViT + Transformer decoder) or ``lstm``
+(:func:`lstm_config`, ResNet-101 + LSTM with soft attention;
+``--attention_type multi_head|adaptive|aoa`` picks another variant);
+without it the JAX package's default configuration (ViT-B/16 + 6-layer
+GPT-2) is served.
 With no checkpoint the weights are drawn from ``--seed`` (checkpoint
 restore is not yet ported). Training, evaluation and the demo are not yet
 ported and raise.
@@ -88,7 +91,41 @@ def transformer_config() -> Config:
     return c
 
 
-CONFIGS = {"flagship": flagship_config, "transformer": transformer_config}
+def lstm_config() -> Config:
+    """The LSTM family at the widths of the JAX package's
+    ``scripts/bench_lstm.py``: ResNet-101 (bottleneck stages of depths
+    3, 4, 23, 3 and widths 256-2048, stem 64, 224x224 input: 7x7 = 49
+    feature rows, projected to 512) -> 6-layer LSTM (width 512) with soft
+    attention (width 512, 8 heads for the variants that use them) through
+    the JAX package's kernel switch ``use_pallas``, vocab 10000, beam 5, max
+    length 20, length penalty 0.8, min length 5; bf16 weights."""
+    c = get_default_config()
+    c.model.encoder.encoder_type = EncoderType.RESNET
+    c.model.encoder.resnet_depths = (3, 4, 23, 3)
+    c.model.encoder.resnet_hidden_sizes = (256, 512, 1024, 2048)
+    c.model.encoder.resnet_embedding_size = 64
+    c.model.encoder.resnet_layer_type = "bottleneck"
+    c.model.encoder.feature_dim = 512
+    c.model.decoder.decoder_type = DecoderType.LSTM
+    c.model.decoder.hidden_dim = 512
+    c.model.decoder.num_layers = 6
+    c.model.attention.attention_type = AttentionType.SOFT
+    c.model.attention.hidden_dim = 512
+    c.model.attention.num_heads = 8
+    c.model.attention.use_pallas = True
+    c.model.projection_dim = 512
+    c.model.vocab_size = 10_000
+    c.model.dtype = "bfloat16"
+    c.image_size = 224
+    c.inference.beam_size = 5
+    c.inference.max_length = 20
+    c.inference.length_penalty = 0.8
+    c.inference.min_length = 5
+    return c
+
+
+CONFIGS = {"flagship": flagship_config, "transformer": transformer_config,
+           "lstm": lstm_config}
 
 
 def resolve_config(name: Optional[str]) -> Config:

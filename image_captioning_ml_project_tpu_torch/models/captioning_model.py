@@ -2,7 +2,8 @@
 
 Counterpart of ``image_captioning_ml_project_tpu.models.captioning_model.
 ImageCaptioningModel`` for the families ported so far (encoders: CLIP,
-ViT; decoders: GPT-2, Transformer), with the same uniform decode interface
+ViT, ResNet; decoders: GPT-2, Transformer, LSTM with the four attention
+variants), with the same uniform decode interface
 (``init_cache``/``step``) consumed by :mod:`..inference.decoding`. Other
 encoder or decoder families, and the Q-Former, raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -34,7 +35,8 @@ class ImageCaptioningModel(nn.Module):
         self.encoder = build_encoder(mc.encoder, config.image_size)
         self.decoder = build_decoder(
             mc.decoder, vocab_size=mc.vocab_size,
-            pad_token_id=mc.pad_token_id, feature_dim=mc.encoder.feature_dim)
+            pad_token_id=mc.pad_token_id, feature_dim=mc.encoder.feature_dim,
+            attention_config=mc.attention)
 
     def encode(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """images [B, H, W, 3] NHWC (uint8, or already-normalised float) ->
@@ -62,7 +64,8 @@ def load_model(config: Config, device,
     ``params`` is the JAX package's variable tree (nested dict of arrays,
     with or without the top-level ``"params"``); when None, weights are
     drawn from ``numpy.random.RandomState(config.seed)``
-    (:func:`..params.init_flax_params`). The weights are cast once to
+    (:func:`..params.init_flax_params`). Convolution weights are kept in
+    the ``channels_last`` memory format. The weights are cast once to
     ``config.model.dtype``, norms excepted
     (:func:`..utils.amp.cast_float_params`), and then stacked over layers
     for the whole-stack kernels and concatenated for the folded decode
@@ -73,7 +76,8 @@ def load_model(config: Config, device,
     with torch.device("meta"):
         model = ImageCaptioningModel(config)
     model.load_state_dict(from_flax(params), strict=True, assign=True)
-    model = model.to(device).eval().requires_grad_(False)
+    model = model.to(device, memory_format=torch.channels_last)
+    model = model.eval().requires_grad_(False)
     dtype = getattr(torch, config.model.dtype)
     if dtype != torch.float32:
         cast_float_params(model, dtype)

@@ -1,15 +1,21 @@
-"""Transformer caption decoder with KV-cached generation, in PyTorch, and
-the decoder factory.
+"""Caption decoders in PyTorch: the Transformer decoder with KV-cached
+generation, the LSTM decoder with per-step cross-attention, and the
+decoder factory.
 
-Counterpart of the Transformer part of ``image_captioning_ml_project_tpu.
-models.decoders`` on its kernel paths: post-LN decoder layers (self-
-attention, cross-attention over the projected image features, exact-GELU
-FFN; LayerNorm eps 1e-5) with learned positions. Generation keeps one
-self-attention cache per layer under the decode state's ``lazy`` subtree
-(tiled once over beams, then read through beam search's ancestry map) and
-the cross-attention memory K/V per image under ``shared``, never tiled
-over beams: the keys pre-transposed ``[B, H, Sm]``, as the JAX decoder
-stores them. Each layer's decode step runs:
+Counterpart of the Transformer and LSTM parts of
+``image_captioning_ml_project_tpu.models.decoders``. Both keep the image
+memory per image under the decode state's ``shared`` subtree, never tiled
+over beams; the decode step finds each image's ``K`` beam rows by the row
+count.
+
+**Transformer.** Post-LN decoder layers (self-attention, cross-attention
+over the projected image features, exact-GELU FFN; LayerNorm eps 1e-5)
+with learned positions. Generation keeps one self-attention cache per
+layer under the decode state's ``lazy`` subtree (tiled once over beams,
+then read through beam search's ancestry map) and the cross-attention
+memory K/V per image under ``shared``: the keys pre-transposed
+``[B, H, Sm]``, as the JAX decoder stores them. Each layer's decode step
+runs:
 
 * the self-attention step through the beam-decode kernels in their
   prefix-free mode: by default
@@ -25,6 +31,17 @@ On a CUDA tensor each is a hand-written kernel, on a CPU tensor its plain
 version. The JAX package's TPU paddings are left out: the self-attention
 caches hold exactly ``max_length`` positions and the memory keeps its
 ``Sm`` real rows, masked by the encoder's attention mask only.
+
+**LSTM** (Show-Attend-Tell style). Per step: ``[embed(prev token);
+prev_context]`` through the stacked LSTM, then the configured attention
+variant (:mod:`.attention`) with the top hidden state as its query over
+the image features, then the output layer on the context. The hidden
+states start from the pooled features through ``init_h``/``init_c``. The
+JAX decoder keeps the features under ``static``, tiled once over beams;
+here they stay per image under ``shared``, with their key/value
+projections computed once per decode in ``init_cache`` rather than at
+every step (the same values: the projection depends on the image only).
+h, c and ``prev_context`` follow the beams.
 """
 
 from __future__ import annotations
@@ -39,8 +56,10 @@ from ..config import DecoderType
 from ..ops.beam_decode_attention import (beam_decode_attention,
                                          beam_decode_attention_qkv)
 from ..ops.cross_attention import cross_attention
+from .attention import build_attention
 from .gpt2 import GPT2Decoder, decode_fold_enabled
 from .layers import LayerNorm
+from .lstm import StackedLSTM
 
 _NEG_INF = -1e9
 
@@ -284,11 +303,118 @@ class TransformerDecoder(nn.Module):
         return self.output_layer(x), dict(state, pos=pos + 1)
 
 
+class LSTMDecoder(nn.Module):
+    """LSTM decoder with per-step cross-attention over the image features:
+    teacher-forced ``forward`` and the uniform decode interface
+    (``init_cache``/``step``)."""
+
+    def __init__(self, config, attention_config, vocab_size: int,
+                 pad_token_id: int, feature_dim: int):
+        super().__init__()
+        H, L = config.hidden_dim, config.num_layers
+        self.config = config
+        self.pad_token_id = pad_token_id
+        self.embedding = nn.Embedding(vocab_size, H)
+        self.attention = build_attention(attention_config, query_dim=H,
+                                         memory_dim=feature_dim)
+        # the LSTM input is [embedding; previous context]; the JAX decoder
+        # starts the context as H zeros, so the two widths must agree
+        if self.attention.context_dim != H:
+            raise ValueError(
+                f"the {attention_config.attention_type.value} attention "
+                f"gives contexts of width {self.attention.context_dim}, the "
+                f"LSTM's hidden width is {H}: they must agree")
+        self.lstm = StackedLSTM(2 * H, H, L)
+        self.output_layer = nn.Linear(H, vocab_size)
+        self.init_h = nn.Linear(feature_dim, H * L)
+        self.init_c = nn.Linear(feature_dim, H * L)
+
+    def _init_states(self, pooled: torch.Tensor):
+        """[B, D] -> (h, c) each [B, L, H]."""
+        B = pooled.shape[0]
+        L, H = self.config.num_layers, self.config.hidden_dim
+        return (self.init_h(pooled).reshape(B, L, H),
+                self.init_c(pooled).reshape(B, L, H))
+
+    def _step_core(self, h, c, prev_context, token_emb, memory, mem_pad):
+        """One step shared by teacher forcing and generation; h, c
+        [Bk, L, H]; ``memory`` the attention's per-image projections."""
+        h, c, top = self.lstm(h, c, torch.cat([token_emb, prev_context],
+                                              dim=-1))
+        context, attn_w = self.attention.attend(
+            top, memory, mem_pad, memory_state=h[:, -1],
+            cell_state=c[:, -1])
+        return h, c, context, attn_w
+
+    @staticmethod
+    def _mem_pad(encoder_features) -> Optional[torch.Tensor]:
+        mask = encoder_features.get("attention_mask")
+        return None if mask is None else ~mask.bool()
+
+    def forward(self, encoder_features: Dict[str, torch.Tensor],
+                captions: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Teacher-forced forward (deterministic): captions [B, T] ->
+        logits [B, T, V], attention weights [B, T, S] and the top hidden
+        state of each step [B, T, H]."""
+        features = encoder_features["features"]
+        mem_pad = self._mem_pad(encoder_features)
+        memory = self.attention.project_memory(features, features)
+        h, c = self._init_states(encoder_features["pooled_features"])
+        emb = self.embedding(captions)
+        context = emb.new_zeros((captions.shape[0], self.config.hidden_dim))
+        logits, weights, hidden = [], [], []
+        for t in range(captions.shape[1]):
+            h, c, context, w = self._step_core(h, c, context, emb[:, t],
+                                               memory, mem_pad)
+            logits.append(self.output_layer(context))
+            weights.append(w)
+            hidden.append(h[:, -1])
+        return {"logits": torch.stack(logits, 1),
+                "attention_weights": torch.stack(weights, 1),
+                "hidden_states": torch.stack(hidden, 1)}
+
+    def generate(self, encoder_features, max_length: int):
+        raise NotImplementedError(
+            "the LSTM decoder's greedy generate is not yet ported to "
+            "PyTorch (ROADMAP.md Queue 1 item 4: greedy, sampling and "
+            "diverse decodes)")
+
+    # -- uniform decode interface -------------------------------------------
+
+    def init_cache(self, encoder_features: Dict[str, torch.Tensor],
+                   max_length: int) -> Dict[str, Any]:
+        """h, c [B, L, H] and ``prev_context`` [B, H] (zeros in the
+        features' dtype) follow the beams; the attention's projections of
+        the features (``memory``) and their mask ``mem_pad`` [B, S] (True
+        = masked, or None) are per image under ``shared``."""
+        features = encoder_features["features"]
+        h, c = self._init_states(encoder_features["pooled_features"])
+        return {
+            "h": h, "c": c,
+            "prev_context": features.new_zeros((features.shape[0],
+                                                self.config.hidden_dim)),
+            "shared": {
+                "memory": self.attention.project_memory(features, features),
+                "mem_pad": self._mem_pad(encoder_features)},
+        }
+
+    def step(self, state: Dict[str, Any], tokens: torch.Tensor
+             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """tokens [Bk] -> (logits [Bk, V], the next state)."""
+        shared = state["shared"]
+        h, c, context, _ = self._step_core(
+            state["h"], state["c"], state["prev_context"],
+            self.embedding(tokens), shared["memory"], shared["mem_pad"])
+        return self.output_layer(context), dict(state, h=h, c=c,
+                                                prev_context=context)
+
+
 def build_decoder(config, vocab_size: int, pad_token_id: int,
-                  feature_dim: int) -> nn.Module:
+                  feature_dim: int, attention_config=None) -> nn.Module:
     """The decoder of ``config`` (a ``DecoderConfig``) over encoder
-    features of width ``feature_dim``; the LSTM raises
-    ``NotImplementedError`` naming its ROADMAP item."""
+    features of width ``feature_dim``; the LSTM's cross-attention is
+    ``attention_config`` (an ``AttentionConfig``), which the other
+    decoders do not read, as in the JAX package."""
     if config.decoder_type == DecoderType.GPT2:
         return GPT2Decoder(config, vocab_size=vocab_size,
                            pad_token_id=pad_token_id, feature_dim=feature_dim)
@@ -296,7 +422,10 @@ def build_decoder(config, vocab_size: int, pad_token_id: int,
         return TransformerDecoder(config, vocab_size=vocab_size,
                                   pad_token_id=pad_token_id,
                                   feature_dim=feature_dim)
-    raise NotImplementedError(
-        f"decoder {config.decoder_type.value!r} is not yet ported to PyTorch "
-        f"(ROADMAP.md Queue 1 item 5: the LSTM decoder and the attention "
-        f"variants)")
+    if config.decoder_type == DecoderType.LSTM:
+        if attention_config is None:
+            raise ValueError("the LSTM decoder needs an attention config")
+        return LSTMDecoder(config, attention_config, vocab_size=vocab_size,
+                           pad_token_id=pad_token_id,
+                           feature_dim=feature_dim)
+    raise ValueError(f"Unsupported decoder type: {config.decoder_type}")

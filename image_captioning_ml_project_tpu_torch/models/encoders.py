@@ -1,13 +1,17 @@
 """Vision encoders in PyTorch: the CLIP vision tower (HF
-``CLIPVisionModel``-compatible) and ViT (HF ``ViTModel``-compatible).
+``CLIPVisionModel``-compatible), ViT (HF ``ViTModel``-compatible) and
+ResNet (HF ``ResNetModel``-compatible, bottleneck or basic layers).
 
 Counterpart of the CLIP and ViT parts of ``image_captioning_ml_project_tpu.
 models.encoders``. For CLIP, as there, ``ICT_ENCODER_FOLD`` (default on;
 ``0`` off; ``force`` means on) chooses, once per forward, between the
 whole-stack encoder kernel (:func:`..ops.encoder_stack.encoder_stack`,
 inference only: it is skipped in training mode) and the per-layer modules.
-ViT has no such fold in the JAX package and none here: its layers are plain
-PyTorch modules. Images are NHWC, as in the JAX package. A ``uint8`` batch
+ViT and ResNet have no such fold in the JAX package and none here: their
+layers are plain PyTorch modules (the ResNet's convolutions, plain XLA in
+the JAX package, go to cuDNN, in the ``channels_last`` memory format so
+that the NHWC images need no transpose). Images are NHWC, as in the JAX
+package. A ``uint8`` batch
 is normalised on its device with the ImageNet constants (the JAX trainer's
 ``normalize_images`` before ``model.encode``); a float batch is taken as
 already normalised. Every encoder returns the uniform dict
@@ -247,6 +251,165 @@ class ViTEncoder(ProjectedEncoder):
             patch_size=config.patch_size, image_size=image_size), config)
 
 
+class BatchNorm(nn.Module):
+    """Inference BatchNorm with flax's arithmetic (``_normalize`` under
+    ``use_running_average``): ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias`` in f32 from the f32 running statistics, scale and bias, the
+    result cast to the input dtype. Channels on axis 1. The scale and bias
+    stay f32 under :func:`..utils.amp.cast_float_params`, as flax keeps
+    them; the statistics are buffers, never cast."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        def per_channel(t):
+            return t.float()[None, :, None, None]
+
+        mul = torch.rsqrt(per_channel(self.running_var) + self.eps) \
+            * per_channel(self.weight)
+        y = (x.float() - per_channel(self.running_mean)) * mul \
+            + per_channel(self.bias)
+        return y.to(x.dtype)
+
+
+class ResNetConvLayer(nn.Module):
+    """Convolution (no bias, padding k // 2 on each side) -> BatchNorm ->
+    optional ReLU."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1,
+                 activation: bool = True):
+        super().__init__()
+        self.convolution = nn.Conv2d(in_channels, out_channels, kernel_size,
+                                     stride=stride,
+                                     padding=kernel_size // 2, bias=False)
+        self.normalization = BatchNorm(out_channels)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.normalization(self.convolution(x))
+        return F.relu(x) if self.activation else x
+
+
+class ResNetShortCut(nn.Module):
+    """1x1 strided projection of the residual, then BatchNorm."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 2):
+        super().__init__()
+        self.convolution = nn.Conv2d(in_channels, out_channels, 1,
+                                     stride=stride, bias=False)
+        self.normalization = BatchNorm(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.normalization(self.convolution(x))
+
+
+class ResNetBottleNeckLayer(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 reduction: int = 4):
+        super().__init__()
+        reduces = out_channels // reduction
+        self.layer_0 = ResNetConvLayer(in_channels, reduces, kernel_size=1)
+        self.layer_1 = ResNetConvLayer(reduces, reduces, stride=stride)
+        self.layer_2 = ResNetConvLayer(reduces, out_channels, kernel_size=1,
+                                       activation=False)
+        self.shortcut = (ResNetShortCut(in_channels, out_channels, stride)
+                         if in_channels != out_channels or stride != 1
+                         else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        residual = x if self.shortcut is None else self.shortcut(x)
+        return F.relu(self.layer_2(self.layer_1(self.layer_0(x))) + residual)
+
+
+class ResNetBasicLayer(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
+        super().__init__()
+        self.layer_0 = ResNetConvLayer(in_channels, out_channels,
+                                       stride=stride)
+        self.layer_1 = ResNetConvLayer(out_channels, out_channels,
+                                       activation=False)
+        self.shortcut = (ResNetShortCut(in_channels, out_channels, stride)
+                         if in_channels != out_channels or stride != 1
+                         else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        residual = x if self.shortcut is None else self.shortcut(x)
+        return F.relu(self.layer_1(self.layer_0(x)) + residual)
+
+
+class ResNetBackbone(nn.Module):
+    """Embedder (7x7/2 conv + BN + ReLU, then a 3x3/2 max-pool over
+    -inf padding) and one stage per entry of ``hidden_sizes``: the first
+    at stride 1, the rest at stride 2 in their first layer. Takes and
+    returns NCHW-shaped tensors, in the ``channels_last`` memory format
+    where the caller gives it."""
+
+    def __init__(self, embedding_size: int = 64,
+                 hidden_sizes=(256, 512, 1024, 2048), depths=(3, 4, 6, 3),
+                 layer_type: str = "bottleneck"):
+        super().__init__()
+        self.embedder = ResNetConvLayer(3, embedding_size, kernel_size=7,
+                                        stride=2)
+        layer_cls = (ResNetBottleNeckLayer if layer_type == "bottleneck"
+                     else ResNetBasicLayer)
+        self.stages = nn.ModuleList()
+        in_ch = embedding_size
+        for stage, (size, depth) in enumerate(zip(hidden_sizes, depths)):
+            self.stages.append(nn.ModuleList(
+                layer_cls(in_ch if i == 0 else size, size,
+                          stride=(1 if stage == 0 else 2) if i == 0 else 1)
+                for i in range(depth)))
+            in_ch = size
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.max_pool2d(self.embedder(x), 3, stride=2, padding=1)
+        for stage in self.stages:
+            for layer in stage:
+                x = layer(x)
+        return x
+
+
+class ResNetEncoder(nn.Module):
+    """features = the last stage's spatial map as a token sequence,
+    pooled = its global average; both projected to ``feature_dim`` when it
+    differs from the last stage's width."""
+
+    def __init__(self, config):
+        super().__init__()
+        self.backbone = ResNetBackbone(
+            embedding_size=config.resnet_embedding_size,
+            hidden_sizes=tuple(config.resnet_hidden_sizes),
+            depths=tuple(config.resnet_depths),
+            layer_type=config.resnet_layer_type)
+        width = config.resnet_hidden_sizes[-1]
+        self.proj = (nn.Linear(width, config.feature_dim)
+                     if width != config.feature_dim else None)
+
+    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if images.dtype == torch.uint8:
+            images = normalize_images(images)
+        dtype = self.backbone.embedder.convolution.weight.dtype
+        # NHWC memory read as NCHW: the channels_last layout, no copy
+        x = self.backbone(images.to(dtype).permute(0, 3, 1, 2))
+        B, C = x.shape[:2]
+        features = x.permute(0, 2, 3, 1).reshape(B, -1, C)
+        pooled = features.mean(dim=1)
+        if self.proj is not None:
+            features = self.proj(features)
+            pooled = self.proj(pooled)
+        return {"features": features, "pooled_features": pooled,
+                "attention_mask": torch.ones(features.shape[:2],
+                                             dtype=torch.bool,
+                                             device=features.device)}
+
+
 def build_encoder(config, image_size: int) -> nn.Module:
     """The encoder of ``config`` (an ``EncoderConfig``) for square images
     of ``image_size``, checked in the JAX package's order: object-region
@@ -260,6 +423,8 @@ def build_encoder(config, image_size: int) -> nn.Module:
         return CLIPEncoder(config, image_size)
     if config.encoder_type == EncoderType.VIT:
         return ViTEncoder(config, image_size)
+    if config.encoder_type == EncoderType.RESNET:
+        return ResNetEncoder(config)
     raise NotImplementedError(
         f"encoder {config.encoder_type.value!r} is not yet ported to "
         f"PyTorch (ROADMAP.md Queue 1 item 6: other encoders)")

@@ -11,7 +11,11 @@ Layouts carried across:
 * the patch-embed conv kernel ``[P, P, C, H]`` is flattened in
   (kh, kw, c) order to ``[P*P*C, H]`` and transposed;
 * LayerNorm ``scale``/``bias`` become ``weight``/``bias``; ``Embed``
-  ``embedding`` becomes ``weight``.
+  ``embedding`` becomes ``weight``;
+* the ResNet's conv kernels ``[kh, kw, in, out]`` become ``nn.Conv2d``'s
+  ``[out, in, kh, kw]``; each BatchNorm's ``scale``/``bias`` (collection
+  ``params``) and running ``mean``/``var`` (collection ``batch_stats``)
+  become its weight, bias and running statistics.
 
 Every flax leaf must be consumed: a leaf no rule maps raises, and so does
 a leaf a rule expects but the tree lacks.
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .config import DecoderType, EncoderType
+from .config import AttentionType, DecoderType, EncoderType
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -71,10 +75,24 @@ class _Bridge:
         self.put(f"{dst}.weight", self.take(f"{src}/scale"))
         self.put(f"{dst}.bias", self.take(f"{src}/bias"))
 
+    def batch_norm(self, src: str, dst: str) -> None:
+        self.norm(src, dst)
+        self.put(f"{dst}.running_mean", self.take(f"{_STATS}/{src}/mean"))
+        self.put(f"{dst}.running_var", self.take(f"{_STATS}/{src}/var"))
+
+    def conv(self, src: str, dst: str) -> None:
+        """A bias-free flax ``Conv`` kernel [kh, kw, in, out] -> OIHW."""
+        self.put(f"{dst}.weight",
+                 self.take(f"{src}/kernel").transpose(3, 2, 0, 1))
+
     def indices(self, prefix: str, stem: str):
         pat = re.compile(rf"^{re.escape(prefix)}/{stem}_(\d+)/")
         return sorted({int(m.group(1)) for m in map(pat.match, self.flat)
                        if m})
+
+
+# where from_flax files the ``batch_stats`` collection's leaves
+_STATS = "batch_stats"
 
 
 def _qkv(br: _Bridge, src: str, dst: str) -> None:
@@ -166,30 +184,92 @@ def _transformer_decoder(br: _Bridge) -> None:
             br.norm(f"{src}/{n}", f"{dst}.{n}")
 
 
+def _resnet_encoder(br: _Bridge) -> None:
+    enc, out = "encoder/backbone", "encoder.backbone"
+
+    def conv_layer(src, dst):
+        br.conv(f"{src}/convolution", f"{dst}.convolution")
+        br.batch_norm(f"{src}/normalization", f"{dst}.normalization")
+
+    conv_layer(f"{enc}/embedder", f"{out}.embedder")
+    pat = re.compile(rf"^{enc}/stage_(\d+)_layer_(\d+)/")
+    layers = sorted({(int(m.group(1)), int(m.group(2)))
+                     for m in map(pat.match, br.flat) if m})
+    for stage, i in layers:
+        src = f"{enc}/stage_{stage}_layer_{i}"
+        dst = f"{out}.stages.{stage}.{i}"
+        for n in br.indices(src, "layer"):
+            conv_layer(f"{src}/layer_{n}", f"{dst}.layer_{n}")
+        if f"{src}/shortcut/convolution/kernel" in br.flat:
+            conv_layer(f"{src}/shortcut", f"{dst}.shortcut")
+
+
+# each attention variant's Dense layers: the soft and multi-head cores, and
+# the adaptive and AoA wrappers' own layers around their ``base_attention``
+# (told apart by a layer only they have)
+_SOFT = ("query_proj", "key_proj", "energy")
+_MULTI_HEAD = ("query_proj", "key_proj", "value_proj", "output_proj")
+_WRAPPERS = {"sentinel_gate": ("sentinel_gate", "sentinel_proj",
+                               "adaptive_weight"),
+             "info_gate_proj": ("query_proj", "info_vector_proj",
+                                "info_gate_proj")}
+
+
+def _attention(br: _Bridge, src: str, dst: str) -> None:
+    for key, names in _WRAPPERS.items():
+        if f"{src}/{key}/kernel" in br.flat:
+            for n in names:
+                br.dense(f"{src}/{n}", f"{dst}.{n}")
+            src, dst = f"{src}/base_attention", f"{dst}.base_attention"
+            break
+    core = _SOFT if f"{src}/energy/kernel" in br.flat else _MULTI_HEAD
+    for n in core:
+        br.dense(f"{src}/{n}", f"{dst}.{n}")
+
+
+def _lstm_decoder(br: _Bridge) -> None:
+    br.put("decoder.embedding.weight", br.take("decoder/embedding/embedding"))
+    for n in ("output_layer", "init_h", "init_c"):
+        br.dense(f"decoder/{n}", f"decoder.{n}")
+    for i in br.indices("decoder/lstm", "cell"):
+        br.dense(f"decoder/lstm/cell_{i}/gates",
+                 f"decoder.lstm.cells.{i}.gates")
+    _attention(br, "decoder/attention", "decoder.attention")
+
+
 def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Map the JAX ``ImageCaptioningModel`` variables (CLIP or ViT encoder,
-    GPT-2 or Transformer decoder, told apart by their leaves; nested dict
-    of arrays, with or without the top-level ``"params"``) to an f32 state
+    """Map the JAX ``ImageCaptioningModel`` variables (CLIP, ViT or ResNet
+    encoder, GPT-2, Transformer or LSTM decoder, told apart by their
+    leaves; nested dict of arrays, either the collections ``"params"`` and,
+    for the ResNet, ``"batch_stats"``, or the params alone) to an f32 state
     dict of :class:`..models.captioning_model.ImageCaptioningModel`."""
+    flat = {}
     if "params" in tree and isinstance(tree["params"], Mapping):
+        flat = {f"{_STATS}/{k}": v
+                for k, v in _flatten(tree.get(_STATS, {})).items()}
         tree = tree["params"]
-    br = _Bridge(_flatten(tree))
+    flat.update(_flatten(tree))
+    br = _Bridge(flat)
     if "encoder/backbone/class_embedding" in br.flat:
         _clip_encoder(br)
     elif "encoder/backbone/cls_token" in br.flat:
         _vit_encoder(br)
+    elif "encoder/backbone/embedder/convolution/kernel" in br.flat:
+        _resnet_encoder(br)
     else:
-        raise ValueError("the flax tree holds neither a CLIP nor a ViT "
+        raise ValueError("the flax tree holds no CLIP, ViT or ResNet "
                          "encoder (the encoders ported so far)")
     if "encoder/proj/kernel" in br.flat:
         br.dense("encoder/proj", "encoder.proj")
     if "decoder/backbone/wte/embedding" in br.flat:
         _gpt2_decoder(br)
+    elif "decoder/lstm/cell_0/gates/kernel" in br.flat:
+        _lstm_decoder(br)
     elif "decoder/embedding/embedding" in br.flat:
         _transformer_decoder(br)
     else:
-        raise ValueError("the flax tree holds neither a GPT-2 nor a "
-                         "Transformer decoder (the decoders ported so far)")
+        raise ValueError("the flax tree holds no GPT-2, Transformer or LSTM "
+                         "decoder (the decoders ported so far)")
     if br.flat:
         raise ValueError(f"unmapped flax leaves: {sorted(br.flat)}")
     return br.out
@@ -197,12 +277,14 @@ def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 def init_flax_params(config, seed: int) -> Dict[str, Any]:
     """Seeded weights in the flax layout of the JAX ``ImageCaptioningModel``
-    (CLIP or ViT encoder, GPT-2 or Transformer decoder), drawn from
-    ``numpy.random.RandomState(seed)``, encoder first: dense kernels,
-    embeddings and position embeddings N(0, 0.02²) (GPT-2's initialiser),
-    the CLIP class embedding and the ViT CLS token N(0, 1/width), the GPT-2
-    learned image prefix N(0, 1) as flax draws it, biases 0, norm scales
-    1."""
+    (CLIP, ViT or ResNet encoder, GPT-2, Transformer or LSTM decoder),
+    drawn from ``numpy.random.RandomState(seed)``, encoder first: dense
+    kernels, embeddings and position embeddings N(0, 0.02²) (GPT-2's
+    initialiser), the CLIP class embedding and the ViT CLS token
+    N(0, 1/width), the GPT-2 learned image prefix N(0, 1) as flax draws it,
+    conv kernels at flax's ``lecun_normal`` scale (std
+    ``1/sqrt(kh*kw*in)``), biases 0, norm scales 1; a ResNet's BatchNorm
+    running means 0 and variances 1, in the ``batch_stats`` collection."""
     rs = np.random.RandomState(seed)
     mc = config.model
     ec, dc = mc.encoder, mc.decoder
@@ -218,11 +300,28 @@ def init_flax_params(config, seed: int) -> Dict[str, Any]:
         return {"scale": np.ones(n, np.float32),
                 "bias": np.zeros(n, np.float32)}
 
+    variables = {"params": {}}
+    if ec.encoder_type == EncoderType.RESNET:
+        encoder, stats = _draw_resnet(ec, normal, norm)
+        variables[_STATS] = {"encoder": stats}
+        width = ec.resnet_hidden_sizes[-1]
+    else:
+        encoder = _draw_transformer_encoder(ec, config.image_size, normal,
+                                            dense, norm)
+        width = ec.hidden_size
+    if width != ec.feature_dim:
+        encoder["proj"] = dense(width, ec.feature_dim)
+    variables["params"]["encoder"] = encoder
+    variables["params"]["decoder"] = _draw_decoder(mc, normal, dense, norm)
+    return variables
+
+
+def _draw_transformer_encoder(ec, image_size, normal, dense, norm):
     def attention(h):
         return {n: dense(h, h) for n in ("query", "key", "value", "out")}
 
     h, p, f = ec.hidden_size, ec.patch_size, ec.hidden_size * ec.mlp_ratio
-    tokens = (config.image_size // p) ** 2 + 1
+    tokens = (image_size // p) ** 2 + 1
     vit = ec.encoder_type == EncoderType.VIT
     if vit:
         backbone = {"patch_embed": {"kernel": normal(p, p, 3, h),
@@ -246,11 +345,87 @@ def init_flax_params(config, seed: int) -> Dict[str, Any]:
                 "attention": attention(h), "layer_norm1": norm(h),
                 "layer_norm2": norm(h), "fc1": dense(h, f),
                 "fc2": dense(f, h)}
-    encoder = {"backbone": backbone}
-    if h != ec.feature_dim:
-        encoder["proj"] = dense(h, ec.feature_dim)
+    return {"backbone": backbone}
 
+
+def _draw_resnet(ec, normal, norm):
+    """(params, batch_stats) of the ResNet encoder's backbone."""
+    params, stats = {}, {}
+
+    def conv_layer(n_in, n_out, k):
+        stat = {"mean": np.zeros(n_out, np.float32),
+                "var": np.ones(n_out, np.float32)}
+        return ({"convolution": {"kernel": normal(
+                    k, k, n_in, n_out, std=(k * k * n_in) ** -0.5)},
+                 "normalization": norm(n_out)},
+                {"normalization": stat})
+
+    params["embedder"], stats["embedder"] = conv_layer(
+        3, ec.resnet_embedding_size, 7)
+    in_ch = ec.resnet_embedding_size
+    for stage, (size, depth) in enumerate(zip(ec.resnet_hidden_sizes,
+                                              ec.resnet_depths)):
+        for i in range(depth):
+            n_in = in_ch if i == 0 else size
+            stride = (1 if stage == 0 else 2) if i == 0 else 1
+            if ec.resnet_layer_type == "bottleneck":
+                r = size // 4
+                shapes = [(n_in, r, 1), (r, r, 3), (r, size, 1)]
+            else:
+                shapes = [(n_in, size, 3), (size, size, 3)]
+            p, st = {}, {}
+            for n, shape in enumerate(shapes):
+                p[f"layer_{n}"], st[f"layer_{n}"] = conv_layer(*shape)
+            if n_in != size or stride != 1:
+                p["shortcut"], st["shortcut"] = conv_layer(n_in, size, 1)
+            params[f"stage_{stage}_layer_{i}"] = p
+            stats[f"stage_{stage}_layer_{i}"] = st
+        in_ch = size
+    return {"backbone": params}, {"backbone": stats}
+
+
+def _draw_attention(ac, query_dim, memory_dim, dense):
+    h = ac.hidden_dim
+
+    def core(kind):
+        if kind == AttentionType.SOFT:
+            return {"query_proj": dense(query_dim, h),
+                    "key_proj": dense(memory_dim, h),
+                    "energy": dense(h, 1)}, memory_dim
+        return {"query_proj": dense(query_dim, h),
+                "key_proj": dense(memory_dim, h),
+                "value_proj": dense(memory_dim, h),
+                "output_proj": dense(h, h)}, h
+
+    kind = ac.attention_type
+    if kind in (AttentionType.SOFT, AttentionType.MULTI_HEAD):
+        return core(kind)[0]
+    base, ctx = core(AttentionType.MULTI_HEAD if ac.num_heads > 1
+                     else AttentionType.SOFT)
+    if kind == AttentionType.ADAPTIVE:
+        return {"base_attention": base,
+                "sentinel_gate": dense(2 * query_dim, h),
+                "sentinel_proj": dense(h, h),
+                "adaptive_weight": dense(ctx + h, 1)}
+    if kind == AttentionType.AOA:
+        return {"base_attention": base, "query_proj": dense(query_dim, h),
+                "info_vector_proj": dense(ctx + h, h),
+                "info_gate_proj": dense(ctx + h, h)}
+    raise ValueError(f"Unsupported attention type: {kind}")
+
+
+def _draw_decoder(mc, normal, dense, norm):
+    dc, D = mc.decoder, mc.encoder.feature_dim
     H, V = dc.hidden_dim, mc.vocab_size
+    if dc.decoder_type == DecoderType.LSTM:
+        L = dc.num_layers
+        return {"embedding": {"embedding": normal(V, H)},
+                "lstm": {f"cell_{i}": {"gates": dense((2 * H if i == 0
+                                                       else H) + H, 4 * H)}
+                         for i in range(L)},
+                "attention": _draw_attention(mc.attention, H, D, dense),
+                "output_layer": dense(H, V),
+                "init_h": dense(D, H * L), "init_c": dense(D, H * L)}
     if dc.decoder_type == DecoderType.TRANSFORMER:
         decoder = {"embedding": {"embedding": normal(V, H)},
                    "position_encoding": {"embedding": normal(dc.max_length,
@@ -263,8 +438,8 @@ def init_flax_params(config, seed: int) -> Dict[str, Any]:
                 "linear1": dense(H, 4 * H), "linear2": dense(4 * H, H),
                 "norm1": norm(H), "norm2": norm(H), "norm3": norm(H)}
         decoder["output_layer"] = dense(H, V)
-        decoder["visual_projection"] = dense(ec.feature_dim, H)
-        return {"params": {"encoder": encoder, "decoder": decoder}}
+        decoder["visual_projection"] = dense(D, H)
+        return decoder
 
     P = dc.prefix_length
     gpt = {"wte": {"embedding": normal(V, H)},
@@ -275,10 +450,8 @@ def init_flax_params(config, seed: int) -> Dict[str, Any]:
             "ln_1": norm(H), "ln_2": norm(H),
             "attn": {"c_attn": dense(H, 3 * H), "c_proj": dense(H, H)},
             "mlp": {"c_fc": dense(H, 4 * H), "c_proj": dense(4 * H, H)}}
-    decoder = {"backbone": gpt,
-               "image_to_prefix": dense(ec.feature_dim, P * H),
-               "image_prefix": normal(1, P, H, std=1.0)}
-    return {"params": {"encoder": encoder, "decoder": decoder}}
+    return {"backbone": gpt, "image_to_prefix": dense(D, P * H),
+            "image_prefix": normal(1, P, H, std=1.0)}
 
 
 def _stacked(params: List[nn.Parameter]) -> torch.Tensor:

@@ -3,28 +3,32 @@
 Run from the repository root on a machine with a CUDA GPU::
 
     python -m image_captioning_ml_project_tpu_torch.profile_slice \\
-        [--config flagship|transformer] [--seed N] [--trace PATH]
+        [--config flagship|transformer|lstm] [--attention_type TYPE]
+        [--seed N] [--trace PATH]
 
 It decodes synthetic uint8 images through a served model, bf16 weights
 drawn from ``--seed``: ``flagship`` (the default;
 :func:`.main.flagship_config`: CLIP ViT-B/32 + GPT-2 12 layers, width 768,
-vocab 50257) or ``transformer`` (:func:`.main.transformer_config`: ViT-B/16
-+ 6-layer Transformer decoder, width 768, vocab 30000), beam 5, max length
-20, directly through ``encode``/``init_cache``/``beam_search``, without the
-server, on the configuration the JAX package's switches select. For the
-flagship these are ``ICT_DECODE_STACK``, ``ICT_DECODE_FOLD`` and
-``ICT_ENCODER_FOLD`` (by default the whole-stack decode and the encoder
-fold; all three ``0`` give the split configuration); for the Transformer
-decoder ``ICT_DECODE_FOLD`` alone (fold by default, split at ``0``). It
+vocab 50257), ``transformer`` (:func:`.main.transformer_config`: ViT-B/16
++ 6-layer Transformer decoder, width 768, vocab 30000) or ``lstm``
+(:func:`.main.lstm_config`: ResNet-101 + 6-layer LSTM, width 512, vocab
+10000, soft attention through its kernel, or the ``--attention_type``
+variant), beam 5, max length 20, directly through
+``encode``/``init_cache``/``beam_search``, without the server, on the
+configuration the JAX package's switches select. For the flagship these
+are ``ICT_DECODE_STACK``, ``ICT_DECODE_FOLD`` and ``ICT_ENCODER_FOLD`` (by
+default the whole-stack decode and the encoder fold; all three ``0`` give
+the split configuration); for the Transformer decoder ``ICT_DECODE_FOLD``
+alone (fold by default, split at ``0``); the LSTM reads none. It
 prints:
 
 0. the configuration profiled: the switches and the decode path and
    encoder they select;
 
-1. for batches of 1, 8 and 64: the host wall time of the CLIP encode, the
-   prefix forward (``init_cache``) and the beam loop, each with the device
-   synchronised, as medians of 7 runs after 2 warm-up runs, with the
-   total and images/s;
+1. for batches of 1, 8 and 64: the host wall time of the encode, the
+   prefix forward or memory projection (``init_cache``) and the beam
+   loop, each with the device synchronised, as medians of 7 runs after 2
+   warm-up runs, with the total and images/s;
 2. one ``model.step`` at batches 1, 8 and 64 (5, 40 and 320 beam rows):
    the host time to enqueue it, and the time with the device synchronised
    (median of 20);
@@ -49,7 +53,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from .config import DecoderType
+from .config import AttentionType, DecoderType
 from .inference.decoding import _tile_state, beam_search
 from .main import CONFIGS
 from .models.captioning_model import load_model
@@ -117,10 +121,11 @@ def _step_state(model, cfg, images, pos):
     Bk = images.shape[0] * ic.beam_size
     state = _tile_state(model.init_cache(images, ic.max_length),
                         ic.beam_size)
-    state["lazy"]["ancestry"] = torch.arange(
-        Bk, device=images.device, dtype=torch.int32)[:, None].repeat(
-            1, ic.max_length)
-    state["pos"] = pos
+    if "lazy" in state:  # the LSTM's state has neither
+        state["lazy"]["ancestry"] = torch.arange(
+            Bk, device=images.device, dtype=torch.int32)[:, None].repeat(
+                1, ic.max_length)
+        state["pos"] = pos
     tokens = torch.full((Bk,), cfg.model.bos_token_id, dtype=torch.long,
                         device=images.device)
     return state, tokens
@@ -148,6 +153,17 @@ def time_step(model, cfg, images, pos=5, runs=20):
 
 
 def configuration(cfg) -> str:
+    if cfg.model.decoder.decoder_type == DecoderType.LSTM:
+        att = cfg.model.attention
+        kernel = ("additive_scores" if att.attention_type == AttentionType.SOFT
+                  or (att.num_heads == 1
+                      and att.attention_type != AttentionType.MULTI_HEAD)
+                  else "sdpa")
+        return (f"configuration: ResNet encoder (PyTorch modules, cuDNN "
+                f"convolutions) -> LSTM, {att.attention_type.value} "
+                f"attention, use_pallas={att.use_pallas} -> "
+                f"{kernel + ' kernel' if att.use_pallas else 'plain ops'} "
+                f"per step")
     if cfg.model.decoder.decoder_type == DecoderType.TRANSFORMER:
         fold = decode_fold_enabled()
         return (f"configuration: ICT_DECODE_FOLD="
@@ -200,6 +216,10 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", choices=sorted(CONFIGS),
                         default="flagship")
+    parser.add_argument("--attention_type", default=None,
+                        choices=["soft", "multi_head", "adaptive", "aoa"],
+                        help="the LSTM's attention variant (default: the "
+                             "configuration's)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--trace", type=str, default=None,
                         help="write the profiled batch's Chrome trace here")
@@ -209,6 +229,9 @@ def main(argv=None):
     card = _card()
     print(card, flush=True)
     cfg = CONFIGS[args.config]()
+    if args.attention_type:
+        cfg.model.attention.attention_type = AttentionType(
+            args.attention_type)
     print(f"{args.config}: {configuration(cfg)}", flush=True)
     cfg.seed = args.seed
     dev = torch.device("cuda:0")

@@ -11,6 +11,11 @@ of 5000 the fused path (LSE + block maxima + fused top-k).
   interpret mode;
 * ViT + Transformer decoder: the port's fold (default) and split
   configurations against the JAX package's XLA decode;
+* ResNet + LSTM with soft attention through the kernel switch (the served
+  configuration) and multi-head attention, against the JAX package with
+  its Pallas kernels in interpret mode, with the output layer scaled so
+  that the logits are peaked (the seeded tiny LSTM's are almost flat,
+  which leaves its beams in near-ties);
 * the JAX package's default configuration (ViT-B/16 + GPT-2 with 8 heads
   of 96, at its widths, one layer each, 32x32 images)."""
 
@@ -173,6 +178,33 @@ def test_jax_default_configuration_matches_jax():
     assert port.decoder.backbone.blocks[0].attn.num_heads == 8
     images = images_uint8(60, n=2)
     want = _jitted_decode(cfg, model)(variables, jax_images(images))
+    got = _port_decode(cfg, port, images, True)
+    np.testing.assert_array_equal(got.tokens.numpy(),
+                                  np.asarray(want.tokens))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),
+                               atol=1e-4, rtol=0)
+
+
+def _peaked(variables, factor=30.0):
+    """The variables with the LSTM's output layer scaled by ``factor``."""
+    tree = jax.tree_util.tree_map(np.array, variables)
+    tree["params"]["decoder"]["output_layer"]["kernel"] *= factor
+    return tree
+
+
+@pytest.mark.parametrize("attention,heads", [("soft", 1), ("multi_head", 4)])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lstm_beam_search_matches_jax(seed, attention, heads):
+    """ResNet + LSTM through the kernel switch (``use_pallas``), the fused
+    candidate path (vocab 5000): the port's per-image memory against the
+    JAX decoder's tiled ``static`` features."""
+    family = dict(encoder="resnet", decoder="lstm", attention=attention,
+                  attention_heads=heads, use_pallas=True)
+    cfg, model, variables, _ = both_models(seed, vocab=5000, **family)
+    tree = _peaked(variables)
+    port = load_model(cfg, "cpu", params=tree)
+    images = images_uint8(seed + 70, n=B)
+    want = _jitted_decode(cfg, model)(tree, jax_images(images))
     got = _port_decode(cfg, port, images, True)
     np.testing.assert_array_equal(got.tokens.numpy(),
                                   np.asarray(want.tokens))

@@ -1,9 +1,11 @@
 """The port's hand-written kernels on the card, against their plain PyTorch
 versions: beam-decode attention, folded-QKV attention, the whole-stack
-GPT-2 decode step, the whole-stack CLIP encoder and the Transformer
-decoder's cross-attention step (CUDA C++), and LSE/block-max (Triton);
-then a tiny model's decode on the card against the same decode on the CPU,
-on each decode configuration of CLIP + GPT-2 and of ViT + Transformer.
+GPT-2 decode step, the whole-stack CLIP encoder, the Transformer decoder's
+cross-attention step, the attention variants' SDPA and additive scores
+(CUDA C++), and LSE/block-max (Triton); then a tiny model's decode on the
+card against the same decode on the CPU, on each decode configuration of
+CLIP + GPT-2 and of ViT + Transformer, and for ResNet + LSTM with each
+attention variant.
 
 Every test needs an NVIDIA GPU (marker ``cuda``) and skips elsewhere. The
 file imports neither JAX nor the repository's conftest helpers, so it runs
@@ -18,9 +20,12 @@ import numpy as np
 import pytest
 import torch
 
+from image_captioning_ml_project_tpu_torch.config import (AttentionType,
+                                                          DecoderType)
 from image_captioning_ml_project_tpu_torch.inference.decoding import (
     beam_search)
 from image_captioning_ml_project_tpu_torch.main import (flagship_config,
+                                                        lstm_config,
                                                         transformer_config)
 from image_captioning_ml_project_tpu_torch.models.captioning_model import (
     load_model)
@@ -29,7 +34,9 @@ from image_captioning_ml_project_tpu_torch.ops import beam_decode_attention \
 from image_captioning_ml_project_tpu_torch.ops import beam_decode_stack as bds
 from image_captioning_ml_project_tpu_torch.ops import cross_attention as ca
 from image_captioning_ml_project_tpu_torch.ops import encoder_stack as es
+from image_captioning_ml_project_tpu_torch.ops import additive_scores as adds
 from image_captioning_ml_project_tpu_torch.ops import lse as port_lse
+from image_captioning_ml_project_tpu_torch.ops import sdpa as port_sdpa
 from image_captioning_ml_project_tpu_torch.ops._checks import (LN_KEYS,
                                                                 stack_shapes)
 
@@ -331,6 +338,121 @@ def test_cross_attention_kernel_raises_on_what_it_does_not_take(dev):
                            **kw)
 
 
+def _sdpa_inputs(B, K, Q, S, NH, hd, masked, seed):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B * K, Q, NH * hd), generator=g)
+    k = torch.randn((B, S, NH * hd), generator=g)
+    v = torch.randn((B, S, NH * hd), generator=g)
+    mask = None
+    if masked:
+        mask = torch.rand((B, S), generator=g) < 0.25
+        mask[:, 0] = False
+    return q, k, v, mask
+
+
+def _heads(x, NH):
+    """[N, T, NH*hd] -> the [N, NH, T, hd] view, as the module takes it."""
+    N, T, h = x.shape
+    return x.view(N, T, NH, h // NH).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,Q,S,NH,hd,masked", [
+    (64, 5, 1, 49, 8, 64, False),   # served: 64 images x 5 beams, 7x7 rows
+    (64, 5, 1, 49, 8, 64, True),
+    (64, 1, 20, 49, 8, 64, True),   # teacher-forced shape, Q = 20
+    (3, 3, 5, 13, 2, 20, True),     # odd rows, head dim not 16-byte whole
+    (2, 1, 40, 196, 4, 32, False),  # two row chunks, ViT-sized memory
+])
+def test_sdpa_kernel_matches_plain(dev, dtype, B, K, Q, S, NH, hd, masked):
+    """Context: f32 within 1e-5 (another summation order), bf16 within 2
+    ulps of its largest magnitude (a weight near a bf16 rounding boundary
+    rounds the other way); weights within 1e-5 in both."""
+    q, k, v, mask = _sdpa_inputs(B, K, Q, S, NH, hd, masked, B * S + Q)
+    q, k, v = (_heads(t.to(dev, dtype), NH) for t in (q, k, v))
+    mask = None if mask is None else mask.to(dev)
+    kw = dict(scale=hd ** -0.5, beam_size=K)
+    before = port_sdpa.sdpa.launches
+    ctx, w = port_sdpa.sdpa(q, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    assert port_sdpa.sdpa.launches == before + 1
+    want_ctx, want_w = port_sdpa.sdpa_plain(q, k, v, mask, **kw)
+    assert ctx.shape == want_ctx.shape and ctx.dtype == q.dtype
+    torch.testing.assert_close(w, want_w, atol=1e-5, rtol=1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(ctx, want_ctx, atol=1e-5, rtol=1e-5)
+    else:
+        assert float((ctx.float() - want_ctx.float()).abs().max()) <= \
+            2 * _bf16_ulp(want_ctx.float())
+
+
+def test_sdpa_kernel_raises_on_what_it_does_not_take(dev):
+    q, k, v, _ = _sdpa_inputs(2, 1, 1, 5, 2, 8, False, 0)
+    q, k, v = (_heads(t.to(dev), 2) for t in (q, k, v))
+    kw = dict(scale=1.0, beam_size=1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        port_sdpa.sdpa(q.half(), k.half(), v.half(), None, **kw)
+    with pytest.raises(ValueError, match="head dimension must be contiguous"):
+        strided = torch.cat([q, q], dim=-1)[..., ::2]  # q's shape, stride 2
+        port_sdpa.sdpa(strided, k, v, None, **kw)
+    with pytest.raises(ValueError, match="v is"):
+        port_sdpa.sdpa(q, k, v.cpu(), None, **kw)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        big = torch.zeros((1, 1, 4000, 256), device=dev)
+        port_sdpa.sdpa(torch.zeros((1, 1, 1, 256), device=dev), big, big,
+                       None, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,Q,S,H,masked", [
+    (64, 5, 1, 49, 512, False),   # served: 64 images x 5 beams, 7x7 rows
+    (64, 5, 1, 49, 512, True),
+    (64, 1, 20, 49, 512, True),   # teacher-forced shape, Q = 20
+    (3, 3, 5, 13, 40, True),      # odd rows, width not a multiple of 32
+])
+def test_additive_scores_kernel_matches_plain(dev, dtype, B, K, Q, S, H,
+                                              masked):
+    """Within 1e-5 of the largest unmasked score, in both dtypes: the sum
+    and the tanh round to the input dtype exactly as the plain version's
+    do, and only the f32 sum's order differs; masked scores equal."""
+    g = torch.Generator().manual_seed(B * S + Q)
+    qp = (torch.randn((B * K, Q, H), generator=g) * 0.5).to(dev, dtype)
+    kp = (torch.randn((B, S, H), generator=g) * 0.5).to(dev, dtype)
+    ew = (torch.randn((1, H), generator=g) * 0.1).to(dev, dtype)
+    eb = torch.randn((1,), generator=g).to(dev, dtype)
+    mask = None
+    if masked:
+        mask = (torch.rand((B, S), generator=g) < 0.25).to(dev)
+        mask[:, 0] = False
+    kw = dict(temperature=0.7, beam_size=K)
+    before = adds.additive_scores.launches
+    got = adds.additive_scores(qp, kp, ew, eb, mask, **kw)
+    torch.cuda.synchronize()
+    assert adds.additive_scores.launches == before + 1
+    want = adds.additive_scores_plain(qp, kp, ew, mask, **kw) \
+        + eb.reshape(()) / kw["temperature"]
+    assert got.dtype == torch.float32 and got.shape == (B * K, Q, S)
+    keep = want > -1e8
+    assert torch.equal(got[~keep], want[~keep])
+    mag = float(want[keep].abs().max())
+    assert float((got - want)[keep].abs().max()) <= 1e-5 * mag
+
+
+def test_additive_scores_kernel_raises_on_what_it_does_not_take(dev):
+    qp, kp = torch.zeros((2, 1, 8), device=dev), torch.zeros((2, 3, 8),
+                                                             device=dev)
+    ew, eb = torch.zeros((1, 8), device=dev), torch.zeros(1, device=dev)
+    kw = dict(temperature=1.0, beam_size=1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        adds.additive_scores(qp.half(), kp.half(), ew.half(), eb, None, **kw)
+    with pytest.raises(ValueError, match="k_proj is"):
+        adds.additive_scores(qp, kp.cpu(), ew, eb, None, **kw)
+    with pytest.raises(RuntimeError, match="width 20000"):
+        adds.additive_scores(torch.zeros((1, 1, 20000), device=dev),
+                             torch.zeros((1, 2, 20000), device=dev),
+                             torch.zeros(20000, device=dev), eb, None, **kw)
+
+
 _CONFIGS = {"stack": ("1", "1", "1"), "fold": ("0", "1", "1"),
             "split": ("0", "0", "0")}
 
@@ -362,20 +484,54 @@ def test_tiny_transformer_decode_on_the_card_matches_cpu(dev, fold,
     _tiny_decode_matches_cpu(dev, 5000, transformer_config())
 
 
+@pytest.mark.parametrize("attention,heads,pallas", [
+    ("soft", 8, True), ("soft", 8, False), ("multi_head", 8, True),
+    ("adaptive", 1, True), ("aoa", 8, True)])
+def test_tiny_lstm_decode_on_the_card_matches_cpu(dev, attention, heads,
+                                                  pallas):
+    """f32, ResNet + LSTM with each attention variant."""
+    c = lstm_config()
+    c.model.attention.attention_type = AttentionType(attention)
+    c.model.attention.num_heads = heads
+    c.model.attention.use_pallas = pallas
+    _tiny_decode_matches_cpu(dev, 1000, c)
+
+
+def _peak_logits(c, models, images, target_std=3.0):
+    """Scale the LSTM's output layer on both models so that the CPU
+    model's first-step logits have a standard deviation of 3 over the
+    vocabulary: the seeded tiny LSTM's logits are almost flat, so its beams
+    sit in near-ties that either device's f32 summation order may flip."""
+    with torch.inference_mode():
+        state = models["cpu"].init_cache(images, c.inference.max_length)
+        bos = torch.full((images.shape[0],), c.model.bos_token_id)
+        logits = models["cpu"].step(state, bos)[0]
+        factor = target_std / float(logits.std(dim=-1).mean())
+        for model in models.values():
+            model.decoder.output_layer.weight.mul_(factor)
+            model.decoder.output_layer.bias.mul_(factor)
+
+
 def _tiny_decode_matches_cpu(dev, vocab, c=None):
     c = c or flagship_config()
     e, d = c.model.encoder, c.model.decoder
     e.hidden_size = e.feature_dim = d.hidden_dim = 64
+    c.model.attention.hidden_dim = 64
     e.num_layers = d.num_layers = 2
     e.num_heads = d.num_heads = 4
+    e.resnet_depths, e.resnet_hidden_sizes = (1, 2), (16, 32)
+    e.resnet_embedding_size = 8
     e.patch_size, d.prefix_length = 16, 3
     c.image_size, c.model.vocab_size, c.model.dtype = 32, vocab, "float32"
     c.inference.max_length, c.inference.min_length = 10, 2
     images = torch.from_numpy(np.random.RandomState(vocab).randint(
         0, 256, (3, 32, 32, 3)).astype(np.uint8))
+    models = {where.type: load_model(c, where)
+              for where in (dev, torch.device("cpu"))}
+    if d.decoder_type == DecoderType.LSTM:
+        _peak_logits(c, models, images)
     out = []
-    for where in (dev, torch.device("cpu")):
-        model = load_model(c, where)
+    for where, model in models.items():
         mc, ic = c.model, c.inference
         with torch.inference_mode():
             state = model.init_cache(images.to(where), ic.max_length)
@@ -385,5 +541,13 @@ def _tiny_decode_matches_cpu(dev, vocab, c=None):
                               length_penalty=ic.length_penalty,
                               min_length=ic.min_length, return_all=True)
         out.append((res.tokens.cpu(), res.scores.cpu()))
-    assert torch.equal(out[0][0], out[1][0])
+    if d.decoder_type == DecoderType.LSTM:
+        # the seeded tiny LSTM's attention is nearly uniform, so every step
+        # gives nearly the same distribution and its lower beams are
+        # permutations of one another with equal scores, ordered by the
+        # last bits of their sums: the best hypothesis is held token for
+        # token, every beam's score to 1e-4
+        assert torch.equal(out[0][0][:, 0], out[1][0][:, 0])
+    else:
+        assert torch.equal(out[0][0], out[1][0])
     torch.testing.assert_close(out[0][1], out[1][1], atol=1e-4, rtol=0)

@@ -29,6 +29,9 @@ for make in CONFIGS.values():
     c = make()
     e, d = c.model.encoder, c.model.decoder
     e.hidden_size = e.feature_dim = d.hidden_dim = 32
+    c.model.attention.hidden_dim = 32
+    e.resnet_depths, e.resnet_hidden_sizes = (1,), (32,)
+    e.resnet_embedding_size = 8
     e.num_layers = d.num_layers = 1
     e.num_heads = d.num_heads = 2
     c.image_size, c.model.vocab_size, c.model.dtype = 64, 100, "float32"

@@ -1,8 +1,9 @@
 """Weight bridge (port: params.py) and the bf16 cast policy (port:
-utils/amp.py), for every ported family (CLIP and ViT encoders, GPT-2 and
-Transformer decoders): every flax leaf is mapped, an extra or a missing
-leaf raises, the seeded initialisation has the flax layout, and norms stay
-f32 under the cast. The layer-stacked weights of the whole-stack kernels
+utils/amp.py), for every ported family (CLIP, ViT and ResNet encoders,
+GPT-2, Transformer and LSTM decoders with each attention variant): every
+flax leaf is mapped, the ResNet's ``batch_stats`` included, an extra or a
+missing leaf raises, the seeded initialisation has the flax layout, and
+norms (and BatchNorm statistics) stay f32 under the cast. The layer-stacked weights of the whole-stack kernels
 equal the JAX package's (``_stacked_weights`` and the encoder fold's
 stack), and the Transformer decoder's concatenated QKV equals what the JAX
 fold hands its kernel; all are the model's parameters, not copies."""
@@ -18,6 +19,7 @@ from image_captioning_ml_project_tpu.utils.amp import (
     cast_float_params as jax_cast_float_params)
 from image_captioning_ml_project_tpu_torch.models.captioning_model import (
     ImageCaptioningModel, load_model)
+from image_captioning_ml_project_tpu_torch.models.encoders import BatchNorm
 from image_captioning_ml_project_tpu_torch.models.layers import LayerNorm
 from image_captioning_ml_project_tpu_torch.params import (from_flax,
                                                           init_flax_params)
@@ -39,12 +41,26 @@ def _flax_leaf_count(variables):
 _VIT_TRANSFORMER = {"encoder": "vit", "decoder": "transformer"}
 
 
+def _lstm(attention="soft", heads=1, **kw):
+    return dict(encoder="resnet", decoder="lstm", attention=attention,
+                attention_heads=heads, **kw)
+
+
+_LSTM_CONFIGS = [_lstm(), _lstm("multi_head", 4), _lstm("adaptive", 1),
+                 _lstm("adaptive", 4), _lstm("aoa", 1), _lstm("aoa", 4),
+                 _lstm(layer_type="basic")]
+_LSTM_IDS = ["resnet_lstm_soft", "resnet_lstm_multi_head",
+             "resnet_lstm_adaptive_soft", "resnet_lstm_adaptive_mha",
+             "resnet_lstm_aoa_soft", "resnet_lstm_aoa_mha",
+             "resnet_basic_lstm"]
+
+
 @pytest.mark.parametrize("config", [
     {}, {"fused_qkv": True}, {"feature_dim": 48}, _VIT_TRANSFORMER,
     dict(_VIT_TRANSFORMER, fused_qkv=True, feature_dim=48),
-    {"encoder": "vit"}], ids=["default", "fused_qkv", "projected",
-                              "vit_transformer", "vit_transformer_fused",
-                              "vit_gpt2"])
+    {"encoder": "vit"}] + _LSTM_CONFIGS,
+    ids=["default", "fused_qkv", "projected", "vit_transformer",
+         "vit_transformer_fused", "vit_gpt2"] + _LSTM_IDS)
 def test_every_flax_leaf_maps_to_every_model_tensor(config):
     cfg, _, variables, _ = both_models(0, **config)
     sd = from_flax(variables)
@@ -54,8 +70,10 @@ def test_every_flax_leaf_maps_to_every_model_tensor(config):
     for name, tensor in model.state_dict().items():
         assert sd[name].shape == tensor.shape, name
     # every flax leaf lands in the state dict (q/k/v leaves merge into one
-    # qkv tensor per layer: 6 flax leaves -> 2 torch tensors)
-    merged = 0 if config.get("fused_qkv") else 4 * cfg.model.encoder.num_layers
+    # qkv tensor per layer: 6 flax leaves -> 2 torch tensors; the ResNet
+    # has none, and its batch_stats become buffers one for one)
+    merged = (0 if config.get("fused_qkv") or config.get("encoder") ==
+              "resnet" else 4 * cfg.model.encoder.num_layers)
     assert len(sd) == _flax_leaf_count(variables) - merged
 
 
@@ -76,10 +94,23 @@ def test_extra_leaf_raises():
     (_VIT_TRANSFORMER, ("decoder", "layer_1", "cross_attn", "k_proj",
                         "bias")),
     (_VIT_TRANSFORMER, ("decoder", "visual_projection", "kernel")),
+    (_lstm(), ("batch_stats", "encoder", "backbone", "stage_1_layer_0",
+               "shortcut", "normalization", "var")),
+    (_lstm(), ("encoder", "backbone", "embedder", "normalization", "scale")),
+    (_lstm(), ("encoder", "backbone", "stage_0_layer_0", "layer_1",
+               "convolution", "kernel")),
+    (_lstm(), ("decoder", "lstm", "cell_1", "gates", "bias")),
+    (_lstm(), ("decoder", "attention", "energy", "kernel")),
+    (_lstm(), ("decoder", "init_c", "kernel")),
+    (_lstm("adaptive", 4), ("decoder", "attention", "sentinel_proj", "bias")),
+    (_lstm("adaptive", 4), ("decoder", "attention", "base_attention",
+                            "value_proj", "kernel")),
+    (_lstm("aoa", 1), ("decoder", "attention", "info_vector_proj",
+                       "kernel")),
 ])
 def test_missing_leaf_raises(config, path):
     tree = copy.deepcopy(_np_tree(both_models(0, **config)[2]))
-    node = tree["params"]
+    node = tree if path[0] == "batch_stats" else tree["params"]
     for key in path[:-1]:
         node = node[key]
     del node[path[-1]]
@@ -89,9 +120,10 @@ def test_missing_leaf_raises(config, path):
 
 @pytest.mark.parametrize("config", [
     {}, {"feature_dim": 48}, _VIT_TRANSFORMER,
-    dict(_VIT_TRANSFORMER, feature_dim=48), {"encoder": "vit"}],
+    dict(_VIT_TRANSFORMER, feature_dim=48), {"encoder": "vit"}]
+    + _LSTM_CONFIGS,
     ids=["default", "projected", "vit_transformer",
-         "vit_transformer_projected", "vit_gpt2"])
+         "vit_transformer_projected", "vit_gpt2"] + _LSTM_IDS)
 def test_seeded_init_has_the_flax_layout(config):
     cfg, _, variables, _ = both_models(0, **config)
     got = jax.tree_util.tree_map(lambda x: (x.shape, x.dtype),
@@ -132,6 +164,61 @@ def test_cast_float_params_keeps_norms_f32_like_jax():
     n_norm = sum(isinstance(m, LayerNorm) for m in model.modules())
     assert len(kept) == 2 * n_norm
     assert cast_float_params(model) is model
+
+
+def test_batch_stats_map_to_running_statistics():
+    """Random running means and variances land in the right BatchNorm
+    buffers, mean to mean and variance to variance, and a bare params tree
+    (no batch_stats) is refused."""
+    tree = copy.deepcopy(_np_tree(both_models(0, **_lstm())[2]))
+    rs = np.random.RandomState(3)
+    stats = tree["batch_stats"]["encoder"]["backbone"]["stage_1_layer_1"][
+        "layer_2"]["normalization"]
+    stats["mean"] = rs.randn(*stats["mean"].shape).astype(np.float32)
+    stats["var"] = rs.uniform(0.5, 2, stats["var"].shape).astype(np.float32)
+    sd = from_flax(tree)
+    name = "encoder.backbone.stages.1.1.layer_2.normalization"
+    np.testing.assert_array_equal(sd[f"{name}.running_mean"].numpy(),
+                                  stats["mean"])
+    np.testing.assert_array_equal(sd[f"{name}.running_var"].numpy(),
+                                  stats["var"])
+    conv = tree["params"]["encoder"]["backbone"]["embedder"]["convolution"]
+    np.testing.assert_array_equal(
+        sd["encoder.backbone.embedder.convolution.weight"].numpy(),
+        conv["kernel"].transpose(3, 2, 0, 1))
+    with pytest.raises(KeyError, match="batch_stats"):
+        from_flax(tree["params"])
+
+
+def test_cast_keeps_batch_norms_f32_like_jax():
+    """In a bf16 ResNet + LSTM model the BatchNorm scales, biases and
+    running statistics stay f32 with the tree's values, every other
+    parameter is bf16, and the JAX policy keeps the same leaves f32 (norm
+    dicts and the batch_stats collection)."""
+    cfg, _, variables, _ = both_models(0, **_lstm("aoa", 4))
+    cfg = copy.deepcopy(cfg)
+    cfg.model.dtype = "bfloat16"
+    tree = copy.deepcopy(_np_tree(variables))
+    rs = np.random.RandomState(4)
+    stats = tree["batch_stats"]["encoder"]["backbone"]["embedder"][
+        "normalization"]
+    stats["var"] = rs.uniform(0.5, 2, stats["var"].shape).astype(np.float32)
+    model = load_model(cfg, "cpu", params=tree)
+    bn = model.encoder.backbone.embedder.normalization
+    np.testing.assert_array_equal(bn.running_var.numpy(), stats["var"])
+    n_bn = 0
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            n_bn += 1
+            assert {t.dtype for t in (module.weight, module.bias,
+                                      module.running_mean,
+                                      module.running_var)} == {torch.float32}
+        else:
+            for p in module.parameters(recurse=False):
+                assert p.dtype == torch.bfloat16
+    kept = [p for p, x in jax.tree_util.tree_leaves_with_path(
+        jax_cast_float_params(variables)) if x.dtype == np.float32]
+    assert len(kept) == 4 * n_bn
 
 
 _MATRICES = ("wqkv", "wo", "wfc", "wpj")

@@ -1,6 +1,7 @@
 """Serving (port: inference/server.py) and the CLI (port: main.py) on the
 CPU: concurrent submits over a bucket ladder give the captions of a direct
-``beam_search`` decode (CLIP + GPT-2 and ViT + Transformer decoder), the
+``beam_search`` decode (CLIP + GPT-2, ViT + Transformer decoder, and
+ResNet + LSTM with soft attention through its kernel switch), the
 HTTP front end answers ``/caption`` for a PNG and its GET routes, the
 built-in configurations have their widths, and what is not yet ported
 says so."""
@@ -227,6 +228,66 @@ def test_cli_builtin_configurations():
 
 
 def test_lstm_decoder_names_its_roadmap_item():
-    cfg = tiny_config(decoder="lstm")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        load_model(cfg, "cpu")
+    """The LSTM decoder is built; its greedy ``generate`` waits for the
+    greedy, sampling and diverse decodes of ROADMAP.md Queue 1 item 4."""
+    cfg = tiny_config(encoder="resnet", decoder="lstm", attention="soft",
+                      attention_heads=1)
+    model = load_model(cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
+        model.decoder.generate({}, 5)
+
+
+@pytest.mark.parametrize("attention", ["soft", "multi_head"])
+def test_lstm_configuration_is_served(attention):
+    """ResNet + LSTM behind ``CaptionService``, attention through the
+    kernel switch: concurrent submits give the direct decode's
+    captions."""
+    cfg = tiny_config(vocab=VOCAB, encoder="resnet", decoder="lstm",
+                      attention=attention, use_pallas=True)
+    cfg.seed = 4
+    tok = _vocab()
+    images = images_uint8(14, n=3)
+    want = _direct_captions(cfg, tok, images)
+    service = CaptionService(cfg, tok, "cpu", batch_size=2,
+                             bucket_sizes=[1, 2], max_wait_ms=30.0)
+    service.start(warmup=True)
+    try:
+        reqs = [service.submit_async(img) for img in images]
+        assert [service.result(r) for r in reqs] == want
+        assert service.stats.snapshot()["decode_steps"] > 0
+    finally:
+        service.stop()
+
+
+def test_cli_lstm_configuration():
+    """``--config lstm`` is the widths of the JAX package's LSTM benchmark
+    (ResNet-101, 6-layer LSTM of width 512, vocab 10000) with soft
+    attention through its kernel; ``--attention_type`` picks another
+    variant."""
+    from image_captioning_ml_project_tpu_torch.config import (
+        AttentionType, DecoderType, EncoderType)
+    from image_captioning_ml_project_tpu_torch.models.captioning_model \
+        import ImageCaptioningModel
+
+    cfg = port_main.resolve_config("lstm")
+    e, d, a = cfg.model.encoder, cfg.model.decoder, cfg.model.attention
+    assert e.encoder_type == EncoderType.RESNET
+    assert (tuple(e.resnet_depths), tuple(e.resnet_hidden_sizes),
+            e.resnet_embedding_size, e.feature_dim) == (
+                (3, 4, 23, 3), (256, 512, 1024, 2048), 64, 512)
+    assert d.decoder_type == DecoderType.LSTM
+    assert (d.hidden_dim, d.num_layers, cfg.model.vocab_size) == (
+        512, 6, 10000)
+    assert (a.attention_type, a.hidden_dim, a.num_heads, a.use_pallas) == (
+        AttentionType.SOFT, 512, 8, True)
+    assert (cfg.inference.beam_size, cfg.inference.max_length,
+            cfg.inference.length_penalty, cfg.inference.min_length,
+            cfg.model.dtype) == (5, 20, 0.8, 5, "bfloat16")
+    with torch.device("meta"):
+        model = ImageCaptioningModel(cfg)
+    n_conv = sum(isinstance(m, torch.nn.Conv2d) for m in model.modules())
+    assert n_conv == 104  # ResNet-101: 1 + 3 x 33 + 4 shortcuts
+    args = port_main.build_argparser().parse_args(
+        ["--config", "lstm", "--attention_type", "aoa"])
+    port_main._update_config_from_args(cfg, args)
+    assert cfg.model.attention.attention_type == AttentionType.AOA

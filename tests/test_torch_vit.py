@@ -55,7 +55,8 @@ def test_vit_backbone_uses_its_patch_bias_and_position_table():
                                bb.patch_embed.bias.expand(4, 64))
 
 
-@pytest.mark.parametrize("encoder", ["resnet", "swin", "object_region"])
+@pytest.mark.parametrize("encoder", ["swin", "object_region", "convnext",
+                                     "efficientnet"])
 def test_other_encoders_name_their_roadmap_item(encoder):
     cfg = get_default_config().model.encoder
     cfg.encoder_type = EncoderType(encoder)

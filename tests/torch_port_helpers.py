@@ -1,7 +1,8 @@
 """Shared set-up of the tests/test_torch_*.py files: a tiny configuration
-of each ported family (CLIP or ViT encoder, GPT-2 or Transformer decoder),
-and the JAX model and the port's model built from one set of weights.
-Inputs are made with numpy from a seed and fed to both."""
+of each ported family (CLIP, ViT or ResNet encoder, GPT-2, Transformer or
+LSTM decoder with any attention variant), and the JAX model and the port's
+model built from one set of weights. Inputs are made with numpy from a seed
+and fed to both."""
 
 import functools
 
@@ -10,7 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from image_captioning_ml_project_tpu.config import (DecoderType, EncoderType,
+from image_captioning_ml_project_tpu.config import (AttentionType,
+                                                     DecoderType, EncoderType,
                                                      get_default_config)
 from image_captioning_ml_project_tpu.data.coco import normalize_images
 from image_captioning_ml_project_tpu.models.captioning_model import (
@@ -24,22 +26,33 @@ IMAGE_SIZE = 32
 def tiny_config(vocab: int = 1000, decode_kernel: str = "xla",
                 fused_qkv: bool = False, feature_dim: int = 64,
                 encoder: str = "clip", decoder: str = "gpt2",
-                width: int = 64):
+                width: int = 64, attention: str = "multi_head",
+                attention_heads: int = 4, use_pallas: bool = False,
+                layer_type: str = "bottleneck"):
     """2 layers, encoder width 64, decoder width ``width``, 4 heads, patch
     16 on 32x32 images (4 patch tokens), 3 prefix tokens (GPT-2) or 16
-    learned positions (Transformer); f32 weights; beam 5, max length 10,
-    length penalty 0.8, min length 2."""
+    learned positions (Transformer); a ResNet of two stages (depths 1 and 2,
+    widths 16 and 32, stem 8, ``layer_type`` layers: 16 feature rows);
+    the LSTM's ``attention`` variant of width ``width`` with
+    ``attention_heads`` heads and the JAX package's ``use_pallas``; f32
+    weights; beam 5, max length 10, length penalty 0.8, min length 2."""
     c = get_default_config()
     e, d = c.model.encoder, c.model.decoder
     e.encoder_type = EncoderType(encoder)
     e.hidden_size, e.num_layers, e.num_heads = 64, 2, 4
     e.patch_size, e.feature_dim, e.fused_qkv = 16, feature_dim, fused_qkv
     e.image_size = IMAGE_SIZE
+    e.resnet_depths, e.resnet_hidden_sizes = (1, 2), (16, 32)
+    e.resnet_embedding_size, e.resnet_layer_type = 8, layer_type
     d.decoder_type = DecoderType(decoder)
     d.hidden_dim, d.num_layers, d.num_heads = width, 2, 4
     d.prefix_length, d.dropout, d.gpt2_n_positions = 3, 0.0, 64
     d.max_length = 16
     d.decode_kernel = decode_kernel
+    a = c.model.attention
+    a.attention_type = AttentionType(attention)
+    a.hidden_dim, a.num_heads, a.use_pallas = width, attention_heads, \
+        use_pallas
     c.image_size = IMAGE_SIZE
     c.model.vocab_size = vocab
     c.model.dtype = "float32"
