@@ -26,7 +26,13 @@ prints no result line:
    least time the card could take for the same work (``bound_ms``: the
    larger of the bytes over 3.35 TB/s and the operations over the peak
    rate of their type) and, where one PyTorch call computes the same
-   function, that call's time (``library_ms``);
+   function, that call's time (``library_ms``). Before them, the Dense
+   GEMM that the three layer kernels share (``csrc/common.cuh``: ``wgmma``
+   fed by TMA) by itself against ``ops/numerics.dense`` and each epilogue,
+   at every (M, N, K) the whole-stack kernels give it and at ragged ones,
+   two runs on the same inputs bit-identical; per shape at M = 320 and
+   3200 its device time, TFLOP/s and bound beside
+   ``torch.nn.functional.linear``'s time (timed only);
 4. reference: the full-width models in float32 decode two images on the
    card (through the kernels) and on the CPU (plain versions), on each
    decode configuration (ResNet-101 + LSTM: soft, multi-head, adaptive and
@@ -358,6 +364,65 @@ def stack_bytes(w):
     return sum(t.numel() * t.element_size() for t in w.values())
 
 
+# the Dense GEMM's shapes: rows of the encoder (50 tokens) and the decoder
+# (5 beams) at the service's buckets 1 / 8 / 64, and the four matrices of a
+# layer of width 768 (QKV, output projection, MLP in and out)
+DENSE_ROWS = (5, 40, 320, 50, 400, 3200)
+DENSE_MATRICES = ((2304, 768), (768, 768), (3072, 768), (768, 3072))
+DENSE_RAGGED = ((1, 72, 776), (63, 72, 776), (65, 768, 776), (321, 72, 768),
+                (321, 2304, 776))
+
+
+def check_dense(torch, dev):
+    """The Dense GEMM of ``csrc/common.cuh`` by itself (module docstring,
+    phase 3): bf16 within 2 ulps of the largest output of the plain
+    version, repeats bit-identical (the split over K adds in a fixed
+    order). Not a kernel of its own: the layer kernels issue it."""
+    from image_captioning_ml_project_tpu_torch.ops.dense_layer import (
+        EPILOGUES, dense_layer, dense_layer_plain)
+
+    g = torch.Generator(device=dev).manual_seed(8901)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    shapes = [(M, N, K) for M in DENSE_ROWS for N, K in DENSE_MATRICES]
+    worst = 0.0
+    for M, N, K in shapes + list(DENSE_RAGGED):
+        x, w, b = randn(M, K), randn(N, K, scale=0.02), randn(N, scale=0.02)
+        r = randn(M, N)
+        for epilogue in EPILOGUES:
+            res = r if epilogue == "residual" else None
+            got = dense_layer(x, w, b, res, epilogue)
+            again = dense_layer(x, w, b, res, epilogue)
+            want = dense_layer_plain(x, w, b, res, epilogue)
+            torch.cuda.synchronize()
+            err, tol = max_err(got, want), 2 * bf16_ulp(want.float())
+            what = f"dense bf16 M={M} N={N} K={K} {epilogue}"
+            check(err <= tol, f"{what}: error {err} > {tol}")
+            check(torch.equal(got, again), f"{what}: two runs differ")
+            worst = max(worst, err / tol)
+    print(f"dense bf16: {len(shapes) + len(DENSE_RAGGED)} shapes x "
+          f"{len(EPILOGUES)} epilogues within 2 ulps of the largest output "
+          f"(worst {worst:.2f} of the tolerance), repeats bit-identical",
+          flush=True)
+    for M in (320, 3200):
+        for N, K in DENSE_MATRICES:
+            x, w, b = randn(M, K), randn(N, K, scale=0.02), randn(N,
+                                                                  scale=0.02)
+            _, ms = time_ms(torch, lambda: dense_layer(x, w, b), device=True)
+            _, lib = time_ms(torch, lambda: torch.nn.functional.linear(
+                x, w, b), device=True)
+            bnd = bound((M * K + N * K + N + M * N) * 2,
+                        {"bf16_tensor": 2 * M * N * K})
+            print(f"dense bf16 M={M} N={N} K={K}: device_ms={ms:.4f} "
+                  f"({2 * M * N * K / ms / 1e9:.1f} TFLOP/s), bound_ms="
+                  f"{bnd['bound_ms']:.4f} ({bnd['bound_by']}), library_ms="
+                  f"{lib:.4f} (F.linear, {2 * M * N * K / lib / 1e9:.1f} "
+                  f"TFLOP/s; L2 warm)", flush=True)
+
+
 def check_attention_qkv(torch, dev, results):
     from image_captioning_ml_project_tpu_torch.ops.beam_decode_attention import (
         beam_decode_attention_qkv, beam_decode_attention_qkv_plain)
@@ -472,6 +537,15 @@ def check_stack(torch, dev, results):
                 print(f"stack bf16 pos={pos}: kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms (170 MB of weights per step: above "
                       f"L2, no flush)", flush=True)
+    host = []
+    for _ in range(10):  # the host's share of one call: the device is idle
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        beam_decode_stack(x, w, kc1, vc1, pk, pv, anc, pos, **args)
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    print(f"stack bf16: host enqueue of one call (7 launches x {L} layers) "
+          f"{statistics.median(host):.4f} ms", flush=True)
     results["beam_decode_stack"] = {"flagship": shape_entry(
         f"L={L} B={B} K={K} S={S} H={H} P={P} pos=19 bf16", worst,
         *timing[19])}
@@ -1165,6 +1239,7 @@ def main():
         results = {}
         check_attention(torch, dev, results)
         check_lse(torch, dev, results)
+        check_dense(torch, dev)
         check_attention_qkv(torch, dev, results)
         check_stack(torch, dev, results)
         check_encoder(torch, dev, results)

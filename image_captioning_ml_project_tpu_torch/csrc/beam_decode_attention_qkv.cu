@@ -16,21 +16,20 @@
 // reads (see beam_attention.cuh). The Pallas kernel does all three in one
 // grid cell because its grid runs in order on one core; on Hopper one
 // block per 64 rows would leave most of the 132 SMs idle. So the design is
-// a few launches on the caller's stream, each sized for its own work: the QKV
-// GEMM (36 x 5 blocks of 64 x 64 outputs on the tensor cores, wmma bf16
-// with f32 accumulators, split over K when that is too few blocks; see
-// common.cuh), the attention of beam_attention.cuh reading q/k/v in place
-// from the GEMM's output (row stride 3H, no split copies), and the output
-// GEMM. The intermediates (qkv, att, split-K sums) are scratch buffers the
-// wrapper allocates; they stay in L2 between the launches.
+// a few launches on the caller's stream, each sized for its own work: the
+// QKV GEMM (5 x 18 tiles of 64 x 128 outputs on the tensor cores, `wgmma`
+// fed by TMA with f32 sums; see common.cuh), the attention of
+// beam_attention.cuh reading q/k/v in place from the GEMM's output (row
+// stride 3H, no split copies), and the output GEMM. The intermediates
+// (qkv, att) are scratch buffers the wrapper allocates; they stay in L2
+// between the launches.
 
 #include "beam_attention.cuh"
 
 namespace {
 
 template <typename T>
-cudaError_t launch(void* out, void* qkv_s, void* att_s, void* ws_p,
-                   int64_t ws_floats, const void* x,
+cudaError_t launch(void* out, void* qkv_s, void* att_s, const void* x,
                    const void* wqkv, const void* bqkv, const void* wo,
                    const void* bo, void* k_cache, void* v_cache,
                    const void* prefix_k, const void* prefix_v,
@@ -38,11 +37,10 @@ cudaError_t launch(void* out, void* qkv_s, void* att_s, void* ws_p,
                    int NH, int pos, float scale, cudaStream_t stream) {
   T* qkv = static_cast<T*>(qkv_s);
   T* att = static_cast<T*>(att_s);
-  float* ws = static_cast<float*>(ws_p);
   PORT_TRY(port::dense(qkv, 3 * H, static_cast<const T*>(x), H,
                        static_cast<const T*>(wqkv), H,
                        static_cast<const T*>(bqkv), (const T*)nullptr, 0, Bk,
-                       3 * H, H, port::kBias, ws, ws_floats, stream));
+                       3 * H, H, port::kBias, true, stream));
   PORT_TRY(port::beam_attention<T>(
       att, qkv, qkv + H, qkv + 2 * H, 3 * H, static_cast<T*>(k_cache),
       static_cast<T*>(v_cache), static_cast<const T*>(prefix_k),
@@ -50,20 +48,18 @@ cudaError_t launch(void* out, void* qkv_s, void* att_s, void* ws_p,
       K, S, P, H, NH, pos, scale, stream));
   return port::dense(static_cast<T*>(out), H, att, H,
                      static_cast<const T*>(wo), H, static_cast<const T*>(bo),
-                     (const T*)nullptr, 0, Bk, H, H, port::kBias, ws,
-                     ws_floats, stream);
+                     (const T*)nullptr, 0, Bk, H, H, port::kBias, true, stream);
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// qkv_s [Bk, 3H] and att_s [Bk, H] are scratch, ws an f32 workspace of
-// ws_floats values for split-K partial sums; prefix_k/prefix_v may be null
+// qkv_s [Bk, 3H] and att_s [Bk, H] are scratch; prefix_k/prefix_v may be null
 // when P == 0; anc may be null (all zeros). Returns the first cudaError_t
 // of the launches (0 = success).
 extern "C" int beam_decode_attention_qkv(
-    int dtype, int device, void* out, void* qkv_s, void* att_s, void* ws,
-    int64_t ws_floats, const void* x, const void* wqkv, const void* bqkv,
+    int dtype, int device, void* out, void* qkv_s, void* att_s, const void* x,
+    const void* wqkv, const void* bqkv,
     const void* wo, const void* bo, void* k_cache, void* v_cache,
     const void* prefix_k, const void* prefix_v, const void* anc, int Bk, int K,
     int S, int P, int H, int NH, int pos, float scale, void* stream) {
@@ -71,13 +67,13 @@ extern "C" int beam_decode_attention_qkv(
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    err = launch<__nv_bfloat16>(out, qkv_s, att_s, ws, ws_floats, x, wqkv,
-                                bqkv, wo, bo, k_cache, v_cache, prefix_k,
+    err = launch<__nv_bfloat16>(out, qkv_s, att_s, x, wqkv, bqkv, wo, bo,
+                                k_cache, v_cache, prefix_k,
                                 prefix_v, anc, Bk, K, S, P, H, NH, pos, scale,
                                 s);
   } else if (dtype == 0) {
-    err = launch<float>(out, qkv_s, att_s, ws, ws_floats, x, wqkv, bqkv, wo,
-                        bo, k_cache, v_cache, prefix_k, prefix_v, anc, Bk, K,
+    err = launch<float>(out, qkv_s, att_s, x, wqkv, bqkv, wo, bo, k_cache,
+                        v_cache, prefix_k, prefix_v, anc, Bk, K,
                         S, P, H, NH, pos, scale, s);
   } else {
     err = cudaErrorInvalidValue;

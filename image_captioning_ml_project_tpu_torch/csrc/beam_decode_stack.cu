@@ -24,27 +24,40 @@
 // K/V), so one block could carry a row tile through all L layers, but with
 // 320 rows that is 5 blocks of 64 rows on 132 SMs, each re-reading all
 // 170 MB of weights. The design instead issues, from one host call, seven
-// launches per layer, each sized for occupancy: LN1, the QKV GEMM (180
-// blocks), the attention (Bk x heads blocks), the output GEMM with the
-// residual in its epilogue, LN2, the c_fc GEMM with gelu_new in its
-// epilogue (240 blocks), the c_proj GEMM with the residual. GEMMs run on
-// the tensor cores (wmma bf16, f32 accumulate; common.cuh), split over K
-// when they have too few blocks to fill the card (the 768-wide output
-// GEMMs at any batch, every GEMM at small batches), which adds one
-// reduction launch each. So 84 to 132 launches a step at L = 12, against
-// some 670 PyTorch operations for the same step on the split path, and
-// one Python call. The intermediates live in a scratch buffer of 10 H
-// values per row (6 MB at the served shapes) and an f32 split-K workspace;
-// both stay in L2.
+// launches per layer, each sized for occupancy: LN1, the QKV GEMM, the
+// attention (Bk x heads blocks), the output GEMM with the residual in its
+// epilogue, LN2, the c_fc GEMM with gelu_new in its epilogue, the c_proj
+// GEMM with the residual. GEMMs run on the tensor cores (`wgmma` fed by
+// TMA, f32 sums; common.cuh): 320 rows are five 64-row tiles with no
+// padding row, whose blocks run at the same time and share each weight
+// tile through L2, so a weight byte leaves device memory once a step; the
+// three GEMMs over K = 768 are not split, c_proj (K = 3072, 30 tiles) is
+// split four ways inside one launch (a cluster per tile). So 84 launches a
+// step at L = 12, at any batch, against some 670 PyTorch operations for
+// the same step on the split path, and one Python call. The two LayerNorms
+// stay launches of their own (about 3.5 us each on an H100). Inside the
+// GEMM that reads them (its 64 rows of A resident in shared memory,
+// normalised in place by the consumer warpgroup before the first product)
+// they measured slower: 14.9 and 17.8 us a GEMM against 7.0 and 9.3 us
+// plus the LayerNorm's 3.6, because no product can start before all of A
+// has arrived and four warps have walked sixteen rows each, and every one
+// of the 18 to 24 column tiles repeats that. The LayerNorm and GEMM
+// launches are programmatic dependent launches (common.cuh): each starts
+// under the tail of the one before, sets up and asks for its first weight
+// tiles, and only then waits for that kernel's output; the attention is
+// launched in plain stream order. The intermediates live in a
+// scratch buffer of 10 H values per row (6 MB at the served shapes), which
+// the wrapper keeps from call to call (the GEMM's TMA descriptors are kept
+// per operand address); it stays in L2.
 
 #include "beam_attention.cuh"
 
 namespace {
 
 template <typename T>
-cudaError_t launch(void* out_p, void* scratch, float* ws, int64_t ws_floats,
-                   const void* x_p, const void* wqkv_p, const void* bqkv_p,
-                   const void* wo_p, const void* bo_p, const float* g1,
+cudaError_t launch(void* out_p, void* scratch, const void* x_p,
+                   const void* wqkv_p, const void* bqkv_p, const void* wo_p,
+                   const void* bo_p, const float* g1,
                    const float* b1, const float* g2, const float* b2,
                    const void* wfc_p, const void* bfc_p, const void* wpj_p,
                    const void* bpj_p,
@@ -81,7 +94,7 @@ cudaError_t launch(void* out_p, void* scratch, float* ws, int64_t ws_floats,
                               Bk, H, eps, stream));
     PORT_TRY(port::dense(qkv, 3 * H, h, H, wqkv + l * 3 * H2, H,
                          bqkv + (int64_t)l * 3 * H, (const T*)nullptr, 0, Bk,
-                         3 * H, H, port::kBias, ws, ws_floats, stream));
+                         3 * H, H, port::kBias, true, stream));
     PORT_TRY(port::beam_attention<T>(
         att, qkv, qkv + H, qkv + 2 * H, 3 * H,
         static_cast<T*>(k_caches) + cache_off,
@@ -90,17 +103,15 @@ cudaError_t launch(void* out_p, void* scratch, float* ws, int64_t ws_floats,
         P ? static_cast<const T*>(prefix_v) + pre_off : nullptr, anc, Bk, K,
         S, P, H, NH, pos, scale, stream));
     PORT_TRY(port::dense(x1, H, att, H, wo + l * H2, H, bo + (int64_t)l * H,
-                         x, H, Bk, H, H, port::kBiasResidual, ws, ws_floats,
-                         stream));
+                         x, H, Bk, H, H, port::kBiasResidual, true, stream));
     PORT_TRY(port::layer_norm(h, x1, g2 + (int64_t)l * H, b2 + (int64_t)l * H,
                               Bk, H, eps, stream));
     PORT_TRY(port::dense(u, 4 * H, h, H, wfc + l * 4 * H2, H,
                          bfc + (int64_t)l * 4 * H, (const T*)nullptr, 0, Bk,
-                         4 * H, H, port::kBiasGeluNew, ws, ws_floats,
-                         stream));
+                         4 * H, H, port::kBiasGeluNew, true, stream));
     PORT_TRY(port::dense(out, H, u, 4 * H, wpj + l * 4 * H2, 4 * H,
                          bpj + (int64_t)l * H, x1, H, Bk, H, 4 * H,
-                         port::kBiasResidual, ws, ws_floats, stream));
+                         port::kBiasResidual, true, stream));
     x = out;
   }
   return cudaSuccess;
@@ -111,14 +122,12 @@ cudaError_t launch(void* out_p, void* scratch, float* ws, int64_t ws_floats,
 // Plain C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16
 // (of x, the Dense weights and biases, the caches and the prefix; the
 // LayerNorm gamma/beta g1, b1, g2, b2 [L, H] are float32 always). scratch
-// holds Bk * 10 * H values of the working type, ws an f32 workspace of
-// ws_floats values for split-K partial sums. prefix_k/prefix_v may be null
+// holds Bk * 10 * H values of the working type. prefix_k/prefix_v may be null
 // when P == 0; anc may be null (all zeros). Returns the first cudaError_t
 // of the step's launches (0 = success).
 extern "C" int beam_decode_stack(
-    int dtype, int device, void* out, void* scratch, void* ws,
-    int64_t ws_floats, const void* x, const void* wqkv, const void* bqkv,
-    const void* wo, const void* bo,
+    int dtype, int device, void* out, void* scratch, const void* x,
+    const void* wqkv, const void* bqkv, const void* wo, const void* bo,
     const void* g1, const void* b1, const void* g2, const void* b2,
     const void* wfc, const void* bfc, const void* wpj, const void* bpj,
     void* k_caches, void* v_caches, const void* prefix_k,
@@ -131,14 +140,13 @@ extern "C" int beam_decode_stack(
   const float* c1 = static_cast<const float*>(b1);
   const float* f2 = static_cast<const float*>(g2);
   const float* c2 = static_cast<const float*>(b2);
-  float* wsf = static_cast<float*>(ws);
   if (dtype == 1) {
-    err = launch<__nv_bfloat16>(out, scratch, wsf, ws_floats, x, wqkv, bqkv,
-                                wo, bo, f1, c1, f2, c2, wfc, bfc, wpj, bpj,
+    err = launch<__nv_bfloat16>(out, scratch, x, wqkv, bqkv, wo, bo, f1, c1,
+                                f2, c2, wfc, bfc, wpj, bpj,
                                 k_caches, v_caches, prefix_k, prefix_v, anc,
                                 L, Bk, K, S, P, H, NH, pos, scale, eps, s);
   } else if (dtype == 0) {
-    err = launch<float>(out, scratch, wsf, ws_floats, x, wqkv, bqkv, wo, bo,
+    err = launch<float>(out, scratch, x, wqkv, bqkv, wo, bo,
                         f1, c1, f2, c2, wfc, bfc, wpj, bpj, k_caches,
                         v_caches, prefix_k, prefix_v, anc, L, Bk, K, S, P, H,
                         NH, pos, scale, eps, s);

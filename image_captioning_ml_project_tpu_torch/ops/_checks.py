@@ -1,10 +1,12 @@
 """What the port's CUDA wrappers check before a launch: every operand on
 the kernel's device, in its dtype, of its shape, contiguous, and 16-byte
-aligned where the tensor-core GEMM loads it in 16-byte chunks. Anything
+aligned where a kernel reads it in 16-byte pieces (the tensor-core GEMM
+through TMA and in its epilogue, the LayerNorm). Anything
 else raises; nothing is copied or converted to make it fit."""
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -53,12 +55,12 @@ def check_stack(stack: Dict[str, torch.Tensor], L: int, H: int, F: int,
                          f"{sorted(stack)}")
     for name, shape in stack_shapes(L, H, F).items():
         want = torch.float32 if name in LN_KEYS else dtype
-        check_tensor(name, stack[name], shape, want, device,
-                     aligned=name[0] == "w")
+        check_tensor(name, stack[name], shape, want, device, aligned=True)
 
 
 def check_widths(what: str, H: int, num_heads: int) -> None:
-    """The tensor-core GEMM reads rows in 8-value chunks."""
+    """The tensor-core GEMM reads and writes rows in 8-value (16-byte)
+    chunks."""
     if num_heads < 1 or H % num_heads:
         raise ValueError(f"width {H} does not split into {num_heads} heads")
     if H % 8:
@@ -66,12 +68,20 @@ def check_widths(what: str, H: int, num_heads: int) -> None:
                          f"of 8, got {H}")
 
 
-def splitk_workspace(rows: int, width: int,
-                     device: torch.device) -> torch.Tensor:
-    """The f32 workspace of the tensor-core GEMM's split-K partial sums
-    (csrc/common.cuh): 8 H values per row, enough for two K slices of the
-    4H-wide MLP GEMM, capped at 2^21 values (8 MB); the launcher splits no
-    further than this holds. Only GEMMs of few blocks split, which have few
-    rows."""
-    return torch.empty(min(8 * rows * width, 1 << 21), dtype=torch.float32,
-                       device=device)
+_scratch: Dict[tuple, torch.Tensor] = {}
+
+
+def scratch_buffer(what: str, shape: Tuple[int, ...], dtype: torch.dtype,
+                   device: torch.device, stream: int) -> torch.Tensor:
+    """A kernel's scratch tensor, kept per (kernel, shape, dtype, device,
+    stream, host thread) instead of allocated at every call: the
+    tensor-core GEMM (csrc/common.cuh) keeps one TMA descriptor per operand
+    address, and a layer loop's operands live in the scratch, so a steady
+    address means no descriptor is encoded after the first call. One
+    thread's launches on one stream run in order, so its buffer is never
+    shared by two calls in flight."""
+    key = (what, tuple(shape), dtype, device, stream, threading.get_ident())
+    buf = _scratch.get(key)
+    if buf is None:
+        buf = _scratch[key] = torch.empty(shape, dtype=dtype, device=device)
+    return buf

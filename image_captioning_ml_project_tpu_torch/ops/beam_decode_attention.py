@@ -32,8 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import load_library
-from ._checks import (DTYPES, check_dtype, check_tensor, check_widths,
-                      splitk_workspace)
+from ._checks import DTYPES, check_dtype, check_tensor, check_widths
 from .numerics import dense
 
 _SMEM_LIMIT = 48 * 1024  # default dynamic shared memory of one block
@@ -259,8 +258,7 @@ def _check_qkv(x, wqkv, bqkv, wo, bo, k_cache, v_cache, prefix_k, prefix_v,
 @functools.lru_cache(maxsize=None)
 def _qkv_kernel_fn():
     fn = load_library("beam_decode_attention_qkv").beam_decode_attention_qkv
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int64] + [ctypes.c_void_p] * 10
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 13
                    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -275,11 +273,9 @@ def _launch_qkv(x, wqkv, bqkv, wo, bo, k_cache, v_cache, prefix_k, prefix_v,
     out = torch.empty_like(x)
     qkv = torch.empty((Bk, 3 * H), dtype=x.dtype, device=x.device)
     att = torch.empty_like(x)
-    ws = splitk_workspace(Bk, H, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(DTYPES[x.dtype], x.device.index, out.data_ptr(),
-             qkv.data_ptr(), att.data_ptr(), ws.data_ptr(), ws.numel(),
-             x.data_ptr(), wqkv.data_ptr(),
+             qkv.data_ptr(), att.data_ptr(), x.data_ptr(), wqkv.data_ptr(),
              bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
              k_cache.data_ptr(), v_cache.data_ptr(), _ptr(prefix_k),
              _ptr(prefix_v), _ptr(anc_local), Bk, beam_size,

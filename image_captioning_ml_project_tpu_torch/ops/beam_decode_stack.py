@@ -12,9 +12,8 @@ last layer's residual stream, before ``ln_f``.
 
 :func:`beam_decode_stack` dispatches on the tensors' device: a CPU tensor
 takes :func:`beam_decode_stack_plain`; a CUDA tensor launches
-``csrc/beam_decode_stack.cu`` (one host call: seven launches per layer,
-and a reduction after each GEMM it splits over K; see the note there) or
-raises.
+``csrc/beam_decode_stack.cu`` (one host call: seven launches per layer;
+see the note there) or raises.
 """
 
 from __future__ import annotations
@@ -27,7 +26,7 @@ import torch
 
 from ._build import load_library
 from ._checks import (DTYPES, STACK_KEYS, check_dtype, check_stack,
-                      check_tensor, check_widths, splitk_workspace)
+                      check_tensor, check_widths, scratch_buffer)
 from .beam_decode_attention import _check_caches, beam_decode_attention_plain
 from .numerics import dense, gelu_new, layer_norm
 
@@ -89,8 +88,7 @@ def _check(x, stack, k_caches, v_caches, prefix_k, prefix_v, anc_local, pos,
 def _kernel_fn():
     """The library's C entry point, built and typed once per process."""
     fn = load_library("beam_decode_stack").beam_decode_stack
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int64] + [ctypes.c_void_p] * 18
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 20
                    + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -105,11 +103,11 @@ def _launch(x, stack, k_caches, v_caches, prefix_k, prefix_v, anc_local,
     Bk, H = x.shape
     L, _, S, _ = k_caches.shape
     out = torch.empty_like(x)
-    scratch = torch.empty((Bk, 10 * H), dtype=x.dtype, device=x.device)
-    ws = splitk_workspace(Bk, H, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    scratch = scratch_buffer("beam_decode_stack", (Bk, 10 * H), x.dtype,
+                             x.device, stream)
     err = fn(DTYPES[x.dtype], x.device.index, out.data_ptr(),
-             scratch.data_ptr(), ws.data_ptr(), ws.numel(), x.data_ptr(),
+             scratch.data_ptr(), x.data_ptr(),
              *(stack[k].data_ptr() for k in STACK_KEYS),
              k_caches.data_ptr(), v_caches.data_ptr(), prefix_k.data_ptr(),
              prefix_v.data_ptr(),

@@ -15,9 +15,8 @@ through it (the Pallas kernel has no VJP either).
 
 :func:`encoder_stack` dispatches on the tensor's device: a CPU tensor takes
 :func:`encoder_stack_plain`; a CUDA tensor launches
-``csrc/encoder_stack.cu`` (one host call: seven launches per layer, and a
-reduction after each GEMM it splits over K; see the note there) or
-raises.
+``csrc/encoder_stack.cu`` (one host call: seven launches per layer; see
+the note there) or raises.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ import torch
 
 from ._build import load_library
 from ._checks import (DTYPES, STACK_KEYS, check_dtype, check_stack,
-                      check_tensor, check_widths, splitk_workspace)
+                      check_tensor, check_widths, scratch_buffer)
 from .numerics import dense, layer_norm, quick_gelu_f32
 
 
@@ -90,8 +89,7 @@ def _check(x, stack, num_heads):
 def _kernel_fn():
     """The library's C entry point, built and typed once per process."""
     fn = load_library("encoder_stack").encoder_stack
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int64] + [ctypes.c_void_p] * 13
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 15
                    + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -103,11 +101,11 @@ def _launch(x, stack, num_heads, eps):
     fn = _kernel_fn()
     B, T, H = x.shape
     out = torch.empty_like(x)
-    scratch = torch.empty((B * T, 6 * H + F), dtype=x.dtype, device=x.device)
-    ws = splitk_workspace(B * T, H, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    scratch = scratch_buffer("encoder_stack", (B * T, 6 * H + F), x.dtype,
+                             x.device, stream)
     err = fn(DTYPES[x.dtype], x.device.index, out.data_ptr(),
-             scratch.data_ptr(), ws.data_ptr(), ws.numel(), x.data_ptr(),
+             scratch.data_ptr(), x.data_ptr(),
              *(stack[k].data_ptr() for k in STACK_KEYS),
              L, B, T, H, num_heads, F,
              float(1.0 / (H // num_heads) ** 0.5), float(eps), stream)

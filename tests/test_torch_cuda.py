@@ -1,6 +1,7 @@
 """The port's hand-written kernels on the card, against their plain PyTorch
 versions: beam-decode attention, folded-QKV attention, the whole-stack
-GPT-2 decode step, the whole-stack CLIP encoder, the Transformer decoder's
+GPT-2 decode step, the whole-stack CLIP encoder, the Dense GEMM they share
+by itself, the Transformer decoder's
 cross-attention step, the attention variants' SDPA and additive scores
 (CUDA C++), and LSE/block-max (Triton); then a tiny model's decode on the
 card against the same decode on the CPU, on each decode configuration of
@@ -33,6 +34,7 @@ from image_captioning_ml_project_tpu_torch.ops import beam_decode_attention \
     as bda
 from image_captioning_ml_project_tpu_torch.ops import beam_decode_stack as bds
 from image_captioning_ml_project_tpu_torch.ops import cross_attention as ca
+from image_captioning_ml_project_tpu_torch.ops import dense_layer as dl
 from image_captioning_ml_project_tpu_torch.ops import encoder_stack as es
 from image_captioning_ml_project_tpu_torch.ops import additive_scores as adds
 from image_captioning_ml_project_tpu_torch.ops import lse as port_lse
@@ -216,6 +218,8 @@ def test_attention_qkv_kernel_matches_plain(dev, dtype, B, K, S, P, NH, H,
     (6, 64, 5, 20, 10, 8, 768, 19, True),     # JAX default: head dim 96
     (2, 4, 3, 9, 2, 4, 64, 0, True),          # first step, small
     (3, 3, 1, 7, 3, 2, 48, 5, False),         # K=1, no ancestry
+    (1, 1, 5, 20, 10, 12, 768, 7, True),      # bucket 1 at full width: 5 rows
+    (1, 8, 5, 20, 10, 12, 768, 7, True),      # bucket 8: 40 rows
 ])
 def test_stack_kernel_matches_plain(dev, dtype, L, B, K, S, P, NH, H, pos,
                                     anc):
@@ -250,6 +254,10 @@ def test_stack_kernel_matches_plain(dev, dtype, L, B, K, S, P, NH, H, pos,
     (12, 64, 50, 12, 768),  # served: CLIP ViT-B/32 at 224x224
     (2, 3, 7, 4, 64),       # few tokens, ragged tiles
     (1, 2, 80, 2, 128),     # attention above 48 KB of shared memory
+    (1, 1, 50, 12, 768),    # bucket 1 at full width: 50 rows
+    (1, 8, 50, 12, 768),    # bucket 8: 400 rows
+    (1, 2, 64, 2, 128),     # heads of 64: a full tensor-core token tile
+    (1, 3, 33, 2, 128),     # and a ragged one
 ])
 def test_encoder_kernel_matches_plain(dev, dtype, L, B, T, NH, H):
     g = torch.Generator().manual_seed(T)
@@ -263,6 +271,45 @@ def test_encoder_kernel_matches_plain(dev, dtype, L, B, T, NH, H):
     torch.cuda.synchronize()
     assert es.encoder_stack.launches == before + 1
     _close(got, want, dtype, 1e-4, 8)
+
+
+# the Dense GEMM (csrc/common.cuh) at every (M, N, K) the two whole-stack
+# kernels give it (encoder rows 50 / 400 / 3200, decoder rows 5 / 40 / 320
+# for buckets 1 / 8 / 64; QKV, output projection, MLP in and out at width
+# 768) and at ragged ones
+_DENSE_SHAPES = [(M, N, K) for M in (5, 40, 320, 50, 400, 3200)
+                 for N, K in ((2304, 768), (768, 768), (3072, 768),
+                              (768, 3072))]
+_DENSE_SHAPES += [(1, 72, 776), (63, 72, 776), (65, 768, 776),
+                  (321, 72, 768), (321, 2304, 776)]
+
+
+@pytest.mark.parametrize("epilogue", list(dl.EPILOGUES))
+@pytest.mark.parametrize("M,N,K", _DENSE_SHAPES)
+def test_dense_gemm_matches_plain(dev, M, N, K, epilogue):
+    """bf16 within 2 ulps of the largest output; two runs on the same
+    inputs bit-identical (the split over K adds in a fixed order)."""
+    g = torch.Generator().manual_seed(M + N + K)
+    x = torch.randn((M, K), generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn((N, K), generator=g) * 0.02).to(dev, torch.bfloat16)
+    b = (torch.randn((N,), generator=g) * 0.02).to(dev, torch.bfloat16)
+    r = torch.randn((M, N), generator=g).to(dev, torch.bfloat16) \
+        if epilogue == "residual" else None
+    got = dl.dense_layer(x, w, b, r, epilogue)
+    again = dl.dense_layer(x, w, b, r, epilogue)
+    want = dl.dense_layer_plain(x, w, b, r, epilogue)
+    torch.cuda.synchronize()
+    _close(got, want, torch.bfloat16, 0.0, 2)
+    assert torch.equal(got, again)
+
+
+def test_dense_gemm_float32_matches_plain(dev):
+    g = torch.Generator().manual_seed(5)
+    x, w = (torch.randn(s, generator=g).to(dev) for s in ((65, 72), (40, 72)))
+    b = torch.randn((40,), generator=g).to(dev)
+    got = dl.dense_layer(x, w, b, epilogue="gelu_new")
+    _close(got, dl.dense_layer_plain(x, w, b, epilogue="gelu_new"),
+           torch.float32, 1e-5, 0)
 
 
 def test_fused_kernels_raise_on_what_they_do_not_take(dev):
