@@ -4,6 +4,7 @@
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --time-tree DIR   # phase 3's sweep only, for DIR
 
 Phases, each reported on its own lines; any failure exits non-zero and
 prints no result line:
@@ -22,11 +23,18 @@ prints no result line:
    10000, 30000 and 50257; SDPA and the additive scores at the LSTM's 64
    images x 5 beams over 49 feature rows, masked and not, and at its
    teacher-forced 20 positions), in float32 and bfloat16, with its
-   tolerance, and both timed (CUDA events, median of 30 runs), beside the
-   least time the card could take for the same work (``bound_ms``: the
-   larger of the bytes over 3.35 TB/s and the operations over the peak
-   rate of their type) and, where one PyTorch call computes the same
-   function, that call's time (``library_ms``). Before them, the Dense
+   tolerance, and timed in bf16 (CUDA events, median of 30 runs; the
+   device time behind a spin kernel), beside the least time the card could
+   take for the same work (``bound_ms``: the larger of the bytes over 3.35
+   TB/s and the operations over the peak rate of their type) and, where
+   one PyTorch call computes the same function, that call's time
+   (``library_ms``). The four decode-step kernels (#1 and #2 prefix-free
+   and behind the prefix, #3, #6) are held against their plain versions
+   again and timed at batch 1, 8 and 64, the service's buckets
+   (:func:`sweep_decode_kernels`; ``--time-tree DIR``
+   runs only that sweep, on the package of another tree, so that two
+   trees compare inside one run); then the beam attention's ancestry
+   error word must be clear. Before them, the Dense
    GEMM that the three layer kernels share (``csrc/common.cuh``: ``wgmma``
    fed by TMA) by itself against ``ops/numerics.dense`` and each epilogue,
    at every (M, N, K) the whole-stack kernels give it and at ragged ones,
@@ -43,13 +51,15 @@ prints no result line:
    encoder fold, timed in turns;
 6. serve: ``CaptionService`` at full width on the card, bf16 weights from
    the seed, beam 5, max length 20, batch 64, buckets 1/8/64, behind its
-   HTTP front end. First the LSTM family, this slice's path — ResNet-101
+   HTTP front end. Each configuration first serves one untimed round of 64
+   on its own switches (a warm-up, before its counters are set to 0), then
+   its timed rounds. First the LSTM family — ResNet-101
    + 6-layer LSTM (width 512, vocab 10000): with soft attention through
    its kernel (``--config lstm``) one round of 64 concurrent requests and
    three single ones; then one round of 64 with multi-head attention
    through its kernel, and one with soft attention and ``use_pallas``
    off. Then ViT-B/16 + 6-layer Transformer decoder (width 768, 12 heads,
-   vocab 30000): on its default (fold) configuration one round of 64 and
+   vocab 30000): on its default (fold) configuration three rounds of 64 and
    three single requests; then one round of 64 with ``ICT_DECODE_FOLD=0``
    (split). Then CLIP ViT-B/32 + GPT-2 (12 layers, width 768, vocab
    50257): on the default configuration three rounds of 64 and three
@@ -58,7 +68,8 @@ prints no result line:
    must be captioned, and the launch counters, set to 0 just before each
    configuration's rounds and read just after, must show that every
    decode step (and layer) and every encoded batch went through the
-   kernels, and that no other kernel ran.
+   kernels, and that no other kernel ran; the ancestry error word is read
+   after each configuration and must be clear.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Each kernel's entry holds its numbers
@@ -200,7 +211,9 @@ def shape_entry(shape, err, ms, plain_ms, bnd, library_ms=None,
                 plain_ms=plain_ms, **bnd, library_ms=library_ms)
 
 
-def check_attention(torch, dev, results):
+def check_attention(torch, dev):
+    """#1 against its plain version at the served shapes, pos 0, 7 and 19,
+    f32 and bf16; returns the worst bf16 error per family."""
     from image_captioning_ml_project_tpu_torch.ops.beam_decode_attention import (
         beam_decode_attention, beam_decode_attention_plain)
 
@@ -208,10 +221,9 @@ def check_attention(torch, dev, results):
     Bk = B * K
     scale = 1.0 / (H // NH) ** 0.5
     g = torch.Generator(device=dev).manual_seed(1234)
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    out = {}
+    worst = {}
     for family, P in ATTENTION_SHAPES:
-        worst_bf16, timing = 0.0, {}
+        worst[family] = 0.0
         for dtype in (torch.float32, torch.bfloat16):
             def randn(*shape):
                 return torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -238,34 +250,14 @@ def check_attention(torch, dev, results):
                 else:
                     tol = 2 * bf16_ulp(want.float())
                     ok = err <= tol
-                    worst_bf16 = max(worst_bf16, err)
+                    worst[family] = max(worst[family], err)
                 caches_equal = torch.equal(kc1, kc2) and torch.equal(vc1, vc2)
                 what = f"attention {str(dtype)[6:]} P={P} pos={pos}"
                 print(f"{what}: max_abs_err={err:.3e} (tol {tol:.3e}), "
                       f"caches bit-identical={caches_equal}", flush=True)
                 check(ok, f"{what}: error {err} > {tol}")
                 check(caches_equal, f"{what}: caches differ")
-                if dtype == torch.bfloat16:
-                    ms, dev_ms = time_ms(torch, lambda: beam_decode_attention(
-                        q, kn, vn, kc1, vc1, pk, pv, anc, pos, **args),
-                        flush=flush, device=True)
-                    plain_ms = time_ms(
-                        torch, lambda: beam_decode_attention_plain(
-                            q, kn, vn, kc2, vc2, pk, pv, anc, pos, **args),
-                        flush=flush)
-                    nbytes, ops = attention_work(torch, anc, pos, B, K, H, P,
-                                                 2)
-                    timing[pos] = (ms, plain_ms, bound(
-                        nbytes + 4 * Bk * H * 2, {"f32": ops}), None, dev_ms)
-                    print(f"attention bf16 P={P} pos={pos}: kernel {ms:.4f} "
-                          f"ms, plain {plain_ms:.4f} ms (L2 flushed before "
-                          f"each run)", flush=True)
-        # no one PyTorch call reads a cache through a beam ancestry and
-        # appends
-        out[family] = shape_entry(
-            f"B={B} K={K} S={S} H={H} P={P} pos=19 bf16", worst_bf16,
-            *timing[19])
-    results["beam_decode_attention"] = out
+    return worst
 
 
 def check_lse(torch, dev, results):
@@ -423,7 +415,8 @@ def check_dense(torch, dev):
                   f"TFLOP/s; L2 warm)", flush=True)
 
 
-def check_attention_qkv(torch, dev, results):
+def check_attention_qkv(torch, dev):
+    """#2 against its plain version, as :func:`check_attention`."""
     from image_captioning_ml_project_tpu_torch.ops.beam_decode_attention import (
         beam_decode_attention_qkv, beam_decode_attention_qkv_plain)
 
@@ -431,10 +424,9 @@ def check_attention_qkv(torch, dev, results):
     Bk = B * K
     scale = 1.0 / (H // NH) ** 0.5
     g = torch.Generator(device=dev).manual_seed(2345)
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     out = {}
     for family, P in ATTENTION_SHAPES:
-        worst, timing = 0.0, {}
+        worst = 0.0
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype)[6:]
             w = _dense_weights(torch, g, dev, dtype, 1, H, 4 * H)
@@ -466,29 +458,13 @@ def check_attention_qkv(torch, dev, results):
                                    1e-5, 1)
                 if dtype == torch.bfloat16:
                     worst = max(worst, err)
-                    ms, dev_ms = time_ms(
-                        torch, lambda: beam_decode_attention_qkv(
-                            x, *ws, kc1, vc1, pk, pv, anc, pos, **args),
-                        flush=flush, device=True)
-                    plain_ms = time_ms(
-                        torch, lambda: beam_decode_attention_qkv_plain(
-                            x, *ws, kc2, vc2, pk, pv, anc, pos, **args),
-                        flush=flush)
-                    nbytes, ops = attention_work(torch, anc, pos, B, K, H, P,
-                                                 2)
-                    nbytes += (2 * Bk * H + 4 * H * H + 4 * H) * 2
-                    timing[pos] = (ms, plain_ms, bound(nbytes, {
-                        "f32": ops, "bf16_tensor": 8 * Bk * H * H}), None,
-                        dev_ms)
-                    print(f"attention_qkv bf16 P={P} pos={pos}: kernel "
-                          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (L2 flushed "
-                          f"before each run)", flush=True)
-        out[family] = shape_entry(
-            f"B={B} K={K} S={S} H={H} P={P} pos=19 bf16", worst, *timing[19])
-    results["beam_decode_attention_qkv"] = out
+        out[family] = worst
+    return out
 
 
-def check_stack(torch, dev, results):
+def check_stack(torch, dev):
+    """#3 against its plain version, as :func:`check_attention`; then the
+    host's enqueue time of one call."""
     from image_captioning_ml_project_tpu_torch.ops.beam_decode_stack import (
         beam_decode_stack, beam_decode_stack_plain)
 
@@ -496,7 +472,7 @@ def check_stack(torch, dev, results):
     Bk = B * K
     scale = 1.0 / (H // NH) ** 0.5
     g = torch.Generator(device=dev).manual_seed(3456)
-    worst, timing = 0.0, {}
+    worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         w = _dense_weights(torch, g, dev, dtype, L, H, 4 * H)
@@ -524,19 +500,6 @@ def check_stack(torch, dev, results):
                                1e-4, 8)
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
-                ms, dev_ms = time_ms(torch, lambda: beam_decode_stack(
-                    x, w, kc1, vc1, pk, pv, anc, pos, **args), device=True)
-                plain_ms = time_ms(torch, lambda: beam_decode_stack_plain(
-                    x, w, kc2, vc2, pk, pv, anc, pos, **args))
-                nbytes, ops = attention_work(torch, anc, pos, B, K, H, P, 2,
-                                             layers=L)
-                nbytes += stack_bytes(w) + 2 * Bk * H * 2
-                timing[pos] = (ms, plain_ms, bound(nbytes, {
-                    "f32": ops, "bf16_tensor": L * 24 * Bk * H * H}), None,
-                    dev_ms)
-                print(f"stack bf16 pos={pos}: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms (170 MB of weights per step: above "
-                      f"L2, no flush)", flush=True)
     host = []
     for _ in range(10):  # the host's share of one call: the device is idle
         torch.cuda.synchronize()
@@ -546,9 +509,7 @@ def check_stack(torch, dev, results):
     torch.cuda.synchronize()
     print(f"stack bf16: host enqueue of one call (7 launches x {L} layers) "
           f"{statistics.median(host):.4f} ms", flush=True)
-    results["beam_decode_stack"] = {"flagship": shape_entry(
-        f"L={L} B={B} K={K} S={S} H={H} P={P} pos=19 bf16", worst,
-        *timing[19])}
+    return {"flagship": worst}
 
 
 def check_encoder(torch, dev, results):
@@ -587,13 +548,11 @@ def check_encoder(torch, dev, results):
                "f32": L * 4 * B * T * T * H}), device_ms=dev_ms)}
 
 
-def check_cross(torch, dev, results):
-    """The Transformer decoder's cross-attention step at the served shapes
-    (64 images x 5 beams, 12 heads, width 768, 196 memory rows), masked and
-    unmasked, against its plain version; timed in bf16 beside
-    ``scaled_dot_product_attention`` on the same inputs in their layouts."""
-    from torch.profiler import ProfilerActivity, profile
-
+def check_cross(torch, dev):
+    """#6, the Transformer decoder's cross-attention step, at the served
+    shapes (64 images x 5 beams, 12 heads, width 768, 196 memory rows),
+    masked and unmasked, against its plain version; returns the worst bf16
+    error."""
     from image_captioning_ml_project_tpu_torch.ops.cross_attention import (
         cross_attention, cross_attention_plain)
 
@@ -601,7 +560,6 @@ def check_cross(torch, dev, results):
     hd = H // NH
     kw = dict(num_heads=NH, beam_size=K, scale=1.0 / hd ** 0.5)
     g = torch.Generator(device=dev).manual_seed(5678)
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
@@ -621,41 +579,156 @@ def check_cross(torch, dev, results):
                               got, want, name, 1e-5, 2)
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
-    ms, dev_ms = time_ms(torch, lambda: cross_attention(q, mkt, mv, mask,
-                                                        **kw),
-                         flush=flush, device=True)
-    plain_ms = time_ms(torch, lambda: cross_attention_plain(
-        q, mkt, mv, mask, **kw), flush=flush)
-    # the one PyTorch call: q [B, NH, K, hd], keys viewed from mem_kt
-    # (strided: hd is not the contiguous axis), values viewed from mem_v,
-    # the mask as SDPA's (True = attend)
-    q4 = q.view(B, K, NH, hd).transpose(1, 2)
-    k4 = mkt.view(B, NH, hd, Sm).transpose(2, 3)
-    v4 = mv.view(B, Sm, NH, hd).transpose(1, 2)
-    attend = ~mask[:, None, None, :]
+    return {"transformer": worst}
 
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=attend, scale=kw["scale"])
 
-    lib_ms = time_ms(torch, sdpa, flush=flush)
-    sdpa_err = max_err(sdpa().transpose(1, 2).reshape(B * K, H),
-                       cross_attention_plain(q, mkt, mv, mask, **kw))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sdpa()
+# the batches the service's buckets give the decode-step kernels
+SWEEP_BATCHES = (1, 8, 64)
+
+
+def sweep_decode_kernels(torch, dev, smi):
+    """#1 and #2 (prefix-free and behind GPT-2's 10-row prefix), #3 and #6
+    at batch 1, 8 and 64, bf16, pos 19 of 20: each first held against its
+    plain version on the same inputs with the tolerances of the checks
+    above (a mismatch fails the run), then the device time, the event
+    time, the bound, the plain version's time and, for #6, SDPA's time on
+    the same inputs in their layouts (timed only). The inputs of #1, #2 and
+    #6 are flushed from L2 before each run, as a decode step finds them
+    (#3's 170 MB of weights are above L2). Uses nothing but the kernels'
+    public wrappers, so that it can time an earlier tree's kernels too.
+    Returns {kernel: {family: {batch: shape_entry}}}."""
+    from image_captioning_ml_project_tpu_torch.ops.beam_decode_attention import (
+        beam_decode_attention, beam_decode_attention_plain,
+        beam_decode_attention_qkv, beam_decode_attention_qkv_plain)
+    from image_captioning_ml_project_tpu_torch.ops.beam_decode_stack import (
+        beam_decode_stack, beam_decode_stack_plain)
+    from image_captioning_ml_project_tpu_torch.ops.cross_attention import (
+        cross_attention, cross_attention_plain)
+
+    K, S, H, NH, L, Sm, pos = 5, 20, 768, 12, 12, 196, 19
+    hd = H // NH
+    scale = 1.0 / hd ** 0.5
+    args = dict(num_heads=NH, beam_size=K, scale=scale)
+    g = torch.Generator(device=dev).manual_seed(9012)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    dt = torch.bfloat16
+    out = {}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+
+    def record(kernel, family, B, shape, kern, plain, bnd, ulps, caches=(),
+               cache_ulps=None, flushed=True, library=None):
+        """Hold ``kern`` against ``plain`` on the same inputs, then time
+        both. Each appends to ``caches`` in place: the kernel's output is
+        held within ``ulps`` bf16 ulps of the plain version's, its caches
+        bit-identical to the plain version's (``cache_ulps`` None) or, where
+        the kernel's own QKV GEMM made the appended rows, bit-identical but
+        at ``pos`` and within ``cache_ulps`` there."""
+        what = f"sweep {kernel} {family} B={B}"
+        before = [c.clone() for c in caches]
+        got = kern()
+        got_caches = [c.clone() for c in caches]
+        for c, b in zip(caches, before):
+            c.copy_(b)
+        want = plain()
         torch.cuda.synchronize()
-    launched = sorted({e.key[:60] for e in prof.key_averages()
-                       if e.self_device_time_total > 0})
-    print(f"cross_attention bf16 [{B}x{K}, {H}] x {Sm} memory rows: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
-          f"(L2 flushed before each run); SDPA's max_abs_err against the "
-          f"plain version {sdpa_err:.3e}; SDPA's device kernels {launched}",
-          flush=True)
-    nbytes = (2 * B * K * H + 2 * B * Sm * H) * 2 + B * Sm
-    results["cross_attention"] = {"transformer": shape_entry(
-        f"B={B} K={K} H={H} Sm={Sm} masked bf16", worst, ms, plain_ms,
-        bound(nbytes, {"f32": 4 * B * K * Sm * H}), lib_ms, dev_ms)}
+        if isinstance(got, tuple):
+            got, want = got[0], want[0]
+        err = check_close(what, got, want, "bfloat16", None, ulps)
+        for name, a, b, o in zip("kv", got_caches, caches, before):
+            if cache_ulps is None:
+                check(torch.equal(a, b), f"{what}: {name} caches differ from "
+                                         f"the plain version's")
+            else:
+                check_appended(f"{what} {name}_cache", a, b, o, pos,
+                               "bfloat16", None, cache_ulps)
+        del before, got_caches
+        ms, dev_ms = time_ms(torch, kern, flush=flush if flushed else None,
+                             device=True)
+        plain_ms = time_ms(torch, plain, flush=flush if flushed else None)
+        lib_ms = (time_ms(torch, library, flush=flush)
+                  if library is not None else None)
+        entry = shape_entry(shape, err, ms, plain_ms, bnd, lib_ms, dev_ms)
+        out.setdefault(kernel, {}).setdefault(family, {})[B] = entry
+        lib = f", SDPA {lib_ms:.4f} ms" if lib_ms is not None else ""
+        print(f"{what}: device {dev_ms:.4f} ms, event {ms:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain "
+              f"{plain_ms:.4f} ms{lib} [{smi}]", flush=True)
+
+    for B in SWEEP_BATCHES:
+        Bk = B * K
+        anc = torch.randint(0, K, (Bk, S), generator=g, device=dev,
+                            dtype=torch.int32)
+        w1 = _dense_weights(torch, g, dev, dt, 1, H, 4 * H)
+        ws = (w1["wqkv"][0], w1["bqkv"][0], w1["wo"][0], w1["bo"][0])
+        for family, P in ATTENTION_SHAPES:
+            q, kn, vn, x = (randn(Bk, H) for _ in range(4))
+            kc, vc = randn(Bk, S, H), randn(Bk, S, H)
+            pk, pv = (randn(B, P, H), randn(B, P, H)) if P else (None, None)
+            nbytes, ops = attention_work(torch, anc, pos, B, K, H, P, 2)
+            shape = f"B={B} K={K} S={S} H={H} P={P} pos={pos} bf16"
+            record("beam_decode_attention", family, B, shape,
+                   lambda: beam_decode_attention(q, kn, vn, kc, vc, pk, pv,
+                                                 anc, pos, **args),
+                   lambda: beam_decode_attention_plain(
+                       q, kn, vn, kc, vc, pk, pv, anc, pos, **args),
+                   bound(nbytes + 4 * Bk * H * 2, {"f32": ops}), 2,
+                   caches=(kc, vc))
+            record("beam_decode_attention_qkv", family, B, shape,
+                   lambda: beam_decode_attention_qkv(x, *ws, kc, vc, pk, pv,
+                                                     anc, pos, **args),
+                   lambda: beam_decode_attention_qkv_plain(
+                       x, *ws, kc, vc, pk, pv, anc, pos, **args),
+                   bound(nbytes + (2 * Bk * H + 4 * H * H + 4 * H) * 2,
+                         {"f32": ops, "bf16_tensor": 8 * Bk * H * H}), 4,
+                   caches=(kc, vc), cache_ulps=1)
+        P = 10
+        w = _dense_weights(torch, g, dev, dt, L, H, 4 * H)
+        x = randn(Bk, H)
+        kc, vc = randn(L, Bk, S, H), randn(L, Bk, S, H)
+        pk, pv = randn(L, B, P, H), randn(L, B, P, H)
+        nbytes, ops = attention_work(torch, anc, pos, B, K, H, P, 2, layers=L)
+        record("beam_decode_stack", "flagship", B,
+               f"L={L} B={B} K={K} S={S} H={H} P={P} pos={pos} bf16",
+               lambda: beam_decode_stack(x, w, kc, vc, pk, pv, anc, pos,
+                                         **args),
+               lambda: beam_decode_stack_plain(x, w, kc, vc, pk, pv, anc,
+                                               pos, **args),
+               bound(nbytes + stack_bytes(w) + 2 * Bk * H * 2,
+                     {"f32": ops, "bf16_tensor": L * 24 * Bk * H * H}), 8,
+               caches=(kc, vc), cache_ulps=8, flushed=False)
+        del w, kc, vc
+        q = randn(Bk, H)
+        mkt, mv = randn(B, H, Sm), randn(B, Sm, H)
+        mask = torch.rand((B, Sm), generator=g, device=dev) < 0.25
+        mask[:, 0] = False
+        # the one PyTorch call: q [B, NH, K, hd], keys viewed from mem_kt
+        # (strided: hd is not the contiguous axis), values viewed from
+        # mem_v, the mask as SDPA's (True = attend)
+        q4 = q.view(B, K, NH, hd).transpose(1, 2)
+        k4 = mkt.view(B, NH, hd, Sm).transpose(2, 3)
+        v4 = mv.view(B, Sm, NH, hd).transpose(1, 2)
+        attend = ~mask[:, None, None, :]
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=attend, scale=scale)
+
+        kw = dict(num_heads=NH, beam_size=K, scale=scale)
+        record("cross_attention", "transformer", B,
+               f"B={B} K={K} H={H} Sm={Sm} masked bf16",
+               lambda: cross_attention(q, mkt, mv, mask, **kw),
+               lambda: cross_attention_plain(q, mkt, mv, mask, **kw),
+               bound((2 * Bk * H + 2 * B * Sm * H) * 2 + B * Sm,
+                     {"f32": 4 * Bk * Sm * H}), 2,
+               library=sdpa)
+        if B == SWEEP_BATCHES[-1]:
+            sdpa_err = max_err(sdpa().transpose(1, 2).reshape(Bk, H),
+                               cross_attention_plain(q, mkt, mv, mask, **kw))
+            print(f"cross_attention B={B}: SDPA's max_abs_err against the "
+                  f"plain version {sdpa_err:.3e}", flush=True)
+    return out
 
 
 # the attention variants' shapes on the LSTM family's served path: 64 images
@@ -1007,7 +1080,7 @@ def serve(torch, dev, cfg, tree, smi, plan):
     server.start()
     g = torch.Generator().manual_seed(cfg.seed)
     size = cfg.image_size
-    need = sum(64 * rounds + singles for _, _, rounds, singles in plan)
+    need = sum(64 * (rounds + 1) + singles for _, _, rounds, singles in plan)
     images = torch.randint(0, 256, (need, size, size, 3), generator=g,
                            dtype=torch.uint8).numpy()
     served = {}
@@ -1030,6 +1103,7 @@ def serve(torch, dev, cfg, tree, smi, plan):
             t0 = time.perf_counter()
             captions.append(service.submit(img))
             single_s.append(time.perf_counter() - t0)
+        check_ancestry(dev, name)
         run = {"captions": captions,
                "steps": service.stats.decode_steps - steps0,
                "batches": service.stats.batches - batches0,
@@ -1059,6 +1133,13 @@ def serve(torch, dev, cfg, tree, smi, plan):
         lo = 0
         for name, switches, rounds, singles in plan:
             set_switches(switches)
+            # one untimed round of 64 on these switches first, before the
+            # counters are set to 0: the timed rounds find this
+            # configuration's kernels loaded and its buffers allocated
+            warm = [service.submit_async(img) for img in images[lo:lo + 64]]
+            for r in warm:
+                service.result(r)
+            lo += 64
             served[name] = drive(name, rounds, singles, lo)
             lo += 64 * rounds + singles
         set_switches(CONFIGS[0][1])
@@ -1072,6 +1153,18 @@ def serve(torch, dev, cfg, tree, smi, plan):
         httpd.server_close()
         service.stop()
     return served
+
+
+def check_ancestry(dev, what):
+    """The beam attention's error word is clear: no launch on ``dev`` met
+    an ancestry entry outside [0, K) (read once per phase: a host sync)."""
+    from image_captioning_ml_project_tpu_torch.ops.beam_decode_attention import (
+        ancestry_fault)
+
+    fault = ancestry_fault(dev)
+    print(f"[{what}] ancestry error word clear={not fault}", flush=True)
+    check(not fault, f"[{what}] an ancestry entry outside [0, K) reached "
+                     f"the beam attention")
 
 
 def expect(run, want):
@@ -1112,7 +1205,7 @@ def serve_all(torch, dev, smi, trees):
     layers = cfg.model.decoder.num_layers
     runs = serve(torch, dev, cfg, tree, smi,
                  [(name, values, rounds, singles) for (name, values), rounds,
-                  singles in zip(TRANSFORMER_CONFIGS, (1, 1), (3, 0))])
+                  singles in zip(TRANSFORMER_CONFIGS, (3, 1), (3, 0))])
     tf_fold, tf_split = (runs[name] for name, _ in TRANSFORMER_CONFIGS)
     expect(tf_fold, {"cross_attention": tf_fold["steps"] * layers,
                      "beam_decode_attention_qkv": tf_fold["steps"] * layers,
@@ -1178,6 +1271,12 @@ LIBRARIES = ("beam_decode_attention", "beam_decode_attention_qkv",
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument(
+        "--time-tree", metavar="DIR",
+        help="only build the port's package found in DIR (an earlier tree "
+             "unpacked beside this one) and time its decode-step kernels "
+             "(phase 3's sweep), printing the numbers as one JSON line; for "
+             "comparisons inside one run on one card")
     args = parser.parse_args()
     try:
         import torch
@@ -1186,7 +1285,8 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
                  "false)")
-    sys.path.insert(0, ROOT)
+    root = os.path.realpath(args.time_tree) if args.time_tree else ROOT
+    sys.path.insert(0, root)
     try:
         from image_captioning_ml_project_tpu_torch.main import (
             flagship_config, lstm_config, transformer_config)
@@ -1197,9 +1297,9 @@ def main():
         sys.exit(f"chip_smoke: the port's package {PKG} is not beside this "
                  f"script: {e}")
     if not os.path.realpath(_build.__file__).startswith(
-            os.path.join(ROOT, PKG) + os.sep):
+            os.path.join(root, PKG) + os.sep):
         sys.exit(f"chip_smoke: {PKG} was imported from {_build.__file__}, "
-                 f"not from the checkout at {ROOT}")
+                 f"not from the checkout at {root}")
 
     try:
         phase("device")
@@ -1235,17 +1335,40 @@ def main():
             print(f"ptxas {name}: {len(regs)} kernels, registers "
                   f"{sorted(set(regs))}, spill bytes {spills}", flush=True)
 
+        if args.time_tree:
+            phase(f"decode-step kernels of {root}")
+            print(json.dumps({"tree": root, "sweep": sweep_decode_kernels(
+                torch, dev, smi)}), flush=True)
+            return
+
         phase("kernels vs plain")
         results = {}
-        check_attention(torch, dev, results)
+        worst = {"beam_decode_attention": check_attention(torch, dev)}
         check_lse(torch, dev, results)
         check_dense(torch, dev)
-        check_attention_qkv(torch, dev, results)
-        check_stack(torch, dev, results)
+        worst["beam_decode_attention_qkv"] = check_attention_qkv(torch, dev)
+        worst["beam_decode_stack"] = check_stack(torch, dev)
         check_encoder(torch, dev, results)
-        check_cross(torch, dev, results)
+        worst["cross_attention"] = check_cross(torch, dev)
         check_sdpa(torch, dev, results)
         check_additive(torch, dev, results)
+        # the decode-step kernels' errors and times at each bucket; the
+        # summary keeps batch 64's beside the worst bf16 error of the checks
+        # and of the sweep, the others under "batches"
+        for kernel, by_family in sweep_decode_kernels(torch, dev,
+                                                      smi).items():
+            results[kernel] = {}
+            for family, by_batch in by_family.items():
+                top = by_batch[SWEEP_BATCHES[-1]]
+                results[kernel][family] = dict(
+                    top, max_abs_err=max(worst[kernel][family],
+                                         top["max_abs_err"]), batches={
+                        B: {k: e[k] for k in ("max_abs_err", "ms",
+                                              "device_ms", "plain_ms",
+                                              "bound_ms", "library_ms")}
+                        for B, e in by_batch.items()
+                        if B != SWEEP_BATCHES[-1]})
+        check_ancestry(dev, "kernels")
 
         phase("reference")
         trees = {}

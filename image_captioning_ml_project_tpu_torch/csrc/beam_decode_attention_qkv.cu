@@ -20,7 +20,8 @@
 // QKV GEMM (5 x 18 tiles of 64 x 128 outputs on the tensor cores, `wgmma`
 // fed by TMA with f32 sums; see common.cuh), the attention of
 // beam_attention.cuh reading q/k/v in place from the GEMM's output (row
-// stride 3H, no split copies), and the output GEMM. The intermediates
+// stride 3H, no split copies), and the output GEMM; all three are
+// programmatic dependent launches (common.cuh). The intermediates
 // (qkv, att) are scratch buffers the wrapper allocates; they stay in L2
 // between the launches.
 
@@ -33,8 +34,9 @@ cudaError_t launch(void* out, void* qkv_s, void* att_s, const void* x,
                    const void* wqkv, const void* bqkv, const void* wo,
                    const void* bo, void* k_cache, void* v_cache,
                    const void* prefix_k, const void* prefix_v,
-                   const void* anc, int Bk, int K, int S, int P, int H,
-                   int NH, int pos, float scale, cudaStream_t stream) {
+                   const void* anc, void* anc_err, int Bk, int K, int S,
+                   int P, int H, int NH, int pos, float scale,
+                   cudaStream_t stream) {
   T* qkv = static_cast<T*>(qkv_s);
   T* att = static_cast<T*>(att_s);
   PORT_TRY(port::dense(qkv, 3 * H, static_cast<const T*>(x), H,
@@ -44,8 +46,8 @@ cudaError_t launch(void* out, void* qkv_s, void* att_s, const void* x,
   PORT_TRY(port::beam_attention<T>(
       att, qkv, qkv + H, qkv + 2 * H, 3 * H, static_cast<T*>(k_cache),
       static_cast<T*>(v_cache), static_cast<const T*>(prefix_k),
-      static_cast<const T*>(prefix_v), static_cast<const int32_t*>(anc), Bk,
-      K, S, P, H, NH, pos, scale, stream));
+      static_cast<const T*>(prefix_v), static_cast<const int32_t*>(anc),
+      static_cast<int*>(anc_err), Bk, K, S, P, H, NH, pos, scale, stream));
   return port::dense(static_cast<T*>(out), H, att, H,
                      static_cast<const T*>(wo), H, static_cast<const T*>(bo),
                      (const T*)nullptr, 0, Bk, H, H, port::kBias, true, stream);
@@ -55,25 +57,29 @@ cudaError_t launch(void* out, void* qkv_s, void* att_s, const void* x,
 
 // Plain C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
 // qkv_s [Bk, 3H] and att_s [Bk, H] are scratch; prefix_k/prefix_v may be null
-// when P == 0; anc may be null (all zeros). Returns the first cudaError_t
-// of the launches (0 = success).
+// when P == 0; anc may be null (all zeros); anc_err is the device int that an
+// ancestry entry outside [0, K) sets. Returns the first cudaError_t of the
+// launches (0 = success); cudaErrorInvalidValue (1) where the attention's
+// block would need more shared memory than the card offers (the caches are
+// then untouched: only the QKV GEMM, into scratch, was launched).
 extern "C" int beam_decode_attention_qkv(
     int dtype, int device, void* out, void* qkv_s, void* att_s, const void* x,
     const void* wqkv, const void* bqkv,
     const void* wo, const void* bo, void* k_cache, void* v_cache,
-    const void* prefix_k, const void* prefix_v, const void* anc, int Bk, int K,
-    int S, int P, int H, int NH, int pos, float scale, void* stream) {
+    const void* prefix_k, const void* prefix_v, const void* anc,
+    void* anc_err, int Bk, int K, int S, int P, int H, int NH, int pos,
+    float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     err = launch<__nv_bfloat16>(out, qkv_s, att_s, x, wqkv, bqkv, wo, bo,
                                 k_cache, v_cache, prefix_k,
-                                prefix_v, anc, Bk, K, S, P, H, NH, pos, scale,
-                                s);
+                                prefix_v, anc, anc_err, Bk, K, S, P, H, NH,
+                                pos, scale, s);
   } else if (dtype == 0) {
     err = launch<float>(out, qkv_s, att_s, x, wqkv, bqkv, wo, bo, k_cache,
-                        v_cache, prefix_k, prefix_v, anc, Bk, K,
+                        v_cache, prefix_k, prefix_v, anc, anc_err, Bk, K,
                         S, P, H, NH, pos, scale, s);
   } else {
     err = cudaErrorInvalidValue;

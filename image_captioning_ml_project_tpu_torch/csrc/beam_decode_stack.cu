@@ -25,16 +25,17 @@
 // 320 rows that is 5 blocks of 64 rows on 132 SMs, each re-reading all
 // 170 MB of weights. The design instead issues, from one host call, seven
 // launches per layer, each sized for occupancy: LN1, the QKV GEMM, the
-// attention (Bk x heads blocks), the output GEMM with the residual in its
-// epilogue, LN2, the c_fc GEMM with gelu_new in its epilogue, the c_proj
-// GEMM with the residual. GEMMs run on the tensor cores (`wgmma` fed by
-// TMA, f32 sums; common.cuh): 320 rows are five 64-row tiles with no
-// padding row, whose blocks run at the same time and share each weight
-// tile through L2, so a weight byte leaves device memory once a step; the
-// three GEMMs over K = 768 are not split, c_proj (K = 3072, 30 tiles) is
-// split four ways inside one launch (a cluster per tile). So 84 launches a
-// step at L = 12, at any batch, against some 670 PyTorch operations for
-// the same step on the split path, and one Python call. The two LayerNorms
+// attention (a block per image and head; beam_attention.cuh), the output
+// GEMM with the residual in its epilogue, LN2, the c_fc GEMM with gelu_new
+// in its epilogue, the c_proj GEMM with the residual. GEMMs run on the
+// tensor cores (`wgmma` fed by TMA, f32 sums; common.cuh): 320 rows are
+// five 64-row tiles with no padding row, whose blocks run at the same time
+// and share each weight tile through L2, so a weight byte leaves device
+// memory once a step; the three GEMMs over K = 768 are not split, c_proj
+// (K = 3072, 30 tiles) is split four ways inside one launch (a cluster per
+// tile). So 84 launches a step at L = 12, at any batch, against some 670
+// PyTorch operations for the same step on the split path, and one Python
+// call. The two LayerNorms
 // stay launches of their own (about 3.5 us each on an H100). Inside the
 // GEMM that reads them (its 64 rows of A resident in shared memory,
 // normalised in place by the consumer warpgroup before the first product)
@@ -44,8 +45,9 @@
 // of the 18 to 24 column tiles repeats that. The LayerNorm and GEMM
 // launches are programmatic dependent launches (common.cuh): each starts
 // under the tail of the one before, sets up and asks for its first weight
-// tiles, and only then waits for that kernel's output; the attention is
-// launched in plain stream order. The intermediates live in a
+// tiles, and only then waits for that kernel's output; the attention too,
+// which stages its cache and prefix rows before that wait (see
+// beam_attention.cuh for why that is safe). The intermediates live in a
 // scratch buffer of 10 H values per row (6 MB at the served shapes), which
 // the wrapper keeps from call to call (the GEMM's TMA descriptors are kept
 // per operand address); it stays in L2.
@@ -62,9 +64,9 @@ cudaError_t launch(void* out_p, void* scratch, const void* x_p,
                    const void* wfc_p, const void* bfc_p, const void* wpj_p,
                    const void* bpj_p,
                    void* k_caches, void* v_caches, const void* prefix_k,
-                   const void* prefix_v, const void* anc_p, int L, int Bk,
-                   int K, int S, int P, int H, int NH, int pos, float scale,
-                   float eps, cudaStream_t stream) {
+                   const void* prefix_v, const void* anc_p, void* anc_err,
+                   int L, int Bk, int K, int S, int P, int H, int NH, int pos,
+                   float scale, float eps, cudaStream_t stream) {
   const int64_t H2 = (int64_t)H * H;
   const T* x_in = static_cast<const T*>(x_p);
   T* out = static_cast<T*>(out_p);
@@ -100,8 +102,8 @@ cudaError_t launch(void* out_p, void* scratch, const void* x_p,
         static_cast<T*>(k_caches) + cache_off,
         static_cast<T*>(v_caches) + cache_off,
         P ? static_cast<const T*>(prefix_k) + pre_off : nullptr,
-        P ? static_cast<const T*>(prefix_v) + pre_off : nullptr, anc, Bk, K,
-        S, P, H, NH, pos, scale, stream));
+        P ? static_cast<const T*>(prefix_v) + pre_off : nullptr, anc,
+        static_cast<int*>(anc_err), Bk, K, S, P, H, NH, pos, scale, stream));
     PORT_TRY(port::dense(x1, H, att, H, wo + l * H2, H, bo + (int64_t)l * H,
                          x, H, Bk, H, H, port::kBiasResidual, true, stream));
     PORT_TRY(port::layer_norm(h, x1, g2 + (int64_t)l * H, b2 + (int64_t)l * H,
@@ -123,16 +125,21 @@ cudaError_t launch(void* out_p, void* scratch, const void* x_p,
 // (of x, the Dense weights and biases, the caches and the prefix; the
 // LayerNorm gamma/beta g1, b1, g2, b2 [L, H] are float32 always). scratch
 // holds Bk * 10 * H values of the working type. prefix_k/prefix_v may be null
-// when P == 0; anc may be null (all zeros). Returns the first cudaError_t
-// of the step's launches (0 = success).
+// when P == 0; anc may be null (all zeros); anc_err is the device int that an
+// ancestry entry outside [0, K) sets. Returns the first cudaError_t of the
+// step's launches (0 = success); cudaErrorInvalidValue (1) where the
+// attention's block would need more shared memory than the card offers (the
+// caches and `out` are then untouched: only layer 0's LayerNorm and QKV
+// GEMM, into scratch, were launched).
 extern "C" int beam_decode_stack(
     int dtype, int device, void* out, void* scratch, const void* x,
     const void* wqkv, const void* bqkv, const void* wo, const void* bo,
     const void* g1, const void* b1, const void* g2, const void* b2,
     const void* wfc, const void* bfc, const void* wpj, const void* bpj,
     void* k_caches, void* v_caches, const void* prefix_k,
-    const void* prefix_v, const void* anc, int L, int Bk, int K, int S, int P,
-    int H, int NH, int pos, float scale, float eps, void* stream) {
+    const void* prefix_v, const void* anc, void* anc_err, int L, int Bk, int K,
+    int S, int P, int H, int NH, int pos, float scale, float eps,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -144,12 +151,13 @@ extern "C" int beam_decode_stack(
     err = launch<__nv_bfloat16>(out, scratch, x, wqkv, bqkv, wo, bo, f1, c1,
                                 f2, c2, wfc, bfc, wpj, bpj,
                                 k_caches, v_caches, prefix_k, prefix_v, anc,
-                                L, Bk, K, S, P, H, NH, pos, scale, eps, s);
+                                anc_err, L, Bk, K, S, P, H, NH, pos, scale,
+                                eps, s);
   } else if (dtype == 0) {
     err = launch<float>(out, scratch, x, wqkv, bqkv, wo, bo,
                         f1, c1, f2, c2, wfc, bfc, wpj, bpj, k_caches,
-                        v_caches, prefix_k, prefix_v, anc, L, Bk, K, S, P, H,
-                        NH, pos, scale, eps, s);
+                        v_caches, prefix_k, prefix_v, anc, anc_err, L, Bk,
+                        K, S, P, H, NH, pos, scale, eps, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -238,12 +238,22 @@ __device__ __forceinline__ T dense_epilogue(float acc, int m, int n,
   return from_f32<T>(epilogue_value<T>(acc, to_f32(bias[n]), r, epi));
 }
 
+// `bytes` rounded up to a whole number of 16-byte chunks.
+__host__ __device__ __forceinline__ size_t round16(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int n = pred ? 16 : 0;  // 0 bytes read: the 16 bytes are zero-filled
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(n));
+}
+// Ask for the 128-byte line holding `p` to be brought into L2, without
+// waiting for it.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

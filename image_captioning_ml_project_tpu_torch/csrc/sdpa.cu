@@ -39,15 +39,12 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 32;  // query rows per block
 constexpr float kMasked = -1e9f;
 
-__host__ __device__ inline size_t round16(size_t bytes) {
-  return (bytes + 15) / 16 * 16;
-}
-
 // Dynamic shared memory of one block: the key and value rows in T, then
 // kRows queries and kRows x S weights in f32.
 template <typename T>
 size_t sdpa_smem(int S, int hd) {
-  return 2 * round16(sizeof(T) * S * hd) + sizeof(float) * kRows * (hd + S);
+  return 2 * port::round16(sizeof(T) * S * hd) +
+         sizeof(float) * kRows * (hd + S);
 }
 
 // S rows of hd values, `stride` values apart in global memory, packed in
@@ -85,7 +82,7 @@ __global__ void __launch_bounds__(kThreads) sdpa_kernel(
   const int b = blockIdx.y;  // image
   const int row0 = blockIdx.z * kRows;
   const int rows = min(kRows, K * Q - row0);
-  const size_t slice = round16(sizeof(T) * S * hd);
+  const size_t slice = port::round16(sizeof(T) * S * hd);
   T* ks = reinterpret_cast<T*>(smem);                      // [S, hd]
   T* vs = reinterpret_cast<T*>(smem + slice);              // [S, hd]
   float* qs = reinterpret_cast<float*>(smem + 2 * slice);  // [kRows, hd]

@@ -7,7 +7,7 @@ else raises; nothing is copied or converted to make it fit."""
 from __future__ import annotations
 
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -23,6 +23,16 @@ def check_dtype(what: str, x: torch.Tensor) -> None:
     if x.dtype not in DTYPES:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
+
+
+def check_no_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where autograd would need a gradient through a kernel: none of
+    them has a backward (the Pallas kernels have no VJP either)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} is inference only: it has no backward "
+                           f"(run it under torch.no_grad() or "
+                           f"torch.inference_mode())")
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: Tuple[int, ...],
@@ -85,3 +95,21 @@ def scratch_buffer(what: str, shape: Tuple[int, ...], dtype: torch.dtype,
     if buf is None:
         buf = _scratch[key] = torch.empty(shape, dtype=dtype, device=device)
     return buf
+
+
+_words: Dict[tuple, torch.Tensor] = {}
+
+
+def error_word(what: str, device: torch.device) -> torch.Tensor:
+    """A kernel's error word on ``device``: one int32 in device memory, 0
+    until a launch meets a fault that it reports there instead of stopping
+    (kept per (kernel, device), as the scratch is). Made outside inference
+    mode, so that it can be cleared anywhere."""
+    device = torch.device(device)
+    key = (what, device.type, device.index)
+    word = _words.get(key)
+    if word is None:
+        with torch.inference_mode(False):
+            word = _words[key] = torch.zeros(1, dtype=torch.int32,
+                                             device=device)
+    return word

@@ -35,7 +35,7 @@ from typing import Optional
 import torch
 
 from ._build import load_library
-from ._checks import DTYPES, check_dtype, check_tensor
+from ._checks import DTYPES, check_dtype, check_no_grad, check_tensor
 
 _NEG_INF = -1e9
 
@@ -134,6 +134,7 @@ def additive_scores(q_proj: torch.Tensor, k_proj: torch.Tensor,
     """
     _check_shapes(q_proj, k_proj, energy_w, energy_b, key_padding_mask,
                   beam_size)
+    check_no_grad("additive_scores", q_proj, k_proj, energy_w, energy_b)
     if q_proj.device.type == "cuda":
         scores = _launch(q_proj, k_proj, energy_w, key_padding_mask,
                          temperature, beam_size)

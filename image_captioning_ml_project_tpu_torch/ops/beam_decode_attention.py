@@ -20,7 +20,14 @@ Each dispatches on the tensors' device: on a CPU tensor it runs its plain
 version; on a CUDA tensor it launches ``csrc/beam_decode_attention.cu`` or
 ``csrc/beam_decode_attention_qkv.cu`` (see the notes there and in
 ``csrc/beam_attention.cuh`` for what bounds them on the card and how the
-designs answer) or raises.
+designs answer) or raises. Inference only: both raise when autograd would
+need a gradient through them.
+
+On the card an ancestry entry outside ``[0, beam_size)`` is a caller's
+fault that the kernel reports without a host sync: it sets a per-device
+error word and leaves that position out of the row's attention.
+:func:`ancestry_fault` reads the word, :func:`reset_ancestry_fault`
+clears it.
 """
 
 from __future__ import annotations
@@ -32,10 +39,35 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import load_library
-from ._checks import DTYPES, check_dtype, check_tensor, check_widths
+from ._checks import (DTYPES, check_dtype, check_no_grad, check_tensor,
+                      check_widths, error_word)
 from .numerics import dense
 
-_SMEM_LIMIT = 48 * 1024  # default dynamic shared memory of one block
+_SMEM_LIMIT = 232448  # the dynamic shared memory one block may opt in to
+# cudaErrorInvalidValue: what the C entries return, before the attention's
+# launch, where no block of it fits the card's shared memory
+_INVALID_VALUE = 1
+ANC_ERROR = "beam_attention ancestry"  # the error word's name
+
+
+def ancestry_fault(device) -> bool:
+    """Whether a beam-attention launch on ``device`` (split, folded or
+    whole-stack) met an ancestry entry outside ``[0, beam_size)`` since the
+    last :func:`reset_ancestry_fault`. Reads the device word: a host
+    sync."""
+    return bool(error_word(ANC_ERROR, device).item())
+
+
+def reset_ancestry_fault(device) -> None:
+    error_word(ANC_ERROR, device).zero_()
+
+
+def launch_error(kernel: str, err: int, S: int, P: int) -> Exception:
+    """The exception for the C entry's nonzero return ``err``."""
+    if err == _INVALID_VALUE:
+        return ValueError(f"{kernel}: S={S}, P={P} need more shared memory "
+                          f"per block than the card's {_SMEM_LIMIT} bytes")
+    return RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
 
 
 def beam_decode_attention_plain(
@@ -125,10 +157,13 @@ def _check_caches(x, k_cache, v_cache, prefix_k, prefix_v, anc_local, pos,
                              f" S={S}] tensor on {x.device}")
     if not 0 <= pos < S:
         raise ValueError(f"pos={pos} outside the cache's {S} positions")
-    smem = 4 * (H // num_heads + S + P + 1 + 4) + 4 * S
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"S={S}, P={P} need {smem} bytes of shared memory "
-                         f"per block, above the kernel's {_SMEM_LIMIT}")
+    # a block holds more than an f32 score and two int ancestry entries per
+    # position of one beam; the kernel's plan (csrc/beam_attention.cuh)
+    # decides the rest on the card
+    if 12 * (S + P) > _SMEM_LIMIT:
+        raise ValueError(f"S={S}, P={P} need more than {12 * (S + P)} bytes "
+                         f"of shared memory per block, above the card's "
+                         f"{_SMEM_LIMIT}")
     return P
 
 
@@ -157,7 +192,7 @@ def _ptr(t: Optional[torch.Tensor]):
 def _kernel_fn():
     """The library's C entry point, built and typed once per process."""
     fn = load_library("beam_decode_attention").beam_decode_attention
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
                    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -174,11 +209,11 @@ def _launch(q, k_new, v_new, k_cache, v_cache, prefix_k, prefix_v,
     err = fn(DTYPES[q.dtype], q.device.index, out.data_ptr(), q.data_ptr(),
              k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
              v_cache.data_ptr(), _ptr(prefix_k), _ptr(prefix_v),
-             _ptr(anc_local), Bk, beam_size, k_cache.shape[1], P, H,
-             num_heads, int(pos), float(scale), stream)
+             _ptr(anc_local), error_word(ANC_ERROR, q.device).data_ptr(), Bk,
+             beam_size, k_cache.shape[1], P, H, num_heads, int(pos),
+             float(scale), stream)
     if err != 0:
-        raise RuntimeError(f"beam_decode_attention kernel launch failed: "
-                           f"cudaError {err}")
+        raise launch_error("beam_decode_attention", err, k_cache.shape[1], P)
     beam_decode_attention.launches += 1
     return out, k_cache, v_cache
 
@@ -203,6 +238,7 @@ def beam_decode_attention(
     """
     args = (q, k_new, v_new, k_cache, v_cache, prefix_k, prefix_v,
             anc_local, pos)
+    check_no_grad("beam_decode_attention", *args[:7])
     if q.device.type == "cuda":
         return _launch(*args, num_heads, beam_size, scale)
     if q.device.type == "cpu":
@@ -258,7 +294,7 @@ def _check_qkv(x, wqkv, bqkv, wo, bo, k_cache, v_cache, prefix_k, prefix_v,
 @functools.lru_cache(maxsize=None)
 def _qkv_kernel_fn():
     fn = load_library("beam_decode_attention_qkv").beam_decode_attention_qkv
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 13
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 14
                    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -278,12 +314,13 @@ def _launch_qkv(x, wqkv, bqkv, wo, bo, k_cache, v_cache, prefix_k, prefix_v,
              qkv.data_ptr(), att.data_ptr(), x.data_ptr(), wqkv.data_ptr(),
              bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
              k_cache.data_ptr(), v_cache.data_ptr(), _ptr(prefix_k),
-             _ptr(prefix_v), _ptr(anc_local), Bk, beam_size,
+             _ptr(prefix_v), _ptr(anc_local),
+             error_word(ANC_ERROR, x.device).data_ptr(), Bk, beam_size,
              k_cache.shape[1], P, H, num_heads, int(pos), float(scale),
              stream)
     if err != 0:
-        raise RuntimeError(f"beam_decode_attention_qkv kernel launch failed:"
-                           f" cudaError {err}")
+        raise launch_error("beam_decode_attention_qkv", err, k_cache.shape[1],
+                           P)
     beam_decode_attention_qkv.launches += 1
     return out, k_cache, v_cache
 
@@ -307,6 +344,7 @@ def beam_decode_attention_qkv(
     """
     args = (x, wqkv, bqkv, wo, bo, k_cache, v_cache, prefix_k, prefix_v,
             anc_local, pos)
+    check_no_grad("beam_decode_attention_qkv", *args[:9])
     if x.device.type == "cuda":
         return _launch_qkv(*args, num_heads, beam_size, scale)
     if x.device.type == "cpu":

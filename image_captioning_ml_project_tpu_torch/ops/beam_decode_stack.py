@@ -25,9 +25,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ._build import load_library
-from ._checks import (DTYPES, STACK_KEYS, check_dtype, check_stack,
-                      check_tensor, check_widths, scratch_buffer)
-from .beam_decode_attention import _check_caches, beam_decode_attention_plain
+from ._checks import (DTYPES, STACK_KEYS, check_dtype, check_no_grad,
+                      check_stack, check_tensor, check_widths, error_word,
+                      scratch_buffer)
+from .beam_decode_attention import (ANC_ERROR, _check_caches,
+                                    beam_decode_attention_plain,
+                                    launch_error)
 from .numerics import dense, gelu_new, layer_norm
 
 
@@ -88,7 +91,7 @@ def _check(x, stack, k_caches, v_caches, prefix_k, prefix_v, anc_local, pos,
 def _kernel_fn():
     """The library's C entry point, built and typed once per process."""
     fn = load_library("beam_decode_stack").beam_decode_stack
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 20
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 21
                    + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -112,11 +115,10 @@ def _launch(x, stack, k_caches, v_caches, prefix_k, prefix_v, anc_local,
              k_caches.data_ptr(), v_caches.data_ptr(), prefix_k.data_ptr(),
              prefix_v.data_ptr(),
              anc_local.data_ptr() if anc_local is not None else None,
-             L, Bk, beam_size, S, P, H, num_heads, int(pos), float(scale),
-             float(eps), stream)
+             error_word(ANC_ERROR, x.device).data_ptr(), L, Bk, beam_size, S,
+             P, H, num_heads, int(pos), float(scale), float(eps), stream)
     if err != 0:
-        raise RuntimeError(f"beam_decode_stack kernel launch failed: "
-                           f"cudaError {err}")
+        raise launch_error("beam_decode_stack", err, S, P)
     beam_decode_stack.launches += 1
     return out, k_caches, v_caches
 
@@ -145,6 +147,8 @@ def beam_decode_stack(
     """
     args = (x, stack, k_caches, v_caches, prefix_k, prefix_v, anc_local,
             pos)
+    check_no_grad("beam_decode_stack", x, k_caches, v_caches, prefix_k,
+                  prefix_v, *stack.values())
     if x.device.type == "cuda":
         return _launch(*args, num_heads, beam_size, scale, eps)
     if x.device.type == "cpu":

@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 
 from ._build import load_library
-from ._checks import DTYPES, check_dtype, check_tensor
+from ._checks import DTYPES, check_dtype, check_no_grad, check_tensor
 
 _NEG_INF = -1e9
 # cudaErrorInvalidValue: what the C entry returns where one block would need
@@ -137,6 +137,7 @@ def cross_attention(q: torch.Tensor, mem_kt: torch.Tensor,
     raises.
     """
     _check_shapes(q, mem_kt, mem_v, pad_mask, num_heads, beam_size)
+    check_no_grad("cross_attention", q, mem_kt, mem_v)
     if q.device.type == "cuda":
         return _launch(q, mem_kt, mem_v, pad_mask, num_heads, beam_size,
                        scale)

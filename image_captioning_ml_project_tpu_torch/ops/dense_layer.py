@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 
 from ._build import load_library
-from ._checks import DTYPES, check_dtype, check_tensor
+from ._checks import DTYPES, check_dtype, check_no_grad, check_tensor
 from .numerics import dense, gelu_new, quick_gelu_f32
 
 # the epilogues of csrc/common.cuh (`Epilogue`), by name
@@ -107,6 +107,7 @@ def dense_layer(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     residual [M, N] with ``epilogue="residual"``; returns [M, N]. A CPU
     tensor takes the plain version; a CUDA tensor launches the GEMM (bf16:
     ``wgmma`` fed by TMA; float32: the CUDA cores) or raises."""
+    check_no_grad("dense_layer", x, weight, bias, residual)
     if x.device.type == "cuda":
         return _launch(x, weight, bias, residual, epilogue)
     if x.device.type == "cpu":

@@ -28,8 +28,9 @@ from typing import Dict
 import torch
 
 from ._build import load_library
-from ._checks import (DTYPES, STACK_KEYS, check_dtype, check_stack,
-                      check_tensor, check_widths, scratch_buffer)
+from ._checks import (DTYPES, STACK_KEYS, check_dtype, check_no_grad,
+                      check_stack, check_tensor, check_widths,
+                      scratch_buffer)
 from .numerics import dense, layer_norm, quick_gelu_f32
 
 
@@ -56,14 +57,6 @@ def encoder_stack_plain(x: torch.Tensor, stack: Dict[str, torch.Tensor], *,
         u = quick_gelu_f32(dense(h, w["wfc"][li], w["bfc"][li]))
         x = x + dense(u, w["wpj"][li], w["bpj"][li])
     return x
-
-
-def _check_no_grad(x, stack):
-    if torch.is_grad_enabled() and (
-            x.requires_grad or any(t.requires_grad for t in stack.values())):
-        raise RuntimeError("encoder_stack is inference only: it has no "
-                           "backward (run it under torch.no_grad() or "
-                           "torch.inference_mode())")
 
 
 def _check(x, stack, num_heads):
@@ -128,7 +121,7 @@ def encoder_stack(x: torch.Tensor, stack: Dict[str, torch.Tensor], *,
     tensor takes the plain version; a CUDA tensor launches the kernel
     (counted once per call in ``encoder_stack.launches``) or raises.
     """
-    _check_no_grad(x, stack)
+    check_no_grad("encoder_stack", x, *stack.values())
     if x.device.type == "cuda":
         return _launch(x, stack, num_heads, eps)
     if x.device.type == "cpu":

@@ -27,6 +27,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ._checks import check_no_grad
+
 _NEG = -1e30  # mask value of the ragged last block (as in pallas_lse.py)
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -101,6 +103,7 @@ def lse_and_block_max(logits: torch.Tensor, block: int = 512
 
     A CPU tensor takes the plain version; a CUDA tensor launches the Triton
     kernel (counted in ``lse_and_block_max.launches``) or raises."""
+    check_no_grad("lse_and_block_max", logits)
     if logits.device.type == "cuda":
         return _launch(logits, block)
     if logits.device.type == "cpu":

@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import load_library
-from ._checks import DTYPES, check_dtype
+from ._checks import DTYPES, check_dtype, check_no_grad
 
 _NEG_INF = -1e9
 # cudaErrorInvalidValue: what the C entry returns where one block would need
@@ -148,6 +148,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``sdpa.launches``) or raises.
     """
     _check_shapes(q, k, v, key_padding_mask, beam_size)
+    check_no_grad("sdpa", q, k, v)
     if q.device.type == "cuda":
         return _launch(q, k, v, key_padding_mask, scale, beam_size)
     if q.device.type == "cpu":

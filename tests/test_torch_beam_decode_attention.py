@@ -101,9 +101,9 @@ def _torch_args(dtype=torch.float32, Bk=B * K):
                         prefix_v=a["prefix_v"][:1]), "prefix K/V"),
     (lambda a: a.update(beam_size=4), "whole beams"),
     (lambda a: a.update(num_heads=5), "heads"),
-    (lambda a: a.update(k_cache=torch.zeros(B * K, 12000, H),
-                        v_cache=torch.zeros(B * K, 12000, H),
-                        anc_local=torch.zeros((B * K, 12000),
+    (lambda a: a.update(k_cache=torch.zeros(B * K, 40000, H),
+                        v_cache=torch.zeros(B * K, 40000, H),
+                        anc_local=torch.zeros((B * K, 40000),
                                               dtype=torch.int32)),
      "shared memory"),
 ])
@@ -119,6 +119,62 @@ def test_kernel_checks_accept_served_shapes():
     assert bda._check(**args) == P
     args.update(prefix_k=None, prefix_v=None, anc_local=None)
     assert bda._check(**args) == 0
+
+
+# The first kernel's wrapper took every shape whose block fit in 48 KB of
+# shared memory: 4 (hd + S + P + 5) + 4 S bytes. The redesigned kernel must
+# take each of them (it streams positions in chunks and cuts its blocks to
+# what fits).
+_FIRST_LIMIT = 48 * 1024
+
+
+def _first_kernel_smem(S, P, hd):
+    return 4 * (hd + S + P + 5) + 4 * S
+
+
+def _meta_args(B, K, S, P, NH, H, dtype):
+    Bk = B * K
+    m = lambda *s: torch.empty(*s, dtype=dtype, device="meta")  # noqa: E731
+    return dict(k_cache=m(Bk, S, H), v_cache=m(Bk, S, H),
+                prefix_k=m(B, P, H) if P else None,
+                prefix_v=m(B, P, H) if P else None,
+                anc_local=torch.empty((Bk, S), dtype=torch.int32,
+                                      device="meta"),
+                num_heads=NH, beam_size=K), m(Bk, H)
+
+
+def _accepts_at_every_pos(B, K, S, P, NH, H, dtype):
+    assert _first_kernel_smem(S, P, H // NH) <= _FIRST_LIMIT
+    args, row = _meta_args(B, K, S, P, NH, H, dtype)
+    m = lambda *s: torch.empty(*s, dtype=dtype, device="meta")  # noqa: E731
+    for pos in (0, S - 1):
+        assert bda._check(row, row, row, pos=pos, **args) == P
+        assert bda._check_qkv(row, m(3 * H, H), m(3 * H), m(H, H), m(H),
+                              pos=pos, **args) == P
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 5, 8])
+@pytest.mark.parametrize("P", [0, 10, 64])
+@pytest.mark.parametrize("length", ["served", "first_kernel_limit"])
+def test_kernel_checks_accept_every_shape_the_first_kernel_took(
+        length, P, K, dtype):
+    """The served widths (12 heads of 64) at the served cache length and at
+    the longest cache the first kernel's 48 KB block held."""
+    hd = 64
+    S = 20 if length == "served" else \
+        (_FIRST_LIMIT - 4 * (hd + P + 5)) // 8
+    _accepts_at_every_pos(64, K, S, P, 12, 768, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("NH,H", [(8, 768), (1, 768), (4, 64), (2, 48),
+                                  (1, 4096)])
+def test_kernel_checks_accept_other_head_widths(NH, H, dtype):
+    """Heads of 96 (the JAX default GPT-2), 768, 16, 24 and 4096 values at
+    the longest cache the first kernel held behind a 10-row prefix."""
+    S = (_FIRST_LIMIT - 4 * (H // NH + 10 + 5)) // 8
+    _accepts_at_every_pos(2, 5, S, 10, NH, H, dtype)
 
 
 def test_cpu_tensor_takes_plain_version_without_counting():

@@ -133,3 +133,17 @@ def test_wrapper_contracts():
                                scale=1.0)
     assert out.shape == q.shape and out.dtype == q.dtype
     assert port.cross_attention.launches == before  # the CPU launches none
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 5, 8])
+@pytest.mark.parametrize("Sm", [1, 49, 196, 197])
+def test_kernel_checks_accept_served_and_ragged_memories(Sm, K, dtype):
+    """The served widths (12 heads of 64, 64 images) over one memory row,
+    the ResNet's 49, the ViT-B/16's 196 and a ragged 197, masked."""
+    B, NH, H = 64, 12, 768
+    m = lambda *s: torch.empty(*s, dtype=dtype, device="meta")  # noqa: E731
+    q, mkt, mv = m(B * K, H), m(B, H, Sm), m(B, Sm, H)
+    mask = torch.empty((B, Sm), dtype=torch.bool, device="meta")
+    port._check_shapes(q, mkt, mv, mask, NH, K)
+    port._check(q, mkt, mv, mask, NH, K)

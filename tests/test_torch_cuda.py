@@ -111,6 +111,146 @@ def test_attention_kernel_matches_plain(dev, dtype, B, K, S, P, NH, H, pos,
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("anc", ["random", "equal"])
+@pytest.mark.parametrize("B,K,S,P,NH,H,pos", [
+    (1, 5, 20, 10, 12, 768, 19),   # bucket 1: an image's beams split
+    (1, 5, 20, 10, 12, 768, 0),
+    (8, 5, 20, 0, 12, 768, 19),    # bucket 8, prefix-free
+    (1, 1, 20, 10, 12, 768, 19),   # K = 1
+    (2, 8, 20, 10, 12, 768, 19),   # K = 8
+    (3, 8, 70, 64, 12, 768, 69),   # more positions than one chunk holds
+    (2, 3, 6000, 0, 12, 768, 5999),  # near the first kernel's longest cache
+])
+def test_attention_kernel_matches_plain_at_the_edges(dev, dtype, anc, B, K,
+                                                     S, P, NH, H, pos):
+    """Batch 1 and 8, one and eight beams, the first and last positions,
+    long caches; random ancestry and one where every beam follows the same
+    one (every row of the image shared)."""
+    inputs = _attention_inputs(B, K, S, P, H, seed=B * S + K + pos)
+    if anc == "equal":
+        inputs["anc_local"].fill_(K - 1)
+    got = _attention(inputs, dtype, dev, pos, NH, K)
+    want = _attention(inputs, dtype, dev, pos, NH, K, plain=True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=1e-5)
+    else:
+        assert (got[0] - want[0]).abs().max() <= 2 * _bf16_ulp(want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def _attention_without(inputs, r, skip, pos, NH, K):
+    """Row ``r``'s f32 attention over its suffix positions < ``pos`` but
+    ``skip``, its image's prefix and its own key: what the kernel gives a
+    row whose ancestry entry at ``skip`` is out of range."""
+    H = inputs["q"].shape[1]
+    hd, b = H // NH, r // K
+    anc = inputs["anc_local"]
+    rows = [(b * K + int(anc[r, t]), t) for t in range(pos) if t != skip]
+    ks = [inputs["k_cache"][i, t] for i, t in rows]
+    vs = [inputs["v_cache"][i, t] for i, t in rows]
+    if "prefix_k" in inputs:
+        ks += list(inputs["prefix_k"][b])
+        vs += list(inputs["prefix_v"][b])
+    k = torch.stack(ks + [inputs["k_new"][r]]).view(-1, NH, hd)
+    v = torch.stack(vs + [inputs["v_new"][r]]).view(-1, NH, hd)
+    s = torch.einsum("nd,jnd->nj", inputs["q"][r].view(NH, hd), k) * hd ** -0.5
+    return torch.einsum("nj,jnd->nd", torch.softmax(s, -1), v).reshape(H)
+
+
+def test_attention_kernel_reports_an_ancestry_out_of_range(dev):
+    """An entry of K (outside [0, K)) sets the device's error word and its
+    position is left out of that row's attention; every other row and the
+    caches come out bit for bit as with valid entries. Valid entries leave
+    the word clear."""
+    B, K, S, P, NH, H, pos = 2, 3, 9, 2, 4, 64, 6
+    r, skip = 4, 3
+    inputs = _attention_inputs(B, K, S, P, H, seed=11)
+    bda.reset_ancestry_fault(dev)
+    valid = _attention(inputs, torch.float32, dev, pos, NH, K)
+    assert not bda.ancestry_fault(dev)
+    want = _attention(inputs, torch.float32, dev, pos, NH, K, plain=True)
+    torch.testing.assert_close(valid[0], want[0], atol=1e-5, rtol=1e-5)
+    faulted = dict(inputs, anc_local=inputs["anc_local"].clone())
+    faulted["anc_local"][r, skip] = K
+    got = _attention(faulted, torch.float32, dev, pos, NH, K)
+    assert bda.ancestry_fault(dev)
+    others = [i for i in range(B * K) if i != r]
+    assert torch.equal(got[0][others], valid[0][others])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(
+        got[0][r], _attention_without(inputs, r, skip, pos, NH, K),
+        atol=1e-5, rtol=1e-5)
+    bda.reset_ancestry_fault(dev)
+    assert not bda.ancestry_fault(dev)
+
+
+# One beam, one head of 64, bf16: the kernel's smallest block (one position
+# a chunk; `attn_layout` in csrc/beam_attention.cuh) holds pos + P + 1 =
+# 19145 positions in 232,432 of the card's 232,448 bytes of shared memory,
+# and one position more needs 232,464.
+_LIMIT_S, _LIMIT_NTOK = 19146, 19145
+
+
+@pytest.mark.parametrize("kernel", ["split", "folded", "stack"])
+def test_attention_kernels_at_the_shared_memory_limit(dev, kernel):
+    """At the last position the kernel's block holds, each of #1, #2 and #3
+    runs and matches its plain version; one position later the C entry
+    refuses before any launch and the wrapper raises ValueError, with the
+    caches and the launch count untouched."""
+    B, K, S, P, NH, H = 1, 1, _LIMIT_S, 2, 1, 64
+    dt = torch.bfloat16
+    t = {k: (v.to(dev) if k == "anc_local" else v.to(dev, dt))
+         for k, v in _attention_inputs(B, K, S, P, H, seed=7).items()}
+    w = {k: v.to(dev) for k, v in _stack_weights(1, H, 4 * H, dt,
+                                                 seed=3).items()}
+    kw = dict(num_heads=NH, beam_size=K, scale=H ** -0.5)
+    fns, counter, ulps, cache_ulps = {
+        "split": ((bda.beam_decode_attention,
+                   bda.beam_decode_attention_plain),
+                  bda.beam_decode_attention, 2, 0),
+        "folded": ((bda.beam_decode_attention_qkv,
+                    bda.beam_decode_attention_qkv_plain),
+                   bda.beam_decode_attention_qkv, 4, 1),
+        "stack": ((bds.beam_decode_stack, bds.beam_decode_stack_plain),
+                  bds.beam_decode_stack, 8, 8)}[kernel]
+
+    def run(fn, pos, kc, vc):
+        if kernel == "split":
+            return fn(t["q"], t["k_new"], t["v_new"], kc, vc, t["prefix_k"],
+                      t["prefix_v"], t["anc_local"], pos, **kw)[0]
+        if kernel == "folded":
+            return fn(t["q"], *(w[k][0] for k in ("wqkv", "bqkv", "wo",
+                                                  "bo")),
+                      kc, vc, t["prefix_k"], t["prefix_v"], t["anc_local"],
+                      pos, **kw)[0]
+        return fn(t["q"], w, kc[None], vc[None], t["prefix_k"][None],
+                  t["prefix_v"][None], t["anc_local"], pos, **kw)[0]
+
+    pos = _LIMIT_NTOK - P - 1
+    out = []
+    for fn in fns:
+        kc, vc = t["k_cache"].clone(), t["v_cache"].clone()
+        out.append((run(fn, pos, kc, vc), kc, vc))
+        torch.cuda.synchronize()
+    (got, kc1, vc1), (want, kc2, vc2) = out
+    _close(got, want, dt, None, ulps)
+    for a, b, before in ((kc1, kc2, t["k_cache"]), (vc1, vc2, t["v_cache"])):
+        _untouched_but_pos(a, before, pos)
+        _untouched_but_pos(b, before, pos)
+        if cache_ulps:
+            _close(a[:, pos], b[:, pos], dt, None, cache_ulps)
+        else:
+            assert torch.equal(a, b)
+    kc, vc = t["k_cache"].clone(), t["v_cache"].clone()
+    before = counter.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        run(fns[0], pos + 1, kc, vc)
+    torch.cuda.synchronize()
+    assert counter.launches == before
+    assert torch.equal(kc, t["k_cache"]) and torch.equal(vc, t["v_cache"])
+
+
 def test_attention_kernel_raises_on_what_it_does_not_take(dev):
     inputs = _attention_inputs(2, 2, 4, 1, 8, seed=0)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -340,6 +480,10 @@ def test_fused_kernels_raise_on_what_they_do_not_take(dev):
     (64, 5, 12, 768, 196, False),  # no mask
     (3, 1, 2, 40, 13, True),       # K=1; rows too short for 16-byte copies
     (2, 7, 4, 256, 33, True),      # more beams than warps hold at once
+    (1, 5, 12, 768, 196, True),    # bucket 1
+    (8, 5, 12, 768, 196, True),    # bucket 8
+    (2, 8, 12, 768, 197, True),    # eight beams, a ragged memory
+    (3, 5, 12, 768, 1, False),     # one memory row
 ])
 def test_cross_attention_kernel_matches_plain(dev, dtype, B, K, NH, H, Sm,
                                               masked):
@@ -367,6 +511,24 @@ def test_cross_attention_kernel_matches_plain(dev, dtype, B, K, NH, H, Sm,
             2 * _bf16_ulp(want.float())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_kernel_with_all_but_one_row_masked(dev, dtype):
+    """Every memory row masked but one: the weights are one-hot there."""
+    B, K, NH, H, Sm = 4, 5, 12, 768, 196
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((B * K, H), generator=g).to(dev, dtype)
+    mkt = torch.randn((B, H, Sm), generator=g).to(dev, dtype)
+    mv = torch.randn((B, Sm, H), generator=g).to(dev, dtype)
+    mask = torch.ones((B, Sm), dtype=torch.bool)
+    mask[torch.arange(B), torch.tensor([0, 57, 130, 195])] = False
+    mask = mask.to(dev)
+    kw = dict(num_heads=NH, beam_size=K, scale=(H // NH) ** -0.5)
+    got = ca.cross_attention(q, mkt, mv, mask, **kw)
+    want = ca.cross_attention_plain(q, mkt, mv, mask, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
 def test_cross_attention_kernel_raises_on_what_it_does_not_take(dev):
     q = torch.zeros((6, 64), device=dev)
     mkt, mv = torch.zeros((2, 64, 5), device=dev), torch.zeros((2, 5, 64),
@@ -380,7 +542,8 @@ def test_cross_attention_kernel_raises_on_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="mem_v is"):
         ca.cross_attention(q, mkt, mv.cpu(), None, **kw)
     with pytest.raises(RuntimeError, match="shared memory"):
-        big = torch.zeros((2, 64, 2000), device=dev)
+        # the K x Sm f32 scores alone are above 227 KB
+        big = torch.zeros((2, 64, 20000), device=dev)
         ca.cross_attention(q, big, big.transpose(1, 2).contiguous(), None,
                            **kw)
 
