@@ -4,7 +4,7 @@
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--seed N]
-    python3 chip_smoke.py --time-tree DIR   # phase 3's sweep only, for DIR
+    python3 chip_smoke.py --time-tree DIR   # phase 3's sweeps only, for DIR
 
 Phases, each reported on its own lines; any failure exits non-zero and
 prints no result line:
@@ -12,29 +12,32 @@ prints no result line:
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; TF32 and bf16 reduced-precision GEMM reductions off for the
    comparisons;
-2. build: compiles the seven ``csrc/*.cu`` libraries with nvcc from the
+2. build: compiles the eight ``csrc/*.cu`` libraries with nvcc from the
    checkout, one process each, all started together, and prints ptxas's
-   register and spill lines (the Triton kernel compiles at its first
-   launch);
+   register and spill lines;
 3. kernels: each of the eight kernels against its plain PyTorch version
    on the card, at the served shapes of each family that runs it (the
    beam-decode attention kernels prefix-free for the Transformer decoder
-   and behind a 10-row prefix for GPT-2; the LSE over vocabularies of
-   10000, 30000 and 50257; SDPA and the additive scores at the LSTM's 64
-   images x 5 beams over 49 feature rows, masked and not, and at its
-   teacher-forced 20 positions), in float32 and bfloat16, with its
-   tolerance, and timed in bf16 (CUDA events, median of 30 runs; the
-   device time behind a spin kernel), beside the least time the card could
-   take for the same work (``bound_ms``: the larger of the bytes over 3.35
-   TB/s and the operations over the peak rate of their type) and, where
-   one PyTorch call computes the same function, that call's time
-   (``library_ms``). The four decode-step kernels (#1 and #2 prefix-free
-   and behind the prefix, #3, #6) are held against their plain versions
-   again and timed at batch 1, 8 and 64, the service's buckets
-   (:func:`sweep_decode_kernels`; ``--time-tree DIR``
-   runs only that sweep, on the package of another tree, so that two
-   trees compare inside one run); then the beam attention's ancestry
-   error word must be clear. Before them, the Dense
+   and behind a 10-row prefix for GPT-2; the LSE at the candidate step's
+   5, 40 and 320 rows over vocabularies of 10000, 30000 and 50257 in
+   float32, bfloat16 and float16, on a view whose rows start off 16-byte
+   boundaries, and twice bit-identical; SDPA at the LSTM's 64 images x 5
+   beams over 49 feature rows and the additive scores at 1, 8 and 64
+   images, masked and not, and both at its teacher-forced 20 positions),
+   in float32 and bfloat16, with its tolerance. Timed in bf16 (CUDA
+   events, median of 30 runs; the device time behind a spin kernel),
+   beside the least time the card could take for the same work
+   (``bound_ms``: the larger of the bytes over 3.35 TB/s and the
+   operations over the peak rate of their type) and, where one PyTorch call computes
+   the same function, that call's time (``library_ms``). The four
+   decode-step kernels (#1 and #2 prefix-free and behind the prefix, #3,
+   #6) and the two candidate-step kernels (#4 over each vocabulary, #8)
+   are held against their plain versions again and timed at batch 1, 8
+   and 64, the service's buckets (:func:`sweep_decode_kernels`,
+   :func:`sweep_lse`, :func:`sweep_additive`; ``--time-tree DIR`` runs
+   only those sweeps, on the package of another tree, so that two trees
+   compare inside one run); then the beam attention's ancestry error word
+   must be clear. Before them, the Dense
    GEMM that the three layer kernels share (``csrc/common.cuh``: ``wgmma``
    fed by TMA) by itself against ``ops/numerics.dense`` and each epilogue,
    at every (M, N, K) the whole-stack kernels give it and at ragged ones,
@@ -260,46 +263,99 @@ def check_attention(torch, dev):
     return worst
 
 
-def check_lse(torch, dev, results):
+# the candidate step's vocabularies: the LSTM's (19.53 blocks of 512: the
+# last one ragged), the Transformer decoder's and GPT-2's
+LSE_VOCABS = (("lstm", 10000), ("transformer", 30000), ("flagship", 50257))
+
+
+def check_lse_once(torch, what, logits):
+    """#4 against its plain version on ``logits``: block maxima
+    bit-identical, the LSE within rtol 1e-5. Returns the LSE's largest
+    absolute error."""
     from image_captioning_ml_project_tpu_torch.ops.lse import (
         lse_and_block_max, lse_and_block_max_plain)
 
-    R = 320
+    lse, bm = lse_and_block_max(logits)
+    lse_p, bm_p = lse_and_block_max_plain(logits)
+    torch.cuda.synchronize()
+    err = float((lse - lse_p).abs().max())
+    rel = float(((lse - lse_p).abs() / lse_p.abs()).max())
+    bm_exact = bool(torch.equal(bm, bm_p))
+    print(f"{what}: lse max_abs_err={err:.3e} max_rel_err={rel:.3e} (rtol "
+          f"1e-5), block maxima exact={bm_exact}", flush=True)
+    check(rel <= 1e-5, f"{what}: relative error {rel} > 1e-5")
+    check(bm_exact, f"{what}: block maxima differ from the plain version")
+    return err
+
+
+def check_lse(torch, dev):
+    """#4 at the candidate step's rows of batch 1, 8 and 64 (R = 5, 40,
+    320) over the three vocabularies, in float32, bfloat16 and float16; a
+    bf16 view whose rows start at every offset from a 16-byte boundary; two
+    runs bit-identical."""
+    from image_captioning_ml_project_tpu_torch.ops.lse import (
+        lse_and_block_max)
+
     g = torch.Generator(device=dev).manual_seed(4321)
+    for B in SWEEP_BATCHES:
+        R = 5 * B
+        for _, V in LSE_VOCABS:
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
+                logits = (torch.randn((R, V), generator=g, device=dev)
+                          * 3).to(dtype)
+                check_lse_once(torch, f"lse_and_block_max {str(dtype)[6:]} "
+                                      f"[{R}, {V}]", logits)
+    # row stride 50259 (odd): row r starts 2r mod 16 bytes off a boundary
+    wide = (torch.randn((320, 50259), generator=g, device=dev) * 3).to(
+        torch.bfloat16)
+    view = wide[:, 1:50258]
+    check_lse_once(torch, "lse_and_block_max bf16 [320, 50257] view, row "
+                          "stride 50259", view)
+    first = lse_and_block_max(view)
+    again = lse_and_block_max(view)
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    print(f"lse_and_block_max: two runs bit-identical={same}", flush=True)
+    check(same, "lse_and_block_max: two runs on the same input differ")
+
+
+def lse_bound(R, V, item):
+    """One read of the logits, the LSE and block maxima written; a max, a
+    subtraction and an add per logit on the CUDA cores."""
+    nblk = -(-V // 512)
+    return bound(R * V * item + R * 4 * (1 + nblk), {"f32": 3 * R * V})
+
+
+def sweep_lse(torch, dev, smi):
+    """#4 at batch 1, 8 and 64 (R = 5 B) over each family's vocabulary,
+    bf16: held against its plain version, then its device time, event time,
+    bound and the plain version's time, with the logits L2-warm as the LM
+    head leaves them. Uses only the public wrappers (``--time-tree``).
+    Returns {family: {batch: shape_entry}}."""
+    from image_captioning_ml_project_tpu_torch.ops.lse import (
+        lse_and_block_max, lse_and_block_max_plain)
+
+    g = torch.Generator(device=dev).manual_seed(5432)
     out = {}
-    # the LSTM's vocabulary (19.53 blocks of 512: the last one ragged), the
-    # Transformer decoder's and GPT-2's
-    for family, V in (("lstm", 10000), ("transformer", 30000),
-                      ("flagship", 50257)):
-        logits = (torch.randn((R, V), generator=g, device=dev) * 3).to(
-            torch.bfloat16)
-        lse, bm = lse_and_block_max(logits)
-        lse_p, bm_p = lse_and_block_max_plain(logits)
-        torch.cuda.synchronize()
-        err = float((lse - lse_p).abs().max())
-        rel = float(((lse - lse_p).abs() / lse_p.abs()).max())
-        bm_exact = bool(torch.equal(bm, bm_p))
-        print(f"lse_and_block_max bf16 [{R}, {V}]: lse max_abs_err={err:.3e} "
-              f"max_rel_err={rel:.3e} (rtol 1e-5), block maxima "
-              f"exact={bm_exact}", flush=True)
-        check(rel <= 1e-5, f"lse [{R}, {V}]: relative error {rel} > 1e-5")
-        check(bm_exact, f"lse [{R}, {V}]: block maxima differ from the plain "
-                        f"version")
-        ms, dev_ms = time_ms(torch, lambda: lse_and_block_max(logits),
-                             device=True)
-        plain_ms = time_ms(torch, lambda: lse_and_block_max_plain(logits))
-        print(f"lse_and_block_max bf16 [{R}, {V}]: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms (logits L2-warm, as after the LM head)",
-              flush=True)
-        nblk = -(-V // 512)
-        # one read of the logits, the LSE and block maxima written; a max,
-        # an exp and a sum per logit. No one PyTorch call gives both
-        # outputs.
-        out[family] = shape_entry(
-            f"[{R}, {V}] bf16", err, ms, plain_ms,
-            bound(R * V * 2 + R * 4 * (1 + nblk), {"f32": 3 * R * V}),
-            device_ms=dev_ms)
-    results["lse_and_block_max"] = out
+    for B in SWEEP_BATCHES:
+        R = 5 * B
+        for family, V in LSE_VOCABS:
+            logits = (torch.randn((R, V), generator=g, device=dev) * 3).to(
+                torch.bfloat16)
+            what = f"sweep lse_and_block_max {family} B={B} [{R}, {V}]"
+            err = check_lse_once(torch, what, logits)
+            ms, dev_ms = time_ms(torch, lambda: lse_and_block_max(logits),
+                                 device=True)
+            plain_ms = time_ms(torch, lambda: lse_and_block_max_plain(
+                logits))
+            bnd = lse_bound(R, V, 2)
+            print(f"{what}: device {dev_ms:.4f} ms, event {ms:.4f} ms, bound "
+                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain "
+                  f"{plain_ms:.4f} ms (L2-warm) [{smi}]", flush=True)
+            # no one PyTorch call gives both outputs (torch.logsumexp gives
+            # the LSE only)
+            out.setdefault(family, {})[B] = shape_entry(
+                f"[{R}, {V}] bf16", err, ms, plain_ms, bnd, device_ms=dev_ms)
+    return out
 
 
 def max_err(got, want):
@@ -826,61 +882,97 @@ def check_sdpa(torch, dev, results):
     results["sdpa"] = {"lstm": entry}
 
 
-def check_additive(torch, dev, results):
-    """The soft variant's additive scores at the LSTM family's shapes,
-    masked and unmasked, against its plain version; the served shape timed
-    in bf16. No one PyTorch call computes them."""
+def additive_inputs(torch, g, dev, dtype, B, K, Q):
+    """Projected queries and keys (scaled so that the tanh is not
+    saturated), the energy weights and bias, and a random mask."""
+    qp, kp, _, mask = _attention_memory(torch, g, dev, dtype, B, K, Q)
+    ew = (torch.randn((1, LSTM_H), generator=g, device=dev) * 0.05).to(dtype)
+    eb = torch.randn((1,), generator=g, device=dev).to(dtype)
+    return qp * 0.5, kp * 0.5, ew, eb, mask
+
+
+def check_additive_once(torch, what, qp, kp, ew, eb, mask, **kw):
+    """#8 against its plain version plus the energy bias: masked scores
+    bit-identical, the others within 1e-5 of the largest (the sum and the
+    tanh round as the plain version's do; only the f32 sum's order
+    differs). Returns the error."""
     from image_captioning_ml_project_tpu_torch.ops.additive_scores import (
         additive_scores, additive_scores_plain)
 
+    got = additive_scores(qp, kp, ew, eb, mask, **kw)
+    want = additive_scores_plain(qp, kp, ew, mask, **kw) \
+        + eb.reshape(()) / kw["temperature"]
+    torch.cuda.synchronize()
+    keep = want > -1e8
+    check(torch.equal(got[~keep], want[~keep]),
+          f"{what}: masked scores differ")
+    return check_close(what, got[keep], want[keep], "float32", 1e-5, 0)
+
+
+def check_additive(torch, dev):
+    """The soft variant's additive scores at the LSTM family's served
+    shapes at batch 1, 8 and 64 and its teacher-forced shape, masked and
+    unmasked, float32 and bfloat16."""
     g = torch.Generator(device=dev).manual_seed(7890)
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    worst = 0.0
-    for label, B, K, Q in LSTM_ATTENTION_SHAPES:
+    shapes = [("served", B, 5, 1) for B in SWEEP_BATCHES] + [
+        s for s in LSTM_ATTENTION_SHAPES if s[0] == "teacher-forced"]
+    for label, B, K, Q in shapes:
         for dtype in (torch.float32, torch.bfloat16):
-            name = str(dtype)[6:]
-            qp, kp, _, mask = _attention_memory(torch, g, dev, dtype, B, K,
-                                                Q)
-            qp, kp = qp * 0.5, kp * 0.5
-            ew = (torch.randn((1, LSTM_H), generator=g, device=dev)
-                  * 0.05).to(dtype)
-            eb = torch.randn((1,), generator=g, device=dev).to(dtype)
-            kw = dict(temperature=1.0, beam_size=K)
+            qp, kp, ew, eb, mask = additive_inputs(torch, g, dev, dtype, B,
+                                                   K, Q)
             for masked in (True, False):
-                m = mask if masked else None
-                got = additive_scores(qp, kp, ew, eb, m, **kw)
-                want = additive_scores_plain(qp, kp, ew, m, **kw) \
-                    + eb.reshape(()) / kw["temperature"]
-                torch.cuda.synchronize()
-                keep = want > -1e8
-                what = (f"additive_scores {name} {label} [{B}x{K}, Q={Q}] "
-                        f"masked={masked}")
-                check(torch.equal(got[~keep], want[~keep]),
-                      f"{what}: masked scores differ")
-                # the sum and the tanh round as the plain version's do; only
-                # the f32 sum's order differs
-                err = check_close(what, got[keep], want[keep], "float32",
-                                  1e-5, 0)
-                if dtype == torch.bfloat16 and label == "served":
-                    worst = max(worst, err)
-            if dtype == torch.bfloat16 and label == "served":
-                ms, dev_ms = time_ms(torch, lambda: additive_scores(
-                    qp, kp, ew, eb, mask, **kw), flush=flush, device=True)
-                plain_ms = time_ms(torch, lambda: additive_scores_plain(
-                    qp, kp, ew, mask, **kw), flush=flush)
-                nbytes = (qp.numel() + kp.numel() + ew.numel()) * 2 \
-                    + got.numel() * 4 + mask.numel()
-                # an add, a tanh, a multiply and an add per (row, key, width)
-                bnd = bound(nbytes, {"f32": 4 * B * K * Q * LSTM_S * LSTM_H})
-                print(f"additive_scores bf16 served [{B}x{K}, Q={Q}, "
-                      f"S={LSTM_S}, H={LSTM_H}]: kernel {ms:.4f} ms (device "
-                      f"{dev_ms:.4f} ms), plain "
-                      f"{plain_ms:.4f} ms (L2 flushed before each run); "
-                      f"bound {bnd['bound_ms']:.4f} ms "
-                      f"({nbytes / 1e6:.2f} MB)", flush=True)
-                results["additive_scores"] = {"lstm": shape_entry(
-                    f"B={B} K={K} Q={Q} S={LSTM_S} H={LSTM_H} masked bf16",
-                    worst, ms, plain_ms, bnd, device_ms=dev_ms)}
+                check_additive_once(
+                    torch, f"additive_scores {str(dtype)[6:]} {label} "
+                           f"[{B}x{K}, Q={Q}] masked={masked}",
+                    qp, kp, ew, eb, mask if masked else None,
+                    temperature=1.0, beam_size=K)
+
+
+def additive_bound(B, K, Q, item):
+    """The inputs read once and the scores written; per (row, key, width)
+    an add, a tanh, a multiply and an add, four operations on the CUDA
+    cores (a tanh needs no special-function unit: a table of its bf16
+    roundings or a polynomial of fused multiply-adds computes it)."""
+    n = B * K * Q * LSTM_S * LSTM_H
+    nbytes = (B * K * Q * LSTM_H + B * LSTM_S * LSTM_H + LSTM_H + 1) * item \
+        + B * K * Q * LSTM_S * 4 + B * LSTM_S
+    return bound(nbytes, {"f32": 4 * n})
+
+
+def sweep_additive(torch, dev, smi):
+    """#8 at the LSTM's served shape at batch 1, 8 and 64, masked, bf16:
+    held against its plain version plus the bias, then its device time,
+    event time, bound and the plain version's time, its inputs flushed
+    from L2 before each run. Uses only the public wrappers
+    (``--time-tree``). Returns {"lstm": {batch: shape_entry}}."""
+    from image_captioning_ml_project_tpu_torch.ops.additive_scores import (
+        additive_scores, additive_scores_plain)
+
+    g = torch.Generator(device=dev).manual_seed(8790)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    out = {}
+    K, Q = 5, 1
+    kw = dict(temperature=1.0, beam_size=K)
+    for B in SWEEP_BATCHES:
+        qp, kp, ew, eb, mask = additive_inputs(torch, g, dev, torch.bfloat16,
+                                               B, K, Q)
+        what = f"sweep additive_scores lstm B={B}"
+        err = check_additive_once(torch, what, qp, kp, ew, eb, mask, **kw)
+        ms, dev_ms = time_ms(torch, lambda: additive_scores(
+            qp, kp, ew, eb, mask, **kw), flush=flush, device=True)
+        plain_ms = time_ms(torch, lambda: additive_scores_plain(
+            qp, kp, ew, mask, **kw) + eb.reshape(()) / kw["temperature"],
+            flush=flush)
+        bnd = additive_bound(B, K, Q, 2)
+        print(f"{what} [{B}x{K}, Q={Q}, S={LSTM_S}, H={LSTM_H}, masked]: "
+              f"device {dev_ms:.4f} ms, event {ms:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain "
+              f"{plain_ms:.4f} ms (L2 flushed) [{smi}]", flush=True)
+        # no one PyTorch call computes additive scores
+        out[B] = shape_entry(
+            f"B={B} K={K} Q={Q} S={LSTM_S} H={LSTM_H} masked bf16", err, ms,
+            plain_ms, bnd, device_ms=dev_ms)
+    return {"lstm": out}
 
 
 SWITCHES = ("ICT_DECODE_STACK", "ICT_DECODE_FOLD", "ICT_ENCODER_FOLD")
@@ -1265,7 +1357,7 @@ def kernel_entry(name, route, source, replaces, numbers, launches):
 
 LIBRARIES = ("beam_decode_attention", "beam_decode_attention_qkv",
              "beam_decode_stack", "encoder_stack", "cross_attention", "sdpa",
-             "additive_scores")
+             "additive_scores", "lse")
 
 
 def main():
@@ -1274,9 +1366,10 @@ def main():
     parser.add_argument(
         "--time-tree", metavar="DIR",
         help="only build the port's package found in DIR (an earlier tree "
-             "unpacked beside this one) and time its decode-step kernels "
-             "(phase 3's sweep), printing the numbers as one JSON line; for "
-             "comparisons inside one run on one card")
+             "unpacked beside this one) and time its decode-step and "
+             "candidate-step kernels (phase 3's sweeps), printing the "
+             "numbers as one JSON line; for comparisons inside one run on "
+             "one card")
     args = parser.parse_args()
     try:
         import torch
@@ -1321,13 +1414,18 @@ def main():
 
         phase("build")
         t0 = time.perf_counter()
-        _build.build_libraries(LIBRARIES)
-        for name in LIBRARIES:
+        # an earlier tree (--time-tree) may have fewer of them
+        libraries = [n for n in LIBRARIES if os.path.exists(
+            os.path.join(_build.CSRC_DIR, f"{n}.cu"))]
+        check(args.time_tree or len(libraries) == len(LIBRARIES),
+              f"sources missing from {_build.CSRC_DIR}")
+        _build.build_libraries(libraries)
+        for name in libraries:
             _build.load_library(name)
-        print(f"{len(LIBRARIES)} libraries ({', '.join(LIBRARIES)}) built in "
+        print(f"{len(libraries)} libraries ({', '.join(libraries)}) built in "
               f"parallel and loaded in {time.perf_counter() - t0:.1f} s",
               flush=True)
-        for name in LIBRARIES:
+        for name in libraries:
             log = _build.build_log(name)
             regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
             spills = sum(int(b) for b in re.findall(
@@ -1336,33 +1434,38 @@ def main():
                   f"{sorted(set(regs))}, spill bytes {spills}", flush=True)
 
         if args.time_tree:
-            phase(f"decode-step kernels of {root}")
-            print(json.dumps({"tree": root, "sweep": sweep_decode_kernels(
-                torch, dev, smi)}), flush=True)
+            phase(f"decode-step and candidate-step kernels of {root}")
+            sweep = sweep_decode_kernels(torch, dev, smi)
+            sweep["lse_and_block_max"] = sweep_lse(torch, dev, smi)
+            sweep["additive_scores"] = sweep_additive(torch, dev, smi)
+            print(json.dumps({"tree": root, "sweep": sweep}), flush=True)
             return
 
         phase("kernels vs plain")
         results = {}
         worst = {"beam_decode_attention": check_attention(torch, dev)}
-        check_lse(torch, dev, results)
+        check_lse(torch, dev)
         check_dense(torch, dev)
         worst["beam_decode_attention_qkv"] = check_attention_qkv(torch, dev)
         worst["beam_decode_stack"] = check_stack(torch, dev)
         check_encoder(torch, dev, results)
         worst["cross_attention"] = check_cross(torch, dev)
         check_sdpa(torch, dev, results)
-        check_additive(torch, dev, results)
-        # the decode-step kernels' errors and times at each bucket; the
-        # summary keeps batch 64's beside the worst bf16 error of the checks
-        # and of the sweep, the others under "batches"
-        for kernel, by_family in sweep_decode_kernels(torch, dev,
-                                                      smi).items():
+        check_additive(torch, dev)
+        # the decode-step and candidate-step kernels' errors and times at
+        # each bucket; the summary keeps batch 64's beside the worst bf16
+        # error of the checks and of the sweep, the others under "batches"
+        sweep = sweep_decode_kernels(torch, dev, smi)
+        sweep["lse_and_block_max"] = sweep_lse(torch, dev, smi)
+        sweep["additive_scores"] = sweep_additive(torch, dev, smi)
+        for kernel, by_family in sweep.items():
             results[kernel] = {}
             for family, by_batch in by_family.items():
                 top = by_batch[SWEEP_BATCHES[-1]]
                 results[kernel][family] = dict(
-                    top, max_abs_err=max(worst[kernel][family],
-                                         top["max_abs_err"]), batches={
+                    top, max_abs_err=max(
+                        worst.get(kernel, {}).get(family, 0.0),
+                        top["max_abs_err"]), batches={
                         B: {k: e[k] for k in ("max_abs_err", "ms",
                                               "device_ms", "plain_ms",
                                               "bound_ms", "library_ms")}
@@ -1419,7 +1522,7 @@ def main():
             "cuda", f"{PKG}/csrc/encoder_stack.cu",
             f"{jax_pkg}/pallas_encoder.py:171"),
         "lse_and_block_max": (
-            "triton", f"{PKG}/ops/lse.py", f"{jax_pkg}/pallas_lse.py:64"),
+            "cuda", f"{PKG}/csrc/lse.cu", f"{jax_pkg}/pallas_lse.py:64"),
         "beam_decode_attention_qkv": (
             "cuda", f"{PKG}/csrc/beam_decode_attention_qkv.cu",
             f"{jax_pkg}/pallas_decode.py:655"),

@@ -11,11 +11,10 @@ carries its own copies of the JAX package's pure-Python host code it needs
 (:mod:`.config`, :mod:`.data.tokenizer`, the image half of
 :mod:`.data.coco`), which the tests hold equal to their originals.
 
-The slice ported so far is the caption-serving main path: CLIP ViT vision
-tower -> image prefix -> GPT-2 ``init_cache`` -> beam search, served by
-:mod:`.inference.server`. Its two hand-written GPU kernels are
-:mod:`.ops.beam_decode_attention` (CUDA C++, ``csrc/``) and
-:mod:`.ops.lse` (Triton).
+The port serves three families (CLIP + GPT-2, ViT + Transformer decoder,
+ResNet + LSTM) through beam search and :mod:`.inference.server`. Each
+kernel of the JAX package has a hand-written CUDA C++ counterpart under
+``csrc/``, bound with ctypes by a wrapper in :mod:`.ops`.
 """
 
 __version__ = "0.1.0"

@@ -8,76 +8,169 @@
 //   t[h] = round_T(tanh(round_T(q[r, i, h] + k[b, j, h])))   in T, as there
 //   s    = (sum_h t[h] * w[h]) / temperature                  f32 sum
 //   s    = -1e9 where mask[b, j] != 0
-// The energy bias is added outside, by the wrapper, as the JAX function
-// adds it outside its kernel.
+//   s    = s + round_T(bias / temperature)                    f32 add
+// Each division is a product with the float32 reciprocal of the
+// temperature, as PyTorch divides a CUDA tensor by a Python number.
+// The energy bias, which the JAX function adds outside its kernel (divided
+// by the temperature in its own dtype), is added here, to every score,
+// masked ones included: the function returns what it returned with the
+// bias added by a separate launch.
 //
-// What bounds it on the card: device memory. The projected keys belong to
-// the image, not the beam: at 64 images x 5 beams, 49 feature rows and
-// width 512 in bf16 they are 3.2 MB, read once in 1 us at 3.35 TB/s,
-// against 8 M tanh evaluations, whose instructions (an accurate tanhf is
-// about twenty) are the larger cost once the bytes are read. The point of
-// the fusion is the [rows, Q, S, H] broadcast sum, 16 MB at those shapes,
-// which never reaches device memory: each warp forms its (row, key) pair's
-// H values in registers and reduces them against the energy vector at
-// once. One block per query row (beam row and position) and group of 8
-// keys holds the row's query and the energy vector in shared memory as f32,
-// one warp per key, the lanes across the width: 7 blocks per row at 49
-// keys, so that enough warps are in flight to hide the loads. The K beams
-// of an image read the same key rows, which all but the first find in L2.
-// The Pallas kernel's paddings (query rows to 8, keys and width to 128
-// lanes) are not carried over.
+// What holds it back on the card: the tanh. At the LSTM's served step (64
+// images x 5 beams, 49 feature rows, width 512, bf16) the inputs are 3.6
+// MB, read in 1.1 us at 3.35 TB/s, against 8 M tanh evaluations. This
+// kernel evaluates the accurate `tanhf` of the plain version, which the
+// rounding to bf16 has to reproduce to the bit (tanh.approx.f32 would move
+// a bf16 rounding once in about 2^15 elements): two special-function-unit
+// operations and about fifteen instructions an element. (A table of the
+// 65,536 bf16 inputs' rounded tanh would need none; not tried.) The
+// [rows, Q, S, H] broadcast sum never reaches device memory. The design:
+// - One warp per (image, key, a group of the image's query rows), the
+//   lanes across the width: lane l takes 16-byte chunks l and l + 32, so
+//   that each warp-wide load reads 512 contiguous bytes of the key, the
+//   query or the energy vector.
+// - Each lane holds its chunks of the key row in registers and reuses them
+//   for every query row of its group (the image's beams and positions);
+//   the query rows and the energy vector come through L1, shared by the
+//   warps of a block. At most 64 registers, so that 32 warps stay resident
+//   on an SM.
+// - bf16: `q + k` for two values at once (`add.rn.bf16x2`, the correctly
+//   rounded sum that the plain version's f32 add and bf16 rounding give,
+//   since an f32 sum of two bf16 values rounds to bf16 without a second
+//   rounding that could differ), the tanh in f32 by `tanhf`, rounded two at
+//   a time (`cvt.rn.bf16x2.f32`), widened by a shift or a mask, products
+//   summed in f32.
+// - A score's partial sums meet in five shuffles, once per (row, key).
+// - Query rows are split over more warps only where the grid would
+//   otherwise be short of warps to spread over the SMs (the served step at
+//   batch 64: all 5 rows a warp, 3,136 warps; at batch 1: a row a warp).
+// No shared memory: any width that is a whole number of 16-byte chunks
+// runs; the wrapper raises on the others.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = 4;          // warps per block
+constexpr int kChunks = 2;         // a lane's chunks of a key in registers
+constexpr int kMinWarps = 16 * 132;  // four warps a scheduler on an H100
 constexpr float kMasked = -1e9f;
 
+__device__ __forceinline__ uint32_t word(const uint4& u, int i) {
+  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
+}
+
+// The two bf16 values of a word, widened (a shift and a mask).
+__device__ __forceinline__ float2 widen2(uint32_t u) {
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+
+// acc += sum over the chunk's values of round_T(tanh(round_T(q + k))) * w.
+__device__ __forceinline__ float chunk_dot(const uint4& q, const uint4& k,
+                                           const uint4& w, float acc,
+                                           float /*tag*/) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float t = tanhf(__fadd_rn(__uint_as_float(word(q, i)),
+                                    __uint_as_float(word(k, i))));
+    acc = fmaf(t, __uint_as_float(word(w, i)), acc);
+  }
+  return acc;
+}
+__device__ __forceinline__ float chunk_dot(const uint4& q, const uint4& k,
+                                           const uint4& w, float acc,
+                                           port::bf16 /*tag*/) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t qi = word(q, i), ki = word(k, i);
+    const __nv_bfloat162 sum =
+        __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&qi),
+                *reinterpret_cast<const __nv_bfloat162*>(&ki));
+    const float2 a = widen2(*reinterpret_cast<const uint32_t*>(&sum));
+    const __nv_bfloat162 t = __floats2bfloat162_rn(tanhf(a.x), tanhf(a.y));
+    const float2 tf = widen2(*reinterpret_cast<const uint32_t*>(&t));
+    const float2 wf = widen2(word(w, i));
+    acc = fmaf(tf.x, wf.x, acc);
+    acc = fmaf(tf.y, wf.y, acc);
+  }
+  return acc;
+}
+
+// Warp `item` = (image b, key j, row group g), g fastest.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) additive_scores_kernel(
+__global__ void __launch_bounds__(kWarps * 32, 8) additive_scores_kernel(
     float* __restrict__ out, const T* __restrict__ q,
     const T* __restrict__ k, const T* __restrict__ w,
-    const uint8_t* __restrict__ mask, int K, int Q, int S, int H,
-    float temperature) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // [H]
-  float* ws = qs + H;                          // [H]
-  const int row = blockIdx.x;                  // (beam row, position)
-  const int b = row / (K * Q);                 // image
-  const int j = blockIdx.y * kWarps + (threadIdx.x >> 5);  // key
-  const int tid = threadIdx.x, lane = tid & 31;
-  for (int h = tid; h < H; h += kThreads) {
-    qs[h] = port::to_f32(q[(int64_t)row * H + h]);
-    ws[h] = port::to_f32(w[h]);
-  }
-  __syncthreads();
-  if (j >= S) return;
+    const T* __restrict__ bias, const uint8_t* __restrict__ mask, int B,
+    int KQ, int S, int H, int groups, int rows_per_group, float temperature) {
+  const int lane = threadIdx.x & 31;
+  const int64_t item =
+      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (item >= static_cast<int64_t>(B) * S * groups) return;
+  const int g = static_cast<int>(item % groups);
+  const int64_t bj = item / groups;  // b * S + j
+  const int j = static_cast<int>(bj % S), b = static_cast<int>(bj / S);
+  const int nchunk = H * static_cast<int>(sizeof(T)) / 16;
+  const int npass = (nchunk + 32 * kChunks - 1) / (32 * kChunks);
+  const uint4* kr = reinterpret_cast<const uint4*>(k + bj * H);
+  const uint4* wr = reinterpret_cast<const uint4*>(w);
+  const float inv_t = __frcp_rn(temperature);
+  const float add =
+      port::round_to<T>(__fmul_rn(port::to_f32(bias[0]), inv_t));
+  const bool masked = mask != nullptr && mask[bj] != 0;
 
-  const T* kj = k + ((int64_t)b * S + j) * H;
-  float acc = 0.f;
-  for (int h = lane; h < H; h += 32) {
-    const float a = port::round_to<T>(__fadd_rn(qs[h], port::to_f32(kj[h])));
-    acc += port::round_to<T>(tanhf(a)) * ws[h];
-  }
-  acc = port::warp_sum(acc);
-  if (lane == 0) {
-    const bool masked = mask != nullptr && mask[(int64_t)b * S + j] != 0;
-    out[(int64_t)row * S + j] = masked ? kMasked : __fdiv_rn(acc, temperature);
+  uint4 kc[kChunks];
+  auto load_key = [&](int pass) {
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int c = (pass * kChunks + i) * 32 + lane;
+      kc[i] = c < nchunk ? __ldg(kr + c) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  if (npass == 1) load_key(0);
+  const int r0 = g * rows_per_group;
+  const int r1 = min(r0 + rows_per_group, KQ);
+  for (int rr = r0; rr < r1; ++rr) {
+    const int64_t row = static_cast<int64_t>(b) * KQ + rr;
+    const uint4* qr = reinterpret_cast<const uint4*>(q + row * H);
+    float acc = 0.f;
+    for (int pass = 0; pass < npass; ++pass) {
+      if (npass > 1) load_key(pass);
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i) {
+        const int c = (pass * kChunks + i) * 32 + lane;
+        if (c < nchunk) acc = chunk_dot(__ldg(qr + c), kc[i], __ldg(wr + c),
+                                        acc, T());
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0)
+      out[row * S + j] =
+          __fadd_rn(masked ? kMasked : __fmul_rn(acc, inv_t), add);
   }
 }
 
 template <typename T>
 cudaError_t launch(float* out, const void* q, const void* k, const void* w,
-                   const void* mask, int B, int K, int Q, int S, int H,
-                   float temperature, cudaStream_t stream) {
-  const size_t smem = 2 * sizeof(float) * H;
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  const dim3 grid(B * K * Q, (S + kWarps - 1) / kWarps);
-  additive_scores_kernel<T><<<grid, kThreads, smem, stream>>>(
+                   const void* bias, const void* mask, int B, int K, int Q,
+                   int S, int H, float temperature, cudaStream_t stream) {
+  if ((static_cast<int64_t>(H) * sizeof(T)) % 16) return cudaErrorInvalidValue;
+  const int KQ = K * Q;
+  const int64_t base = static_cast<int64_t>(B) * S;
+  // as many rows a warp as keeps at least kMinWarps warps
+  int rows_per_group = static_cast<int>(
+      std::min<int64_t>(KQ, std::max<int64_t>(1, base * KQ / kMinWarps)));
+  const int groups = (KQ + rows_per_group - 1) / rows_per_group;
+  const int64_t blocks = (base * groups + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  additive_scores_kernel<T><<<static_cast<unsigned>(blocks), kWarps * 32, 0,
+                              stream>>>(
       out, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(w), static_cast<const uint8_t*>(mask), K, Q, S, H,
+      static_cast<const T*>(w), static_cast<const T*>(bias),
+      static_cast<const uint8_t*>(mask), B, KQ, S, H, groups, rows_per_group,
       temperature);
   return cudaGetLastError();
 }
@@ -85,25 +178,27 @@ cudaError_t launch(float* out, const void* q, const void* k, const void* w,
 }  // namespace
 
 // Plain C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// q_proj is [B*K, Q, H], k_proj [B, S, H], energy_w [H], out [B*K, Q, S]
-// f32; mask is a [B, S] byte array (nonzero = masked) or null. Returns the
-// cudaError_t of the launch (0 = success); cudaErrorInvalidValue (1) where
-// the width needs more than 48 KB of shared memory.
+// q_proj is [B*K, Q, H], k_proj [B, S, H], energy_w [H], energy_b [1],
+// out [B*K, Q, S] f32; q_proj, k_proj and energy_w start on 16-byte
+// boundaries; mask is a [B, S] byte array (nonzero = masked) or null.
+// Returns the cudaError_t of the launch (0 = success);
+// cudaErrorInvalidValue (1) where a row of H values is not a whole number
+// of 16-byte chunks.
 extern "C" int additive_scores(int dtype, int device, void* out,
                                const void* q_proj, const void* k_proj,
-                               const void* energy_w, const void* mask, int B,
-                               int K, int Q, int S, int H, float temperature,
-                               void* stream) {
+                               const void* energy_w, const void* energy_b,
+                               const void* mask, int B, int K, int Q, int S,
+                               int H, float temperature, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   if (dtype == 1) {
-    err = launch<__nv_bfloat16>(o, q_proj, k_proj, energy_w, mask, B, K, Q, S,
-                                H, temperature, s);
+    err = launch<__nv_bfloat16>(o, q_proj, k_proj, energy_w, energy_b, mask,
+                                B, K, Q, S, H, temperature, s);
   } else if (dtype == 0) {
-    err = launch<float>(o, q_proj, k_proj, energy_w, mask, B, K, Q, S, H,
-                        temperature, s);
+    err = launch<float>(o, q_proj, k_proj, energy_w, energy_b, mask, B, K, Q,
+                        S, H, temperature, s);
   } else {
     err = cudaErrorInvalidValue;
   }

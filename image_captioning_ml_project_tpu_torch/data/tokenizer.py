@@ -1,11 +1,13 @@
-"""Word-level vocabulary: a copy of ``WordVocab`` from
-``image_captioning_ml_project_tpu.data.tokenizer`` (same ids, same JSON
-file, same ``encode``/``decode``), carried here because the port never
-imports the JAX package.
+"""Tokenizers: copies of ``WordVocab``, ``truncate_at_eos`` and
+``HFTokenizerAdapter`` from ``image_captioning_ml_project_tpu.data.
+tokenizer`` (same ids, same JSON file, same ``encode``/``decode``), carried
+here because the port never imports the JAX package.
 
-ids: ``<pad>``=0, ``<start>``=1, ``<end>``=2, ``<unk>``=3, then corpus
-words above the frequency threshold in insertion order. Words are
-lowercased alphabetic runs, digit runs and single punctuation marks.
+``WordVocab`` ids: ``<pad>``=0, ``<start>``=1, ``<end>``=2, ``<unk>``=3,
+then corpus words above the frequency threshold in insertion order. Words
+are lowercased alphabetic runs, digit runs and single punctuation marks.
+``HFTokenizerAdapter`` wraps a HuggingFace tokenizer with the same
+interface.
 """
 
 from __future__ import annotations
@@ -103,3 +105,78 @@ class WordVocab:
                 break
             words.append(self.idx2word.get(i, "<unk>"))
         return " ".join(words)
+
+
+def truncate_at_eos(ids: List[int], eos_id, bos_id=None, pad_id=None
+                    ) -> List[int]:
+    """Cut a generated id sequence at its first content-terminating EOS:
+    leading special ids (BOS, and EOS/pad where a GPT-2-style tokenizer
+    shares them) are skipped first, then everything from the next EOS on
+    is dropped."""
+    specials = {int(eos_id)}
+    if bos_id is not None:
+        specials.add(int(bos_id))
+    if pad_id is not None:
+        specials.add(int(pad_id))
+    start = 0
+    while start < len(ids) and int(ids[start]) in specials:
+        start += 1
+    for i in range(start, len(ids)):
+        if int(ids[i]) == int(eos_id):
+            return ids[:i]
+    return ids
+
+
+class HFTokenizerAdapter:
+    """A HuggingFace tokenizer with the special-token wiring of the JAX
+    package: pad falls back to eos, bos to cls, eos to sep."""
+
+    def __init__(self, hf_tokenizer):
+        self.hf = hf_tokenizer
+        if self.hf.pad_token is None:
+            self.hf.pad_token = self.hf.eos_token
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.hf)
+
+    def __len__(self):
+        return len(self.hf)
+
+    @property
+    def pad_token_id(self):
+        return self.hf.pad_token_id
+
+    @property
+    def bos_token_id(self):
+        bid = getattr(self.hf, "bos_token_id", None)
+        return bid if bid is not None else self.hf.cls_token_id
+
+    @property
+    def eos_token_id(self):
+        eid = self.hf.eos_token_id
+        # BERT-style tokenizers have no eos; [SEP] terminates sequences
+        return eid if eid is not None else self.hf.sep_token_id
+
+    def encode(self, text: str, max_length: int
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """``[BOS] token ids [EOS]``, padded or cut to ``max_length``; the
+        mask (not the pad id, which may equal eos) marks real tokens. The
+        adapter frames the specials itself (``add_special_tokens=False``)."""
+        enc = self.hf(text, truncation=True, max_length=max_length - 2,
+                      add_special_tokens=False)
+        ids = ([int(self.bos_token_id)] + list(enc["input_ids"])
+               + [int(self.eos_token_id)])
+        out = np.full(max_length, int(self.pad_token_id), dtype=np.int32)
+        mask = np.zeros(max_length, dtype=np.int32)
+        out[:len(ids)] = ids
+        mask[:len(ids)] = 1
+        return out, mask
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = True
+               ) -> str:
+        ids = [int(i) for i in ids]
+        if skip_special_tokens:
+            ids = truncate_at_eos(ids, self.eos_token_id, self.bos_token_id,
+                                  self.pad_token_id)
+        return self.hf.decode(ids, skip_special_tokens=skip_special_tokens)

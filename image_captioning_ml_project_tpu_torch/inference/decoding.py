@@ -117,7 +117,7 @@ def beam_search(step_fn, init_state, batch_size: int, beam_size: int,
     candidates finish and always runs to ``max_length``.
 
     For LM-sized vocabularies (V > 4096) the candidate step reads the raw
-    logits once through :func:`..ops.lse.lse_and_block_max` (the Triton
+    logits once through :func:`..ops.lse.lse_and_block_max` (the CUDA
     kernel on a CUDA tensor) and :func:`..ops.topk.fused_beam_top_k`,
     never materialising a vocab-sized log-softmax.
     """

@@ -31,7 +31,7 @@ import torch
 
 from .config import (AttentionType, Config, DecoderType, EncoderType,
                      get_default_config, load_config, save_config)
-from .data.tokenizer import WordVocab
+from .data.tokenizer import HFTokenizerAdapter, WordVocab
 
 
 def flagship_config() -> Config:
@@ -157,8 +157,10 @@ def build_argparser() -> argparse.ArgumentParser:
                         choices=["soft", "multi_head", "adaptive", "aoa"])
     parser.add_argument("--data_root", type=str, default=None)
     parser.add_argument("--vocab", type=str, default=None,
-                        help="Word-vocab JSON path (built from train "
-                             "annotations if absent)")
+                        help="Word-vocab JSON path; without it a locally "
+                             "cached HF tokenizer of the decoder's "
+                             "pretrained name, else a vocab built from the "
+                             "train annotations")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to serve on (cuda, cuda:N, cpu)")
     parser.add_argument("--seed", type=int, default=None,
@@ -200,24 +202,36 @@ def _update_config_from_args(config: Config, args) -> None:
 
 
 def setup_tokenizer(config: Config, vocab_path: Optional[str] = None):
-    """Resolve the word vocabulary and wire its special-token ids into the
-    config: an explicit ``--vocab`` JSON, else one built from the train
-    annotations (saved to ``output_dir/vocab.json``). HF tokenizers are not
-    used: the GPU machine carries no ``transformers``."""
+    """Resolve the tokenizer and wire its special-token ids into the
+    config, in the JAX package's order: an explicit ``--vocab`` JSON, else
+    the locally cached HF tokenizer of ``decoder.pretrained_model_name``
+    (``local_files_only``: nothing is downloaded), else a word vocabulary
+    built from the train annotations (saved to ``output_dir/vocab.json``).
+    Any failure of the HF branch, ``transformers`` missing included, falls
+    through to the word vocabulary."""
     logger = logging.getLogger(__name__)
     if vocab_path and os.path.exists(vocab_path):
         tokenizer = WordVocab.load(vocab_path)
     else:
-        train_json = os.path.join(config.data_root, config.train_json)
-        logger.info("Building word vocab from %s", train_json)
-        with open(train_json) as f:
-            ann = json.load(f)
-        tokenizer = WordVocab.build([a["caption"]
-                                     for a in ann["annotations"]])
-        os.makedirs(config.output_dir, exist_ok=True)
-        out = vocab_path or os.path.join(config.output_dir, "vocab.json")
-        tokenizer.save(out)
-        logger.info("Saved vocab (%d words) to %s", len(tokenizer), out)
+        try:
+            from transformers import AutoTokenizer
+
+            hf = AutoTokenizer.from_pretrained(
+                config.model.decoder.pretrained_model_name,
+                local_files_only=True)
+            tokenizer = HFTokenizerAdapter(hf)
+        except Exception:
+            train_json = os.path.join(config.data_root, config.train_json)
+            logger.info("No cached HF tokenizer; building word vocab from "
+                        "%s", train_json)
+            with open(train_json) as f:
+                ann = json.load(f)
+            tokenizer = WordVocab.build([a["caption"]
+                                         for a in ann["annotations"]])
+            os.makedirs(config.output_dir, exist_ok=True)
+            out = vocab_path or os.path.join(config.output_dir, "vocab.json")
+            tokenizer.save(out)
+            logger.info("Saved vocab (%d words) to %s", len(tokenizer), out)
     config.model.vocab_size = len(tokenizer)
     config.model.pad_token_id = int(tokenizer.pad_token_id)
     config.model.bos_token_id = int(tokenizer.bos_token_id)

@@ -19,6 +19,13 @@ STACK_KEYS = ("wqkv", "bqkv", "wo", "bo", "g1", "b1", "g2", "b2",
 LN_KEYS = ("g1", "b1", "g2", "b2")  # float32 whatever the working dtype
 
 
+def current_stream(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream, read without
+    building a ``torch.cuda.Stream`` object: a decode step's host time is
+    most of the step (PERF.md, section 5), and every wrapper reads it."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def check_dtype(what: str, x: torch.Tensor) -> None:
     if x.dtype not in DTYPES:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, got "
@@ -82,18 +89,21 @@ _scratch: Dict[tuple, torch.Tensor] = {}
 
 
 def scratch_buffer(what: str, shape: Tuple[int, ...], dtype: torch.dtype,
-                   device: torch.device, stream: int) -> torch.Tensor:
+                   device: torch.device, stream: int,
+                   zero: bool = False) -> torch.Tensor:
     """A kernel's scratch tensor, kept per (kernel, shape, dtype, device,
     stream, host thread) instead of allocated at every call: the
     tensor-core GEMM (csrc/common.cuh) keeps one TMA descriptor per operand
     address, and a layer loop's operands live in the scratch, so a steady
     address means no descriptor is encoded after the first call. One
     thread's launches on one stream run in order, so its buffer is never
-    shared by two calls in flight."""
+    shared by two calls in flight. With ``zero``, the buffer is zero when
+    it is made (for counters that each launch leaves at zero)."""
     key = (what, tuple(shape), dtype, device, stream, threading.get_ident())
     buf = _scratch.get(key)
     if buf is None:
-        buf = _scratch[key] = torch.empty(shape, dtype=dtype, device=device)
+        make = torch.zeros if zero else torch.empty
+        buf = _scratch[key] = make(shape, dtype=dtype, device=device)
     return buf
 
 

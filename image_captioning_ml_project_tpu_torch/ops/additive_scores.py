@@ -9,13 +9,14 @@ broadcast sum ever reaching device memory. The softmax is left to the
 caller, as there.
 
 The order of operations is the JAX function's, which is not its XLA
-path's ``(dot + b) / temperature``: inside the kernel the f32 dot with the
-energy vector, then ``/ temperature``, then -1e9 on masked keys; outside
-it ``+ energy_b / temperature`` (the bias divided in its own dtype). The
-dtype flow is the Pallas kernel's: the sum ``q_proj + k_proj`` and its
-tanh are each rounded to the input dtype (bf16 at bf16), the products with
-the energy vector are summed in f32. In float32 every rounding is the
-identity.
+path's ``(dot + b) / temperature``: the f32 dot with the energy vector,
+then ``/ temperature``, then -1e9 on masked keys, then ``+ energy_b /
+temperature`` (the bias divided in its own dtype) on every score. The JAX
+function and the plain version add the bias outside the kernel; the CUDA
+kernel adds it itself, in the same order. The dtype flow is the Pallas
+kernel's: the sum ``q_proj + k_proj`` and its tanh are each rounded to the
+input dtype (bf16 at bf16), the products with the energy vector are summed
+in f32. In float32 every rounding is the identity.
 
 The projected keys are per image and shared by the image's ``beam_size``
 query rows; with ``beam_size=1`` this is exactly the JAX function's
@@ -35,7 +36,8 @@ from typing import Optional
 import torch
 
 from ._build import load_library
-from ._checks import DTYPES, check_dtype, check_no_grad, check_tensor
+from ._checks import (DTYPES, check_dtype, check_no_grad, check_tensor,
+                      current_stream)
 
 _NEG_INF = -1e9
 
@@ -61,7 +63,9 @@ def additive_scores_plain(q_proj: torch.Tensor, k_proj: torch.Tensor,
 
 def _check_shapes(q_proj, k_proj, energy_w, energy_b, key_padding_mask,
                   beam_size):
-    """Raise on shapes that do not fit together (on any device)."""
+    """Raise on dtypes and shapes that do not fit together (on any device,
+    before any launch)."""
+    check_dtype("additive_scores", q_proj)
     if q_proj.dim() != 3 or k_proj.dim() != 3:
         raise ValueError(f"expected q_proj [rows, Q, H] and k_proj [B, S, H],"
                          f" got {tuple(q_proj.shape)} and "
@@ -86,29 +90,34 @@ def _check_shapes(q_proj, k_proj, energy_w, energy_b, key_padding_mask,
 def _kernel_fn():
     """The library's C entry point, built and typed once per process."""
     fn = load_library("additive_scores").additive_scores
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
                    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q_proj, k_proj, energy_w, key_padding_mask, temperature,
-            beam_size):
-    check_dtype("additive_scores", q_proj)
+def _launch(q_proj, k_proj, energy_w, energy_b, key_padding_mask,
+            temperature, beam_size):
     Bq, Q, H = q_proj.shape
     B, S, _ = k_proj.shape
     dev, dt = q_proj.device, q_proj.dtype
-    check_tensor("q_proj", q_proj, (Bq, Q, H), dt, dev)
-    check_tensor("k_proj", k_proj, (B, S, H), dt, dev)
-    check_tensor("energy_w", energy_w, tuple(energy_w.shape), dt, dev)
+    if H * q_proj.element_size() % 16:
+        raise ValueError(f"additive_scores kernel reads rows in 16-byte "
+                         f"chunks: width {H} in {dt} is not a whole number "
+                         f"of them")
+    check_tensor("q_proj", q_proj, (Bq, Q, H), dt, dev, aligned=True)
+    check_tensor("k_proj", k_proj, (B, S, H), dt, dev, aligned=True)
+    check_tensor("energy_w", energy_w, tuple(energy_w.shape), dt, dev,
+                 aligned=True)
+    check_tensor("energy_b", energy_b, tuple(energy_b.shape), dt, dev)
     if key_padding_mask is not None:
         check_tensor("key_padding_mask", key_padding_mask, (B, S),
                      torch.bool, dev)
     out = torch.empty((Bq, Q, S), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = current_stream(dev)
     err = _kernel_fn()(
         DTYPES[dt], dev.index, out.data_ptr(), q_proj.data_ptr(),
-        k_proj.data_ptr(), energy_w.data_ptr(),
+        k_proj.data_ptr(), energy_w.data_ptr(), energy_b.data_ptr(),
         key_padding_mask.data_ptr() if key_padding_mask is not None
         else None, B, beam_size, Q, S, H, float(temperature), stream)
     if err != 0:
@@ -136,18 +145,17 @@ def additive_scores(q_proj: torch.Tensor, k_proj: torch.Tensor,
                   beam_size)
     check_no_grad("additive_scores", q_proj, k_proj, energy_w, energy_b)
     if q_proj.device.type == "cuda":
-        scores = _launch(q_proj, k_proj, energy_w, key_padding_mask,
-                         temperature, beam_size)
-    elif q_proj.device.type == "cpu":
-        scores = additive_scores_plain(q_proj, k_proj, energy_w,
-                                       key_padding_mask,
-                                       temperature=temperature,
-                                       beam_size=beam_size)
-    else:
+        return _launch(q_proj, k_proj, energy_w, energy_b, key_padding_mask,
+                       temperature, beam_size)
+    if q_proj.device.type != "cpu":
         raise ValueError(f"additive_scores has no kernel for "
                          f"{q_proj.device}")
-    # the bias is the same for every (row, key): added outside the kernel,
+    scores = additive_scores_plain(q_proj, k_proj, energy_w,
+                                   key_padding_mask, temperature=temperature,
+                                   beam_size=beam_size)
+    # the bias is the same for every (row, key): added after the scores,
     # divided by the temperature in its own dtype, as the JAX function does
+    # (the kernel adds it in the same order)
     return scores + energy_b.reshape(()) / temperature
 
 

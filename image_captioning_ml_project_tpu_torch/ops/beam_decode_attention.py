@@ -40,7 +40,7 @@ import torch
 
 from ._build import load_library
 from ._checks import (DTYPES, check_dtype, check_no_grad, check_tensor,
-                      check_widths, error_word)
+                      check_widths, current_stream, error_word)
 from .numerics import dense
 
 _SMEM_LIMIT = 232448  # the dynamic shared memory one block may opt in to
@@ -205,7 +205,7 @@ def _launch(q, k_new, v_new, k_cache, v_cache, prefix_k, prefix_v,
     fn = _kernel_fn()
     Bk, H = q.shape
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = current_stream(q.device)
     err = fn(DTYPES[q.dtype], q.device.index, out.data_ptr(), q.data_ptr(),
              k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
              v_cache.data_ptr(), _ptr(prefix_k), _ptr(prefix_v),
@@ -309,7 +309,7 @@ def _launch_qkv(x, wqkv, bqkv, wo, bo, k_cache, v_cache, prefix_k, prefix_v,
     out = torch.empty_like(x)
     qkv = torch.empty((Bk, 3 * H), dtype=x.dtype, device=x.device)
     att = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = current_stream(x.device)
     err = fn(DTYPES[x.dtype], x.device.index, out.data_ptr(),
              qkv.data_ptr(), att.data_ptr(), x.data_ptr(), wqkv.data_ptr(),
              bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),

@@ -26,8 +26,8 @@ import torch
 
 from ._build import load_library
 from ._checks import (DTYPES, STACK_KEYS, check_dtype, check_no_grad,
-                      check_stack, check_tensor, check_widths, error_word,
-                      scratch_buffer)
+                      check_stack, check_tensor, check_widths,
+                      current_stream, error_word, scratch_buffer)
 from .beam_decode_attention import (ANC_ERROR, _check_caches,
                                     beam_decode_attention_plain,
                                     launch_error)
@@ -106,7 +106,7 @@ def _launch(x, stack, k_caches, v_caches, prefix_k, prefix_v, anc_local,
     Bk, H = x.shape
     L, _, S, _ = k_caches.shape
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = current_stream(x.device)
     scratch = scratch_buffer("beam_decode_stack", (Bk, 10 * H), x.dtype,
                              x.device, stream)
     err = fn(DTYPES[x.dtype], x.device.index, out.data_ptr(),

@@ -28,7 +28,8 @@ from typing import Optional
 import torch
 
 from ._build import load_library
-from ._checks import DTYPES, check_dtype, check_no_grad, check_tensor
+from ._checks import (DTYPES, check_dtype, check_no_grad, check_tensor,
+                      current_stream)
 
 _NEG_INF = -1e9
 # cudaErrorInvalidValue: what the C entry returns where one block would need
@@ -106,7 +107,7 @@ def _launch(q, mem_kt, mem_v, pad_mask, num_heads, beam_size, scale):
     fn = _kernel_fn()
     B, H, Sm = mem_kt.shape
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = current_stream(q.device)
     err = fn(DTYPES[q.dtype], q.device.index, out.data_ptr(), q.data_ptr(),
              mem_kt.data_ptr(), mem_v.data_ptr(),
              pad_mask.data_ptr() if pad_mask is not None else None, B,

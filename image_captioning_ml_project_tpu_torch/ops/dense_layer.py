@@ -20,7 +20,8 @@ from typing import Optional
 import torch
 
 from ._build import load_library
-from ._checks import DTYPES, check_dtype, check_no_grad, check_tensor
+from ._checks import (DTYPES, check_dtype, check_no_grad, check_tensor,
+                      current_stream)
 from .numerics import dense, gelu_new, quick_gelu_f32
 
 # the epilogues of csrc/common.cuh (`Epilogue`), by name
@@ -89,7 +90,7 @@ def _launch(x, weight, bias, residual, epilogue):
     fn = _kernel_fn()
     (M, K), N = x.shape, weight.shape[0]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = current_stream(x.device)
     err = fn(DTYPES[x.dtype], x.device.index, out.data_ptr(), N,
              x.data_ptr(), K, weight.data_ptr(), K, bias.data_ptr(),
              residual.data_ptr() if residual is not None else None, N, M, N,

@@ -30,7 +30,7 @@ import torch
 from ._build import load_library
 from ._checks import (DTYPES, STACK_KEYS, check_dtype, check_no_grad,
                       check_stack, check_tensor, check_widths,
-                      scratch_buffer)
+                      current_stream, scratch_buffer)
 from .numerics import dense, layer_norm, quick_gelu_f32
 
 
@@ -94,7 +94,7 @@ def _launch(x, stack, num_heads, eps):
     fn = _kernel_fn()
     B, T, H = x.shape
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = current_stream(x.device)
     scratch = scratch_buffer("encoder_stack", (B * T, 6 * H + F), x.dtype,
                              x.device, stream)
     err = fn(DTYPES[x.dtype], x.device.index, out.data_ptr(),

@@ -1,5 +1,5 @@
 """One-pass row logsumexp and per-block maxima over vocab-sized logits: the
-hand-written Triton kernel and its plain PyTorch version.
+hand-written CUDA kernel and its plain PyTorch version.
 
 Counterpart of ``image_captioning_ml_project_tpu.ops.pallas_lse.
 lse_and_block_max`` (the Pallas TPU kernel). The beam candidate step
@@ -7,30 +7,27 @@ lse_and_block_max`` (the Pallas TPU kernel). The beam candidate step
 logsumexp and the f32 maxima of each ``block``-wide column block of the
 ``[R, V]`` logits. The kernel produces both in one read of the logits.
 
-What bounds it on the card: device memory. The flagship step reads
-``[320, 50257]`` bf16 logits (32 MB) and does a few flops per element. The
-design: one program per row walks the vocab in ``block``-wide tiles, stores
-each tile's max, and keeps a per-lane running (max, rescaled sum) so no
-scalar is carried across the loop; the lanes are merged once at the end.
-The ragged last tile is masked with -1e30, as the Pallas kernel masks it.
-
-:func:`lse_and_block_max` dispatches on the tensor's device: a CPU tensor
-takes :func:`lse_and_block_max_plain`, a CUDA tensor launches the kernel or
-raises.
+The ragged last block's maximum takes the -1e30 padding, as the Pallas
+kernel's does. :func:`lse_and_block_max` dispatches on the tensor's device:
+a CPU tensor takes :func:`lse_and_block_max_plain`; a CUDA tensor launches
+``csrc/lse.cu`` (see the note there for what bounds it on the card and how
+the design answers) or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ._checks import check_no_grad
+from ._build import load_library
+from ._checks import check_no_grad, current_stream, scratch_buffer
 
 _NEG = -1e30  # mask value of the ragged last block (as in pallas_lse.py)
-_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def lse_and_block_max_plain(logits: torch.Tensor, block: int = 512
@@ -43,55 +40,50 @@ def lse_and_block_max_plain(logits: torch.Tensor, block: int = 512
     return torch.logsumexp(x, dim=-1), padded.view(R, nblk, block).amax(-1)
 
 
-@functools.cache
-def _build_kernel():
-    """Define the Triton kernel, once. Triton is imported here, not when
-    the module is imported: the CPU test environment has none."""
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def lse_block_max_kernel(x_ptr, lse_ptr, bm_ptr, V, stride_row, nblk,
-                             BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        lanes = tl.arange(0, BLOCK)
-        base = x_ptr + row.to(tl.int64) * stride_row
-        m = tl.full([BLOCK], -1e30, tl.float32)
-        s = tl.zeros([BLOCK], tl.float32)
-        for blk in range(0, nblk):
-            offs = blk * BLOCK + lanes
-            x = tl.load(base + offs, mask=offs < V, other=-1e30)
-            x = x.to(tl.float32)
-            tl.store(bm_ptr + row * nblk + blk, tl.max(x, axis=0))
-            m_new = tl.maximum(m, x)
-            s = s * tl.exp(m - m_new) + tl.exp(x - m_new)
-            m = m_new
-        mx = tl.max(m, axis=0)
-        total = tl.sum(s * tl.exp(m - mx), axis=0)
-        tl.store(lse_ptr + row, mx + tl.log(total))
-
-    return lse_block_max_kernel
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    """The library's C entry point, built and typed once per process."""
+    fn = load_library("lse").lse_and_block_max
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_longlong] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 4)
+    fn.restype = ctypes.c_int
+    return fn
 
 
-def _launch(logits: torch.Tensor, block: int):
+def _check(logits: torch.Tensor, block: int) -> None:
+    """Raise on what the kernel does not take (on any device, before any
+    launch)."""
     if logits.dtype not in _DTYPES:
-        raise TypeError(f"lse_and_block_max kernel takes {_DTYPES}, got "
+        raise TypeError(f"lse_and_block_max takes {tuple(_DTYPES)}, got "
                         f"{logits.dtype}")
     if logits.dim() != 2 or logits.stride(1) != 1:
         raise ValueError(f"expected [R, V] logits with unit column stride, "
                          f"got shape {tuple(logits.shape)} strides "
                          f"{logits.stride()}")
-    if block < 16 or block & (block - 1):
-        raise ValueError(f"block must be a power of two >= 16, got {block}")
-    R, V = logits.shape
-    if R == 0 or V == 0:
+    if block < 16 or block > 512 or block & (block - 1):
+        raise ValueError(f"block must be a power of two from 16 to 512 (the "
+                         f"kernel reads a block in one pass), got {block}")
+    if logits.numel() == 0:
         raise ValueError(f"empty logits {tuple(logits.shape)}")
+
+
+def _launch(logits: torch.Tensor, block: int):
+    R, V = logits.shape
     nblk = -(-V // block)
-    lse = torch.empty(R, dtype=torch.float32, device=logits.device)
-    bm = torch.empty((R, nblk), dtype=torch.float32, device=logits.device)
-    with torch.cuda.device(logits.device):
-        _build_kernel()[(R,)](logits, lse, bm, V, logits.stride(0), nblk,
-                              BLOCK=block, num_warps=4, num_stages=4)
+    dev = logits.device
+    stream = current_stream(dev)
+    lse = torch.empty(R, dtype=torch.float32, device=dev)
+    bm = torch.empty((R, nblk), dtype=torch.float32, device=dev)
+    # the rows' counters (zero between launches), then the partials
+    scratch = scratch_buffer("lse", ((R + 1) // 2 * 2 + 2 * R * nblk,),
+                             torch.int32, dev, stream, zero=True)
+    err = _kernel_fn()(_DTYPES[logits.dtype], dev.index, logits.data_ptr(),
+                       logits.stride(0), R, V, block, lse.data_ptr(),
+                       bm.data_ptr(), scratch.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"lse_and_block_max kernel launch failed: "
+                           f"cudaError {err}")
     lse_and_block_max.launches += 1
     return lse, bm
 
@@ -100,9 +92,11 @@ def lse_and_block_max(logits: torch.Tensor, block: int = 512
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits [R, V] (float32/bfloat16/float16) -> (lse [R] f32,
     block_max [R, ceil(V/block)] f32), in one streaming pass on the card.
+    ``block`` is a power of two from 16 to 512 on any device.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the Triton
+    A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (counted in ``lse_and_block_max.launches``) or raises."""
+    _check(logits, block)
     check_no_grad("lse_and_block_max", logits)
     if logits.device.type == "cuda":
         return _launch(logits, block)

@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import load_library
-from ._checks import DTYPES, check_dtype, check_no_grad
+from ._checks import DTYPES, check_dtype, check_no_grad, current_stream
 
 _NEG_INF = -1e9
 # cudaErrorInvalidValue: what the C entry returns where one block would need
@@ -120,7 +120,7 @@ def _launch(q, k, v, key_padding_mask, scale, beam_size):
     w = torch.empty((Bq, NH, Q, S), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
                                    *v.stride()[:3])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = current_stream(q.device)
     err = fn(DTYPES[q.dtype], q.device.index, ctx.data_ptr(), w.data_ptr(),
              q.data_ptr(), k.data_ptr(), v.data_ptr(),
              key_padding_mask.data_ptr() if key_padding_mask is not None

@@ -58,7 +58,9 @@ def fused_beam_top_k(logits: torch.Tensor, row_bias: torch.Tensor,
     dev = logits.device
 
     if block_max is not None:
-        bm = block_max.float().clone()
+        bm = block_max.float()
+        if suppressing:  # written below: a private copy, not the caller's
+            bm = bm.clone()
     else:
         padded = torch.nn.functional.pad(
             logits.float(), (0, nblk * block - V), value=_NEG_INF)

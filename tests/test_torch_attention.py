@@ -175,6 +175,26 @@ def test_additive_wrapper_raises_on_shapes_that_do_not_fit(change, match):
         adds.additive_scores(*change(args), temperature=1.0, beam_size=3)
 
 
+@pytest.mark.parametrize("change,error,match", [
+    (lambda a: tuple(t.half() for t in a[:4]) + a[4:], TypeError,
+     "float32 or bfloat16"),
+    (lambda a: tuple(t.double() for t in a[:4]) + a[4:], TypeError,
+     "float32 or bfloat16"),
+    (lambda a: (a[0][:, :0],) + a[1:], ValueError, "empty scores"),
+    (lambda a: (a[0], a[1][:, :0]) + a[2:4] + (a[4][:, :0],), ValueError,
+     "empty scores"),
+], ids=["float16", "float64", "no queries", "no keys"])
+def test_additive_wrapper_raises_before_any_launch(change, error, match):
+    """Dtypes and empty inputs raise on any device, before the
+    dispatch."""
+    args = (torch.zeros(6, 1, 8), torch.zeros(2, 5, 8), torch.zeros(1, 8),
+            torch.zeros(1), torch.zeros(2, 5, dtype=torch.bool))
+    before = adds.additive_scores.launches
+    with pytest.raises(error, match=match):
+        adds.additive_scores(*change(args), temperature=1.0, beam_size=3)
+    assert adds.additive_scores.launches == before
+
+
 def test_wrappers_dispatch_on_the_device():
     q, k = torch.zeros(2, 1, 1, 8), torch.zeros(2, 1, 3, 8)
     with pytest.raises(ValueError, match="no kernel for meta"):

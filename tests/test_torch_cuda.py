@@ -2,8 +2,8 @@
 versions: beam-decode attention, folded-QKV attention, the whole-stack
 GPT-2 decode step, the whole-stack CLIP encoder, the Dense GEMM they share
 by itself, the Transformer decoder's
-cross-attention step, the attention variants' SDPA and additive scores
-(CUDA C++), and LSE/block-max (Triton); then a tiny model's decode on the
+cross-attention step, the attention variants' SDPA and additive scores,
+and LSE/block-max (all CUDA C++); then a tiny model's decode on the
 card against the same decode on the CPU, on each decode configuration of
 CLIP + GPT-2 and of ViT + Transformer, and for ResNet + LSTM with each
 attention variant.
@@ -266,8 +266,13 @@ def test_attention_kernel_raises_on_what_it_does_not_take(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("R,V", [(320, 50257), (320, 30000), (6, 1000),
-                                 (3, 4097)])
+                                 (3, 4097), (320, 10000), (40, 50257),
+                                 (40, 30000), (40, 10000), (5, 50257),
+                                 (5, 30000), (5, 10000)])
 def test_lse_kernel_matches_plain(dev, dtype, R, V):
+    """R = 5 / 40 / 320 are the candidate step's rows at batch 1 / 8 / 64;
+    V the LSTM's, the Transformer decoder's and GPT-2's vocabularies (and
+    two odd ones). Block maxima bit-identical, the LSE within rtol 1e-5."""
     g = torch.Generator().manual_seed(V)
     x = (torch.randn((R, V), generator=g) * 3).to(dtype)
     before = port_lse.lse_and_block_max.launches
@@ -285,6 +290,62 @@ def test_lse_kernel_reads_a_row_strided_view(dev):
     want_lse, want_bm = port_lse.lse_and_block_max_plain(view.cpu())
     torch.testing.assert_close(lse.cpu(), want_lse, rtol=1e-5, atol=0)
     assert torch.equal(bm.cpu(), want_bm)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("R,V", [(320, 50257), (5, 10000), (7, 600)])
+def test_lse_kernel_reads_misaligned_rows(dev, dtype, R, V):
+    """A view whose row stride is odd and whose first column is not the
+    allocation's: every row starts at another offset from a 16-byte
+    boundary, and the 512-blocks straddle the kernel's vectors."""
+    g = torch.Generator().manual_seed(R + V)
+    width = V + 1 + V % 2  # odd
+    x = (torch.randn((R, width), generator=g) * 3).to(dtype).to(dev)
+    view = x[:, 1:V + 1]
+    assert view.stride(0) % 2 == 1
+    lse, bm = port_lse.lse_and_block_max(view)
+    want_lse, want_bm = port_lse.lse_and_block_max_plain(view.cpu())
+    torch.testing.assert_close(lse.cpu(), want_lse, rtol=1e-5, atol=0)
+    assert torch.equal(bm.cpu(), want_bm)
+
+
+def test_lse_kernel_runs_are_bit_identical(dev):
+    """The rows' partials merge in a fixed order, whichever block of a row
+    ends last."""
+    g = torch.Generator().manual_seed(11)
+    for R in (5, 40, 320):
+        x = (torch.randn((R, 50257), generator=g) * 3).bfloat16().to(dev)
+        first = port_lse.lse_and_block_max(x)
+        for _ in range(3):
+            again = port_lse.lse_and_block_max(x)
+            assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_lse_kernel_keeps_minus_inf_and_the_ragged_padding(dev):
+    """Rows of -inf (a suppressed vocabulary) give -inf, as
+    ``torch.logsumexp`` does; the ragged block's maximum takes the -1e30
+    padding where every real column lies below it."""
+    x = torch.randn((4, 1100), device=dev)
+    x[1] = float("-inf")
+    x[2, 1024:] = -3e30
+    lse, bm = port_lse.lse_and_block_max(x)
+    want_lse, want_bm = port_lse.lse_and_block_max_plain(x.cpu())
+    torch.testing.assert_close(lse.cpu(), want_lse, rtol=1e-5, atol=0)
+    assert float(lse[1]) == float("-inf")
+    assert torch.equal(bm.cpu(), want_bm)
+    assert float(bm[2, 2]) == float(torch.tensor(-1e30))  # in float32
+
+
+def test_lse_kernel_raises_on_what_it_does_not_take(dev):
+    before = port_lse.lse_and_block_max.launches
+    with pytest.raises(TypeError, match="takes"):
+        port_lse.lse_and_block_max(torch.zeros((3, 600), device=dev,
+                                               dtype=torch.float64))
+    with pytest.raises(ValueError, match="unit column stride"):
+        port_lse.lse_and_block_max(torch.zeros((600, 3), device=dev).t())
+    with pytest.raises(ValueError, match="empty logits"):
+        port_lse.lse_and_block_max(torch.zeros((0, 600), device=dev))
+    assert port_lse.lse_and_block_max.launches == before
 
 
 def _stack_weights(L, H, F, dtype, seed):
@@ -619,6 +680,12 @@ def test_sdpa_kernel_raises_on_what_it_does_not_take(dev):
     (64, 5, 1, 49, 512, True),
     (64, 1, 20, 49, 512, True),   # teacher-forced shape, Q = 20
     (3, 3, 5, 13, 40, True),      # odd rows, width not a multiple of 32
+    (1, 5, 1, 49, 512, False),    # the service's buckets 1 and 8
+    (1, 5, 1, 49, 512, True),
+    (8, 5, 1, 49, 512, False),
+    (8, 5, 1, 49, 512, True),
+    (64, 1, 20, 49, 512, False),
+    (2, 3, 2, 7, 1024, True),     # two passes of a lane's key chunks
 ])
 def test_additive_scores_kernel_matches_plain(dev, dtype, B, K, Q, S, H,
                                               masked):
@@ -648,19 +715,57 @@ def test_additive_scores_kernel_matches_plain(dev, dtype, B, K, Q, S, H,
     assert float((got - want)[keep].abs().max()) <= 1e-5 * mag
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_additive_scores_kernel_adds_the_bias(dev, dtype):
+    """The kernel adds ``round_T(energy_b / T)`` to every score, masked
+    ones included, as the plain version plus the bias does."""
+    g = torch.Generator().manual_seed(77)
+    B, K, S, H = 4, 5, 49, 512
+    qp = (torch.randn((B * K, 1, H), generator=g) * 0.5).to(dev, dtype)
+    kp = (torch.randn((B, S, H), generator=g) * 0.5).to(dev, dtype)
+    ew = (torch.randn((1, H), generator=g) * 0.1).to(dev, dtype)
+    mask = (torch.rand((B, S), generator=g) < 0.25).to(dev)
+    mask[:, 0] = False
+    for bias, T in ((3.3, 0.6), (-1.7, 1.3), (0.0, 2.0)):
+        eb = torch.tensor([bias], dtype=dtype, device=dev)
+        got = adds.additive_scores(qp, kp, ew, eb, mask, temperature=T,
+                                   beam_size=K)
+        scores = adds.additive_scores_plain(qp, kp, ew, mask, temperature=T,
+                                            beam_size=K)
+        want = scores + eb.reshape(()) / T
+        keep = ~mask[:, None, None, :].expand(B, K, 1, S).reshape(B * K, 1,
+                                                                  S)
+        assert torch.equal(got[~keep], want[~keep])
+        mag = float(want[keep].abs().max())
+        assert float((got - want)[keep].abs().max()) <= 1e-5 * mag
+
+
 def test_additive_scores_kernel_raises_on_what_it_does_not_take(dev):
+    """The kernel reads rows in 16-byte chunks from 16-byte boundaries; it
+    has no shared memory and so no other limit on the width."""
     qp, kp = torch.zeros((2, 1, 8), device=dev), torch.zeros((2, 3, 8),
                                                              device=dev)
     ew, eb = torch.zeros((1, 8), device=dev), torch.zeros(1, device=dev)
     kw = dict(temperature=1.0, beam_size=1)
+    before = adds.additive_scores.launches
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         adds.additive_scores(qp.half(), kp.half(), ew.half(), eb, None, **kw)
     with pytest.raises(ValueError, match="k_proj is"):
         adds.additive_scores(qp, kp.cpu(), ew, eb, None, **kw)
-    with pytest.raises(RuntimeError, match="width 20000"):
-        adds.additive_scores(torch.zeros((1, 1, 20000), device=dev),
-                             torch.zeros((1, 2, 20000), device=dev),
-                             torch.zeros(20000, device=dev), eb, None, **kw)
+    with pytest.raises(ValueError, match="width 6"):
+        adds.additive_scores(qp[..., :6].contiguous(),
+                             kp[..., :6].contiguous(),
+                             ew[:, :6].contiguous(), eb, None, **kw)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flat = torch.zeros(2 * 8 + 1, device=dev)
+        adds.additive_scores(flat[1:].view(2, 1, 8), kp, ew, eb, None, **kw)
+    with pytest.raises(ValueError, match="energy_b is"):
+        adds.additive_scores(qp, kp, ew, eb.bfloat16(), None, **kw)
+    assert adds.additive_scores.launches == before
+    wide = torch.zeros((1, 1, 20000), device=dev)  # no width limit
+    out = adds.additive_scores(wide, torch.zeros((1, 2, 20000), device=dev),
+                               torch.zeros(20000, device=dev), eb, None, **kw)
+    assert torch.equal(out, torch.zeros((1, 1, 2), device=dev))
 
 
 _CONFIGS = {"stack": ("1", "1", "1"), "fold": ("0", "1", "1"),

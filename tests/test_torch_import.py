@@ -1,7 +1,9 @@
 """The port imports no JAX: in a fresh interpreter, importing every module
 of ``image_captioning_ml_project_tpu_torch`` and building and running a
-tiny model of each ported family leaves ``jax``, ``flax`` and the JAX package
-``image_captioning_ml_project_tpu`` out of ``sys.modules``. And
+tiny model of each ported family leaves ``jax``, ``flax``, ``triton`` and the
+JAX package ``image_captioning_ml_project_tpu`` out of ``sys.modules``; no
+source of the port names ``triton`` in an import (its kernels are CUDA C++
+built with nvcc). And
 ``chip_smoke.py`` refuses to run, printing no result, without a GPU or
 without the port beside it."""
 
@@ -41,7 +43,7 @@ for make in CONFIGS.values():
                                              dtype=torch.uint8), 4)
         model.step(state, torch.ones(1, dtype=torch.long))
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax",
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton",
                                     "image_captioning_ml_project_tpu"))
 print(bad)
 sys.exit(1 if bad else 0)
@@ -59,6 +61,24 @@ def test_port_never_imports_jax_or_flax():
                           env=_env(), capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_import_no_triton():
+    """Imports inside functions included: where Triton is not installed,
+    the probe above would not see a lazy one."""
+    import re
+
+    port = os.path.join(REPO, "image_captioning_ml_project_tpu_torch")
+    pattern = re.compile(r"^\s*(import|from)\s+triton\b", re.M)
+    sources = [os.path.join(d, f) for d, _, files in os.walk(port)
+               for f in files if f.endswith(".py")]
+    sources.append(os.path.join(REPO, "chip_smoke.py"))
+    found = []
+    for path in sources:
+        with open(path) as f:
+            if pattern.search(f.read()):
+                found.append(os.path.relpath(path, REPO))
+    assert len(sources) > 20 and found == []
 
 
 def test_chip_smoke_fails_without_a_gpu_or_the_port(tmp_path):
