@@ -14,7 +14,7 @@ prints no result line:
    comparisons;
 2. build: compiles the eight ``csrc/*.cu`` libraries with nvcc from the
    checkout, one process each, all started together, and prints ptxas's
-   register and spill lines;
+   register and spill lines (``sdpa`` must not spill);
 3. kernels: each of the eight kernels against its plain PyTorch version
    on the card, at the served shapes of each family that runs it (the
    beam-decode attention kernels prefix-free for the Transformer decoder
@@ -22,8 +22,10 @@ prints no result line:
    5, 40 and 320 rows over vocabularies of 10000, 30000 and 50257 in
    float32, bfloat16 and float16, on a view whose rows start off 16-byte
    boundaries, and twice bit-identical; SDPA at the LSTM's 64 images x 5
-   beams over 49 feature rows and the additive scores at 1, 8 and 64
-   images, masked and not, and both at its teacher-forced 20 positions),
+   beams over 49 feature rows, unmasked, masked and with one image's keys
+   all masked, bf16 on its tensor-core route and float32 on its CUDA-core
+   one, and the additive scores at 1, 8 and 64 images, masked and not, and
+   both at its teacher-forced 20 positions),
    in float32 and bfloat16, with its tolerance. Timed in bf16 (CUDA
    events, median of 30 runs; the device time behind a spin kernel),
    beside the least time the card could take for the same work
@@ -31,10 +33,12 @@ prints no result line:
    operations over the peak rate of their type) and, where one PyTorch call computes
    the same function, that call's time (``library_ms``). The four
    decode-step kernels (#1 and #2 prefix-free and behind the prefix, #3,
-   #6) and the two candidate-step kernels (#4 over each vocabulary, #8)
-   are held against their plain versions again and timed at batch 1, 8
-   and 64, the service's buckets (:func:`sweep_decode_kernels`,
-   :func:`sweep_lse`, :func:`sweep_additive`; ``--time-tree DIR`` runs
+   #6), the two candidate-step kernels (#4 over each vocabulary, #8) and
+   the multi-head attention core (#7, with its teacher-forced shape) are
+   held against their plain versions again and timed at batch 1, 8 and
+   64, the service's buckets (:func:`sweep_decode_kernels`,
+   :func:`sweep_lse`, :func:`sweep_additive`, :func:`sweep_sdpa`;
+   ``--time-tree DIR`` runs
    only those sweeps, on the package of another tree, so that two trees
    compare inside one run); then the beam attention's ancestry error word
    must be clear. Before them, the Dense
@@ -807,79 +811,130 @@ def _attention_memory(torch, g, dev, dtype, B, K, Q):
             randn(B, LSTM_S, LSTM_H), mask)
 
 
-def check_sdpa(torch, dev, results):
-    """The multi-head variant's SDPA at the LSTM family's shapes, masked
-    and unmasked, against its plain version; the served shape timed in
-    bf16 beside ``scaled_dot_product_attention`` on the same q/k/v (its
-    time only: SDPA gives no weights, and the port never calls it)."""
+def _sdpa_heads(x):
+    """[N, T, H] -> the [N, NH, T, hd] view, as the multi-head module takes
+    it (the heads transposed, no copy)."""
+    N, T, _ = x.shape
+    return x.view(N, T, LSTM_NH, LSTM_H // LSTM_NH).transpose(1, 2)
+
+
+def check_sdpa_once(torch, what, q, k, v, mask, dtype, **kw):
+    """#7 against its plain version: weights within 1e-5 of the largest;
+    the context in f32 within 1e-5 of its largest (another summation
+    order), in bf16 within 2 ulps (a weight within an f32 rounding of a
+    bf16 boundary rounds the other way). Returns the context's error."""
     from image_captioning_ml_project_tpu_torch.ops.sdpa import (sdpa,
                                                                 sdpa_plain)
 
-    NH, hd = LSTM_NH, LSTM_H // LSTM_NH
+    ctx, w = sdpa(q, k, v, mask, **kw)
+    ctx_p, w_p = sdpa_plain(q, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    err = check_close(f"{what} context", ctx, ctx_p, dtype, 1e-5, 2)
+    check_close(f"{what} weights", w, w_p, "float32", 1e-5, 0)
+    return err
+
+
+def check_sdpa(torch, dev):
+    """The multi-head variant's SDPA at the LSTM family's shapes against
+    its plain version, in float32 and bfloat16, unmasked, masked, and
+    masked with one image's keys all masked (uniform weights 1/S over its
+    real keys); bf16 must take the tensor-core route and float32 the
+    CUDA-core one. Returns {"lstm": the worst bf16 context error at the
+    served shape}."""
+    from image_captioning_ml_project_tpu_torch.ops.sdpa import sdpa
+
+    hd = LSTM_H // LSTM_NH
     g = torch.Generator(device=dev).manual_seed(6789)
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-
-    def heads(x):
-        N, T, _ = x.shape
-        return x.view(N, T, NH, hd).transpose(1, 2)
-
     worst = 0.0
     for label, B, K, Q in LSTM_ATTENTION_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype)[6:]
             q, k, v, mask = _attention_memory(torch, g, dev, dtype, B, K, Q)
-            q, k, v = heads(q), heads(k), heads(v)
-            kw = dict(scale=hd ** -0.5, beam_size=K)
-            for masked in (True, False):
-                m = mask if masked else None
-                ctx, w = sdpa(q, k, v, m, **kw)
-                ctx_p, w_p = sdpa_plain(q, k, v, m, **kw)
-                torch.cuda.synchronize()
-                what = f"sdpa {name} {label} [{B}x{K}, Q={Q}] masked={masked}"
-                # f32: another summation order; bf16: a weight within an
-                # f32 rounding of a bf16 boundary rounds the other way
-                err = check_close(f"{what} context", ctx, ctx_p, name, 1e-5,
-                                  2)
-                check_close(f"{what} weights", w, w_p, "float32", 1e-5, 0)
+            q, k, v = _sdpa_heads(q), _sdpa_heads(k), _sdpa_heads(v)
+            dark = mask.clone()
+            dark[B // 2] = True
+            for masking, m in (("unmasked", None), ("masked", mask),
+                               ("one image all masked", dark)):
+                what = f"sdpa {name} {label} [{B}x{K}, Q={Q}] {masking}"
+                err = check_sdpa_once(torch, what, q, k, v, m, name,
+                                      scale=hd ** -0.5, beam_size=K)
+                want = "tensor_cores" if dtype == torch.bfloat16 \
+                    else "cuda_cores"
+                check(sdpa.last_route == want,
+                      f"{what}: ran on the {sdpa.last_route} route, "
+                      f"expected {want}")
                 if dtype == torch.bfloat16 and label == "served":
                     worst = max(worst, err)
-            if dtype == torch.bfloat16 and label == "served":
-                ms, dev_ms = time_ms(torch, lambda: sdpa(q, k, v, mask,
-                                                         **kw),
-                                     flush=flush, device=True)
-                plain_ms = time_ms(torch, lambda: sdpa_plain(
-                    q, k, v, mask, **kw), flush=flush)
-                # SDPA on the same values: q [B, K, NH, 1, hd], the image's
-                # keys and values expanded over its beams (views), the mask
-                # as SDPA's (True = attend)
-                q5 = q.view(B, K, NH, Q, hd) if q.is_contiguous() else \
-                    q.reshape(B, K, NH, Q, hd)
-                k5 = k[:, None].expand(B, K, NH, LSTM_S, hd)
-                v5 = v[:, None].expand(B, K, NH, LSTM_S, hd)
-                attend = ~mask[:, None, None, None, :]
+    return {"lstm": worst}
 
-                def library():
-                    return torch.nn.functional.scaled_dot_product_attention(
-                        q5, k5, v5, attn_mask=attend, scale=kw["scale"])
 
-                lib_ms = time_ms(torch, library, flush=flush)
-                lib_err = max_err(library().reshape(B * K, NH, Q, hd),
-                                  sdpa_plain(q, k, v, mask, **kw)[0])
-                nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 \
-                    + w.numel() * 4 + mask.numel()
-                bnd = bound(nbytes, {"f32": 4 * B * K * Q * LSTM_S * LSTM_H})
-                print(f"sdpa bf16 served [{B}x{K}, Q={Q}, S={LSTM_S}, "
-                      f"{NH}x{hd}]: kernel {ms:.4f} ms (device "
-                      f"{dev_ms:.4f} ms), plain {plain_ms:.4f} "
-                      f"ms, SDPA {lib_ms:.4f} ms (L2 flushed before each "
-                      f"run; SDPA returns no weights); SDPA's max_abs_err "
-                      f"against the plain context {lib_err:.3e}; bound "
-                      f"{bnd['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB)",
-                      flush=True)
-                entry = shape_entry(
-                    f"B={B} K={K} Q={Q} S={LSTM_S} NH={NH} hd={hd} masked "
-                    f"bf16", worst, ms, plain_ms, bnd, lib_ms, dev_ms)
-    results["sdpa"] = {"lstm": entry}
+def sdpa_bound(B, K, Q):
+    """bf16 q read and the context written, the image's keys and values
+    read once, the f32 weights written, the mask read; the two products, 4
+    operations per (row, key, width), on the tensor cores."""
+    rows = B * K * Q
+    nbytes = (2 * rows * LSTM_H + 2 * B * LSTM_S * LSTM_H) * 2 \
+        + rows * LSTM_NH * LSTM_S * 4 + B * LSTM_S
+    return bound(nbytes, {"bf16_tensor": 4 * rows * LSTM_S * LSTM_H})
+
+
+def sweep_sdpa(torch, dev, smi):
+    """#7 at the LSTM's served shape (5 beams, one query, 49 keys, 8 heads
+    of 64, masked, bf16) at batch 1, 8 and 64, and at the teacher-forced
+    shape (64 images x 20 positions): held against its plain version, then
+    the device time, event time, bound, the plain version's time and
+    ``scaled_dot_product_attention``'s on the same q/k/v (timed only: SDPA
+    gives no weights, and the port never calls it), the inputs flushed from
+    L2 before each run. Uses only the public wrappers (``--time-tree``).
+    Returns {"lstm": {batch or "teacher-forced": shape_entry}}."""
+    from image_captioning_ml_project_tpu_torch.ops.sdpa import (sdpa,
+                                                                sdpa_plain)
+
+    NH, hd = LSTM_NH, LSTM_H // LSTM_NH
+    g = torch.Generator(device=dev).manual_seed(6790)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    out = {}
+    cases = [(B, B, 5, 1) for B in SWEEP_BATCHES] + [
+        ("teacher-forced", 64, 1, 20)]
+    for key, B, K, Q in cases:
+        q, k, v, mask = _attention_memory(torch, g, dev, torch.bfloat16, B,
+                                          K, Q)
+        q, k, v = _sdpa_heads(q), _sdpa_heads(k), _sdpa_heads(v)
+        kw = dict(scale=hd ** -0.5, beam_size=K)
+        what = f"sweep sdpa lstm {key if key != B else f'B={B}'}"
+        err = check_sdpa_once(torch, what, q, k, v, mask, "bfloat16", **kw)
+        ms, dev_ms = time_ms(torch, lambda: sdpa(q, k, v, mask, **kw),
+                             flush=flush, device=True)
+        plain_ms = time_ms(torch, lambda: sdpa_plain(q, k, v, mask, **kw),
+                           flush=flush)
+        # SDPA on the same values: q [B, K, NH, Q, hd], the image's keys and
+        # values expanded over its beams (views), the mask as SDPA's (True
+        # = attend)
+        q5 = q.reshape(B, K, NH, Q, hd)
+        k5 = k[:, None].expand(B, K, NH, LSTM_S, hd)
+        v5 = v[:, None].expand(B, K, NH, LSTM_S, hd)
+        attend = ~mask[:, None, None, None, :]
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q5, k5, v5, attn_mask=attend, scale=kw["scale"])
+
+        lib_ms = time_ms(torch, library, flush=flush)
+        bnd = sdpa_bound(B, K, Q)
+        print(f"{what} [{B}x{K}, Q={Q}, S={LSTM_S}, {NH}x{hd}, masked]: "
+              f"device {dev_ms:.4f} ms, event {ms:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain "
+              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (L2 flushed) "
+              f"[{smi}]", flush=True)
+        if key == SWEEP_BATCHES[-1]:
+            lib_err = max_err(library().reshape(B * K, NH, Q, hd),
+                              sdpa_plain(q, k, v, mask, **kw)[0])
+            print(f"{what}: SDPA's max_abs_err against the plain context "
+                  f"{lib_err:.3e}", flush=True)
+        out[key] = shape_entry(
+            f"B={B} K={K} Q={Q} S={LSTM_S} NH={NH} hd={hd} masked bf16",
+            err, ms, plain_ms, bnd, lib_ms, dev_ms)
+    return {"lstm": out}
 
 
 def additive_inputs(torch, g, dev, dtype, B, K, Q):
@@ -1366,8 +1421,9 @@ def main():
     parser.add_argument(
         "--time-tree", metavar="DIR",
         help="only build the port's package found in DIR (an earlier tree "
-             "unpacked beside this one) and time its decode-step and "
-             "candidate-step kernels (phase 3's sweeps), printing the "
+             "unpacked beside this one) and time its decode-step, "
+             "candidate-step and attention-variant kernels (phase 3's "
+             "sweeps), printing the "
              "numbers as one JSON line; for comparisons inside one run on "
              "one card")
     args = parser.parse_args()
@@ -1432,12 +1488,17 @@ def main():
                 r"(\d+) bytes spill (?:stores|loads)", log))
             print(f"ptxas {name}: {len(regs)} kernels, registers "
                   f"{sorted(set(regs))}, spill bytes {spills}", flush=True)
+            # the tensor-core SDPA holds its scores, weights and mix in
+            # registers: a spill would put them back in memory
+            check(name != "sdpa" or args.time_tree or spills == 0,
+                  f"ptxas: {name} spills {spills} bytes")
 
         if args.time_tree:
             phase(f"decode-step and candidate-step kernels of {root}")
             sweep = sweep_decode_kernels(torch, dev, smi)
             sweep["lse_and_block_max"] = sweep_lse(torch, dev, smi)
             sweep["additive_scores"] = sweep_additive(torch, dev, smi)
+            sweep["sdpa"] = sweep_sdpa(torch, dev, smi)
             print(json.dumps({"tree": root, "sweep": sweep}), flush=True)
             return
 
@@ -1450,7 +1511,7 @@ def main():
         worst["beam_decode_stack"] = check_stack(torch, dev)
         check_encoder(torch, dev, results)
         worst["cross_attention"] = check_cross(torch, dev)
-        check_sdpa(torch, dev, results)
+        worst["sdpa"] = check_sdpa(torch, dev)
         check_additive(torch, dev)
         # the decode-step and candidate-step kernels' errors and times at
         # each bucket; the summary keeps batch 64's beside the worst bf16
@@ -1458,6 +1519,7 @@ def main():
         sweep = sweep_decode_kernels(torch, dev, smi)
         sweep["lse_and_block_max"] = sweep_lse(torch, dev, smi)
         sweep["additive_scores"] = sweep_additive(torch, dev, smi)
+        sweep["sdpa"] = sweep_sdpa(torch, dev, smi)
         for kernel, by_family in sweep.items():
             results[kernel] = {}
             for family, by_batch in by_family.items():

@@ -1,6 +1,7 @@
-// Device building blocks shared by the port's layer kernels (sm_90a):
-// type conversions, warp reductions, the flax-exact LayerNorm, the
-// activations, and a tiled GEMM with the JAX `nn.Dense` epilogue.
+// Device building blocks shared by the port's layer kernels (sm_90a): the
+// flax-exact LayerNorm, the activations, and a tiled GEMM with the JAX
+// `nn.Dense` epilogue, on the primitives of device.cuh (conversions,
+// reductions, cp.async, mma.sync).
 //
 // Rounding follows the JAX package, not `nn.Linear`: a Dense layer's f32
 // dot is rounded to the working type and the bias is then added in that
@@ -17,79 +18,15 @@
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cudaTypedefs.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
 
 #include <algorithm>
-#include <cstdint>
 #include <cstdio>
 #include <mutex>
 #include <unordered_map>
 
-// Evaluate a launch that returns cudaError_t; return it from the enclosing
-// function if it failed.
-#define PORT_TRY(expr)                         \
-  do {                                         \
-    const cudaError_t port_err_ = (expr);      \
-    if (port_err_ != cudaSuccess) return port_err_; \
-  } while (0)
+#include "device.cuh"
 
 namespace port {
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and widened back: the value a T tensor would hold.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Programmatic dependent launch: a kernel launched with
-// `cudaLaunchAttributeProgrammaticStreamSerialization` may start while the
-// kernel before it on the stream still runs, once every block of that one
-// has called `launch_dependents`; it must call `grid_dependency_wait`
-// before it reads or writes anything that kernel touches (the wait returns
-// when that kernel has finished and its writes are visible; at once where
-// the launch had no such attribute). A layer loop is a chain of short
-// dependent launches: each one's set-up, and whatever it reads that no
-// kernel writes (weights), then overlap the tail of the one before.
-__device__ __forceinline__ void launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void grid_dependency_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-// The launch attribute that goes with them.
-inline cudaLaunchAttribute dependent_launch_attribute() {
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  return attr;
-}
 
 // HF `gelu_new` as jax.nn.gelu(approximate=True) spells it, in f32.
 __device__ __forceinline__ float gelu_new(float x) {
@@ -236,31 +173,6 @@ __device__ __forceinline__ T dense_epilogue(float acc, int m, int n,
   const float r =
       epi == kBiasResidual ? to_f32(res[(int64_t)m * ldr + n]) : 0.f;
   return from_f32<T>(epilogue_value<T>(acc, to_f32(bias[n]), r, epi));
-}
-
-// `bytes` rounded up to a whole number of 16-byte chunks.
-__host__ __device__ __forceinline__ size_t round16(size_t bytes) {
-  return (bytes + 15) / 16 * 16;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0 bytes read: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-// Ask for the 128-byte line holding `p` to be brought into L2, without
-// waiting for it.
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // bf16 on Hopper's tensor cores: `wgmma` fed by TMA.

@@ -192,34 +192,13 @@ namespace tc {
 constexpr int kMaxThreads = 256;
 inline int threads_for(int blocks) { return blocks < kSMs ? 256 : 128; }
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(saddr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(saddr(p)));
-}
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using port::ldmatrix_x2_trans;
+using port::ldmatrix_x4;
+using port::smem_addr;
+
 __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
-                   saddr(smem)),
+                   smem_addr(smem)),
                "l"(gmem));
 }
 
@@ -315,7 +294,7 @@ __global__ void __launch_bounds__(kMaxThreads) cross_attention_mma_kernel(
         uint32_t a[4], bb[2];
         ldmatrix_x4(a, arow + k0);
         ldmatrix_x2_trans(bb, slice + (k0 + (lane & 15)) * l.skt + 8 * nt);
-        mma(c, a, bb);
+        port::mma_16816(c, a, bb[0], bb[1]);
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -380,7 +359,7 @@ __global__ void __launch_bounds__(kMaxThreads) cross_attention_mma_kernel(
         uint32_t a[4], bb[2];
         ldmatrix_x4(a, arow + k0);
         ldmatrix_x2_trans(bb, slice + (k0 + (lane & 15)) * l.sv + 8 * nt);
-        mma(c, a, bb);
+        port::mma_16816(c, a, bb[0], bb[1]);
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {

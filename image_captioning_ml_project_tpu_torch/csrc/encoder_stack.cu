@@ -121,37 +121,10 @@ size_t attention_smem(int T_, int H, int NH) {
 constexpr int kMmaT = 64, kMmaHd = 64;
 constexpr int kMmaLd = kMmaHd + 8;  // 144-byte rows: ldmatrix without conflicts
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-// d += a . b: 16 x 8 x 16, bf16 operands, f32 sums.
-__device__ __forceinline__ void mma_16816(float (&d)[4],
-                                          const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
+using port::ldmatrix_x4;
+using port::ldmatrix_x4_trans;
+using port::mma_16816;
+using port::pack_bf16;
 
 __global__ void __launch_bounds__(kThreads)
     encoder_attention_mma_kernel(port::bf16* __restrict__ att,
@@ -266,7 +239,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Both kernels wait for the kernel before them themselves (see
-// `grid_dependency_wait` in common.cuh) and are launched to match.
+// `grid_dependency_wait` in device.cuh) and are launched to match.
 template <typename T>
 cudaError_t encoder_attention(T* att, const T* qkv, int B, int T_, int H,
                               int NH, float scale, cudaStream_t stream) {

@@ -11,15 +11,25 @@ image's ``beam_size`` query rows; with ``beam_size=1`` this is exactly the
 JAX function's layout.
 
 The JAX kernel pads the query rows to 8 and the keys and head width to 128
-lanes for the TPU; here the keys keep their real rows and the wrapper
-checks what the Hopper kernel takes instead. The kernel reads q, k and v
+lanes for the TPU, the padded keys masked, so that an image whose keys are
+all masked spreads its weights over all 128 lanes; here the keys keep
+their real rows and such an image gets weights 1/S, as the JAX package's
+plain (``use_pallas=False``) path gives. The kernel reads q, k and v
 through their strides (the head dimension must be contiguous), so the
 heads-transposed views of the projections cost no copy, and it writes the
 context in the ``[rows, Q, NH, hd]`` memory order the output projection
-reads. :func:`sdpa` dispatches on the tensors' device: a CPU tensor takes
-:func:`sdpa_plain`; a CUDA tensor launches ``csrc/sdpa.cu`` (see the note
-there for what bounds it on the card and how the design answers) or
-raises.
+reads.
+
+:func:`sdpa` dispatches on the tensors' device: a CPU tensor takes
+:func:`sdpa_plain`; a CUDA tensor launches ``csrc/sdpa.cu`` or raises. The
+C entry picks the kernel from the dtype and the shape alone: bf16 with a
+head width a multiple of 16 up to 128, at most 64 keys and 64 query rows
+an image (the served shapes) runs on the tensor cores, one warp per
+(image, head) with the scores, softmax and mix in registers; float32 and
+the other shapes run on the CUDA cores, the first version's kernel. The
+route launched last is ``sdpa.last_route`` (``"tensor_cores"`` or
+``"cuda_cores"``). ``csrc/sdpa.cu``'s header says what bounds each on the
+card.
 """
 
 from __future__ import annotations
@@ -37,6 +47,8 @@ _NEG_INF = -1e9
 # cudaErrorInvalidValue: what the C entry returns where one block would need
 # more shared memory than the card offers
 _INVALID_VALUE = 1
+# the C entry's route codes
+_ROUTES = ("cuda_cores", "tensor_cores")
 
 
 def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -104,7 +116,8 @@ def _kernel_fn():
     fn = load_library("sdpa").sdpa
     fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
                    + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
+                      ctypes.POINTER(ctypes.c_int)])
     fn.restype = ctypes.c_int
     return fn
 
@@ -121,17 +134,19 @@ def _launch(q, k, v, key_padding_mask, scale, beam_size):
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
                                    *v.stride()[:3])
     stream = current_stream(q.device)
+    route = ctypes.c_int(-1)
     err = fn(DTYPES[q.dtype], q.device.index, ctx.data_ptr(), w.data_ptr(),
              q.data_ptr(), k.data_ptr(), v.data_ptr(),
              key_padding_mask.data_ptr() if key_padding_mask is not None
              else None, B, beam_size, Q, S, NH, hd, strides, float(scale),
-             stream)
+             stream, ctypes.byref(route))
     if err != 0:
         why = (f": one block would stage S={S} key and value rows of a head,"
                f" more shared memory than the card offers"
                if err == _INVALID_VALUE else "")
         raise RuntimeError(f"sdpa kernel launch failed: cudaError {err}{why}")
     sdpa.launches += 1
+    sdpa.last_route = _ROUTES[route.value]
     return ctx.transpose(1, 2), w
 
 
@@ -145,7 +160,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bool (True = padding) or None. Returns (context [rows, NH, Q, hd] in
     q's dtype, weights [rows, NH, Q, S] float32). A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel (counted in
-    ``sdpa.launches``) or raises.
+    ``sdpa.launches``, its route in ``sdpa.last_route``) or raises.
     """
     _check_shapes(q, k, v, key_padding_mask, beam_size)
     check_no_grad("sdpa", q, k, v)
@@ -158,3 +173,4 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 sdpa.launches = 0
+sdpa.last_route = None

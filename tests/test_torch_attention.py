@@ -5,9 +5,14 @@ package, on the same inputs made with numpy from a seed.
 * The plain SDPA and additive scores against the JAX package's Pallas
   kernels ``fused_sdpa`` and ``fused_additive_scores`` in interpret mode:
   with and without a mask, key rows not a multiple of 8, widths not a
-  multiple of 128, Q of 1 and 5, and per-image keys shared by 1 or 3 beam
-  rows (the JAX kernels get the keys tiled over the beams, their own
+  multiple of 128, Q of 1 and 5, and per-image keys shared by 1, 3 or 5
+  beam rows (the JAX kernels get the keys tiled over the beams, their own
   layout).
+* An image whose keys are all masked: the port's SDPA and multi-head
+  module give weights 1/S over its keys, as the JAX package's XLA path
+  (``use_pallas=False``) does; JAX's Pallas kernel, whose padded keys
+  join that softmax, puts S / 128 of weight on them, which the port does
+  not copy.
 * Each variant (soft, multi-head, adaptive, AoA; the adaptive and AoA
   variants on both cores) with ``use_pallas`` off and on, 2-D and 3-D
   queries, against the flax module with the same weights, bridged by
@@ -54,6 +59,7 @@ _SDPA_CASES = [
     (2, 1, 5, 16, 4, 8, False),    # Q = 5, no mask
     (2, 3, 1, 13, 2, 24, True),    # per-image keys, 3 beams
     (1, 3, 5, 7, 1, 40, True),     # 3 beams x 5 queries, one head
+    (2, 5, 1, 49, 2, 16, True),    # the served 5 beams x 1 query, 7x7 keys
 ]
 
 
@@ -131,6 +137,58 @@ def test_additive_scores_plain_matches_jax_kernel(B, K, Q, S, H, masked,
     if dtype == "bfloat16":
         tol += np.abs(ew).sum() * 2.0 ** -7 / temperature
     assert err <= tol
+
+
+def _xla_sdpa(q, k, v, mask, scale):
+    """The JAX package's ``use_pallas=False`` arithmetic
+    (``models/attention.py`` ``MultiHeadAttention``) on [B, NH, T, hd]
+    arrays."""
+    scores = jnp.einsum("bhqd,bhsd->bhqs", q, k,
+                        preferred_element_type=jnp.float32) * scale
+    scores = jnp.where(mask[:, None, None, :], -1e9, scores)
+    w = jax.nn.softmax(scores, axis=-1)
+    return jnp.einsum("bhqs,bhsd->bhqd", w.astype(v.dtype), v), w
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sdpa_all_masked_image_matches_the_xla_path(dtype):
+    """Image 0 has every key masked, image 1 a random mask, 3 beams each:
+    the port's SDPA gives image 0 weights 1/S over its S real keys (the
+    context the mean of its values), as the JAX package's XLA path does.
+    JAX's Pallas ``fused_sdpa`` pads the keys to 128 masked lanes, so its
+    softmax there runs over 128 lanes and the S real weights sum to
+    S / 128: a quirk of the reference, which the port does not copy.
+    Image 1 agrees with both."""
+    B, K, Q, S, NH, hd = 2, 3, 1, 13, 2, 16
+    rs = np.random.RandomState(21)
+    q = rs.randn(B * K, NH, Q, hd).astype(np.float32)
+    k = rs.randn(B, NH, S, hd).astype(np.float32)
+    v = rs.randn(B, NH, S, hd).astype(np.float32)
+    mask = _mask(rs, B, S)
+    mask[0] = True
+    scale = hd ** -0.5
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    ctx, w = port_sdpa.sdpa(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                            torch.from_numpy(mask), scale=scale, beam_size=K)
+    tile = (lambda a: np.repeat(a, K, axis=0))
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, tile(k), tile(v)))
+    want_ctx, want_w = _xla_sdpa(jq, jk, jv, jnp.asarray(tile(mask)), scale)
+    np.testing.assert_allclose(w[:K].numpy(), 1.0 / S, atol=1e-7, rtol=0)
+    np.testing.assert_allclose(w.numpy(), np.asarray(want_w), atol=1e-5,
+                               rtol=1e-5)
+    got, want = ctx.float().numpy(), np.asarray(want_ctx.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert np.abs(got - want).max() <= 2 * bf16_ulp(want)
+    pallas_ctx, pallas_w = fused_sdpa(jq, jk, jv,
+                                      jnp.asarray(tile(mask)), scale)
+    pallas_w = np.asarray(pallas_w)
+    np.testing.assert_allclose(pallas_w[:K].sum(-1), S / 128, rtol=1e-5)
+    np.testing.assert_allclose(pallas_w[K:], w[K:].numpy(), atol=1e-5,
+                               rtol=1e-5)
+    assert np.abs(np.asarray(pallas_ctx[:K].astype(jnp.float32))
+                  - got[:K]).max() > 0.1
 
 
 def test_masked_keys_add_nothing_to_the_context():
@@ -319,6 +377,41 @@ def test_per_image_memory_matches_jax_on_tiled_keys(attention, heads,
     np.testing.assert_allclose(ctx.numpy(), np.asarray(want_ctx), atol=1e-5,
                                rtol=1e-5)
     np.testing.assert_allclose(w.numpy(), np.asarray(want_w), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_multi_head_all_masked_image_matches_the_xla_path():
+    """The multi-head module through the SDPA kernel's path
+    (``use_pallas=True``) on an image whose keys are all masked: the
+    head-averaged weights are 1/S and context and weights equal the flax
+    module's with ``use_pallas=False``; the flax module with
+    ``use_pallas=True`` (the Pallas kernel, interpret mode) puts S / 128
+    of weight on them instead."""
+    _, params, pmod = _modules("multi_head", 4, True, seed=3)
+    xla = jax_build_attention(_configs("multi_head", 4, False)[0])
+    pallas = jax_build_attention(_configs("multi_head", 4, True)[0])
+    QD, MD = _dims("multi_head")
+    rs = np.random.RandomState(9)
+    S = 7
+    q = rs.randn(2, QD).astype(np.float32)
+    kv = rs.randn(2, S, MD).astype(np.float32)
+    mask = np.zeros((2, S), bool)
+    mask[0] = True
+    mask[1, 5:] = True
+    args = (jnp.asarray(q), jnp.asarray(kv), jnp.asarray(kv))
+    want_ctx, want_w = xla.apply(params, *args,
+                                 key_padding_mask=jnp.asarray(mask))
+    t = torch.from_numpy
+    with torch.inference_mode():
+        ctx, w = pmod(t(q), t(kv), t(kv), key_padding_mask=t(mask))
+    np.testing.assert_allclose(w[0].numpy(), 1.0 / S, atol=1e-7, rtol=0)
+    np.testing.assert_allclose(ctx.numpy(), np.asarray(want_ctx), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(w.numpy(), np.asarray(want_w), atol=1e-5,
+                               rtol=1e-5)
+    _, pallas_w = pallas.apply(params, *args,
+                               key_padding_mask=jnp.asarray(mask))
+    np.testing.assert_allclose(np.asarray(pallas_w)[0].sum(), S / 128,
                                rtol=1e-5)
 
 

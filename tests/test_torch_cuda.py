@@ -610,6 +610,9 @@ def test_cross_attention_kernel_raises_on_what_it_does_not_take(dev):
 
 
 def _sdpa_inputs(B, K, Q, S, NH, hd, masked, seed):
+    """q [B*K, Q, NH*hd], k and v [B, S, NH*hd] and the mask: None, a
+    quarter of the keys (never the first), or that with the last image's
+    keys all masked (``masked="all"``)."""
     g = torch.Generator().manual_seed(seed)
     q = torch.randn((B * K, Q, NH * hd), generator=g)
     k = torch.randn((B, S, NH * hd), generator=g)
@@ -618,6 +621,8 @@ def _sdpa_inputs(B, K, Q, S, NH, hd, masked, seed):
     if masked:
         mask = torch.rand((B, S), generator=g) < 0.25
         mask[:, 0] = False
+        if masked == "all":
+            mask[-1] = True
     return q, k, v, mask
 
 
@@ -627,29 +632,65 @@ def _heads(x, NH):
     return x.view(N, T, NH, h // NH).transpose(1, 2)
 
 
+def _offset(x):
+    """``x`` as a view one value into rows 8 values wider: no start is 4-
+    or 16-byte aligned in bf16, and the rows are strided."""
+    N, T, h = x.shape
+    wide = torch.zeros((N, T, h + 8), dtype=x.dtype, device=x.device)
+    wide[..., 1:h + 1] = x
+    return wide[..., 1:h + 1]
+
+
+# (images, beams, Q, S, NH, hd, masked, layout): the first five as served
+# and at the first version's edges, then the tensor-core path's tile edges
+# (S across the 8- and 16-key tiles and past its 64 keys; K x Q across the
+# 16-row tiles; each head width), batch 1, an image whose keys are all
+# masked, and q, k, v at unaligned strided views
+_SDPA_CUDA_CASES = [
+    (64, 5, 1, 49, 8, 64, False, "heads"),   # served: 64 images x 5 beams
+    (64, 5, 1, 49, 8, 64, True, "heads"),
+    (64, 1, 20, 49, 8, 64, True, "heads"),   # teacher-forced shape, Q = 20
+    (3, 3, 5, 13, 2, 20, True, "heads"),     # odd rows, hd not 16-byte whole
+    (2, 1, 40, 196, 4, 32, False, "heads"),  # two row chunks, ViT-sized memory
+] + [(2, K, Q, S, 2, 64, True, "heads") for S in (1, 8, 49, 56, 64, 65)
+     for K, Q in ((1, 1), (5, 1), (16, 1), (17, 1), (1, 20), (5, 8))] + [
+    (2, 5, 1, 49, 2, hd, True, "heads") for hd in (16, 32, 128, 20)] + [
+    (1, 5, 1, 49, 8, 64, True, "heads"),     # batch 1
+    (4, 5, 1, 49, 8, 64, "all", "heads"),
+    (4, 1, 20, 49, 8, 64, "all", "heads"),
+    (4, 5, 1, 49, 8, 64, True, "offset"),
+    (4, 1, 20, 49, 8, 64, "all", "offset"),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,K,Q,S,NH,hd,masked", [
-    (64, 5, 1, 49, 8, 64, False),   # served: 64 images x 5 beams, 7x7 rows
-    (64, 5, 1, 49, 8, 64, True),
-    (64, 1, 20, 49, 8, 64, True),   # teacher-forced shape, Q = 20
-    (3, 3, 5, 13, 2, 20, True),     # odd rows, head dim not 16-byte whole
-    (2, 1, 40, 196, 4, 32, False),  # two row chunks, ViT-sized memory
-])
-def test_sdpa_kernel_matches_plain(dev, dtype, B, K, Q, S, NH, hd, masked):
+@pytest.mark.parametrize("B,K,Q,S,NH,hd,masked,layout", _SDPA_CUDA_CASES)
+def test_sdpa_kernel_matches_plain(dev, dtype, B, K, Q, S, NH, hd, masked,
+                                   layout):
     """Context: f32 within 1e-5 (another summation order), bf16 within 2
     ulps of its largest magnitude (a weight near a bf16 rounding boundary
-    rounds the other way); weights within 1e-5 in both."""
-    q, k, v, mask = _sdpa_inputs(B, K, Q, S, NH, hd, masked, B * S + Q)
-    q, k, v = (_heads(t.to(dev, dtype), NH) for t in (q, k, v))
+    rounds the other way); weights within 1e-5 in both. bf16 with hd a
+    multiple of 16 up to 128, S <= 64 and K x Q <= 64 runs on the tensor
+    cores, the rest on the CUDA cores; an all-masked image gets 1/S."""
+    q, k, v, mask = _sdpa_inputs(B, K, Q, S, NH, hd, masked, B * S + Q + hd)
+    view = _offset if layout == "offset" else (lambda x: x)
+    q, k, v = (_heads(view(t.to(dev, dtype)), NH) for t in (q, k, v))
     mask = None if mask is None else mask.to(dev)
     kw = dict(scale=hd ** -0.5, beam_size=K)
     before = port_sdpa.sdpa.launches
     ctx, w = port_sdpa.sdpa(q, k, v, mask, **kw)
     torch.cuda.synchronize()
     assert port_sdpa.sdpa.launches == before + 1
+    tensor_cores = (dtype == torch.bfloat16 and hd % 16 == 0 and hd <= 128
+                    and S <= 64 and K * Q <= 64)
+    assert port_sdpa.sdpa.last_route == (
+        "tensor_cores" if tensor_cores else "cuda_cores")
     want_ctx, want_w = port_sdpa.sdpa_plain(q, k, v, mask, **kw)
     assert ctx.shape == want_ctx.shape and ctx.dtype == q.dtype
     torch.testing.assert_close(w, want_w, atol=1e-5, rtol=1e-5)
+    if masked == "all":
+        torch.testing.assert_close(
+            w[-K:], torch.full_like(w[-K:], 1.0 / S), atol=1e-7, rtol=0)
     if dtype == torch.float32:
         torch.testing.assert_close(ctx, want_ctx, atol=1e-5, rtol=1e-5)
     else:
