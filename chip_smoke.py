@@ -38,7 +38,9 @@ prints no result line:
    held against their plain versions again and timed at batch 1, 8 and
    64, the service's buckets (:func:`sweep_decode_kernels`,
    :func:`sweep_lse`, :func:`sweep_additive`, :func:`sweep_sdpa`;
-   ``--time-tree DIR`` runs
+   the four decode-step kernels again at the other decodes' shapes: one
+   beam with no ancestry (greedy and nucleus decoding) and 6 beams (the
+   diverse beam's 3 groups of 2); ``--time-tree DIR`` runs
    only those sweeps, on the package of another tree, so that two trees
    compare inside one run); then the beam attention's ancestry error word
    must be clear. Before them, the Dense
@@ -53,7 +55,14 @@ prints no result line:
    decode configuration (ResNet-101 + LSTM: soft, multi-head, adaptive and
    AoA attention through their kernels, and soft without; ViT +
    Transformer decoder: fold, split; CLIP + GPT-2: stack + encoder fold,
-   fold, split); tokens must be identical and scores agree to 1e-4;
+   fold, split); tokens must be identical and scores agree to 1e-4; then,
+   on each family's default configuration, greedy, diverse beam (6 beams
+   in 3 groups, penalty 0.5), nucleus (top-p 0.9, the same noise drawn on
+   the CPU fed to both) and the model's ``generate``, tokens identical;
+   then the CLIP scorer of the reranker at openai/clip-vit-base-patch32's
+   widths (seeded weights, float32, the vision tower through the encoder
+   kernel) scores 5 candidate captions per image on the card and on the
+   CPU: within 1e-4 of the largest score, the same winners;
 5. encode A/B: the bf16 CLIP encode of 64 images with and without the
    encoder fold, timed in turns;
 6. serve: ``CaptionService`` at full width on the card, bf16 weights from
@@ -76,14 +85,24 @@ prints no result line:
    configuration's rounds and read just after, must show that every
    decode step (and layer) and every encoded batch went through the
    kernels, and that no other kernel ran; the ancestry error word is read
-   after each configuration and must be clear.
+   after each configuration and must be clear. Last, the flagship's other
+   decoding options, a service each, one round of 64 after a warm-up
+   round: greedy, nucleus (top-p 0.9), diverse beam (6 beams in 3 groups,
+   penalty 0.5) and beam 5 with CLIP reranking of its 5 candidates (the
+   full-width scorer on the completer thread, a word-hash CLIP tokenizer);
+   #3 must launch once a step, #5 once an encoded batch plus once a
+   reranked one, #4 once a step on the beam paths and never on the
+   others.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Each kernel's entry holds its numbers
 and launches for the Transformer family where that family runs it, else
 for the flagship, else for the LSTM; the other families', where they have
 their own shape (the LSE over the LSTM's vocabulary of 10000), are under
-``other_shapes``.
+``other_shapes``; the decode-step kernels' numbers at one beam with no
+ancestry and at 6 beams under ``decode_shapes``, and each kernel's
+launches in the flagship's other decoding options' runs under
+``decoding_options``.
 """
 
 import argparse
@@ -183,7 +202,10 @@ def bound(nbytes, ops):
 def cache_rows_read(torch, anc, pos, K):
     """Distinct cache rows (beam row, position) that positions < ``pos``
     read through the ancestry ``anc`` [Bk, S]: the K beams of an image
-    often read the same row, which is read once."""
+    often read the same row, which is read once. With no ancestry (None,
+    K = 1) each row reads its own positions."""
+    if anc is None:
+        return 0
     Bk, S = anc.shape
     rows = (torch.arange(Bk, device=anc.device)[:, None] // K * K
             + anc[:, :pos].long())
@@ -197,9 +219,12 @@ def attention_work(torch, anc, pos, B, K, H, P, item, layers=1):
     step's rows appended; scores and the mix, 4 operations per head dim of
     each (row, position)."""
     Bk = B * K
-    rows = cache_rows_read(torch, anc, pos, K)
+    if anc is None:
+        rows, anc_bytes = Bk * pos, 0
+    else:
+        rows, anc_bytes = cache_rows_read(torch, anc, pos, K), Bk * pos * 4
     nbytes = layers * (2 * rows * H + 2 * B * P * H + 2 * Bk * H) * item \
-        + Bk * pos * 4
+        + anc_bytes
     return nbytes, layers * 4 * Bk * H * (pos + P + 1)
 
 
@@ -646,9 +671,11 @@ def check_cross(torch, dev):
 SWEEP_BATCHES = (1, 8, 64)
 
 
-def sweep_decode_kernels(torch, dev, smi):
+def sweep_decode_kernels(torch, dev, smi, K=5, ancestry=True):
     """#1 and #2 (prefix-free and behind GPT-2's 10-row prefix), #3 and #6
-    at batch 1, 8 and 64, bf16, pos 19 of 20: each first held against its
+    at batch 1, 8 and 64 of ``K`` beams, through a random beam ancestry or
+    with none (``ancestry`` False: greedy and nucleus decoding, K = 1),
+    bf16, pos 19 of 20: each first held against its
     plain version on the same inputs with the tolerances of the checks
     above (a mismatch fails the run), then the device time, the event
     time, the bound, the plain version's time and, for #6, SDPA's time on
@@ -665,7 +692,7 @@ def sweep_decode_kernels(torch, dev, smi):
     from image_captioning_ml_project_tpu_torch.ops.cross_attention import (
         cross_attention, cross_attention_plain)
 
-    K, S, H, NH, L, Sm, pos = 5, 20, 768, 12, 12, 196, 19
+    S, H, NH, L, Sm, pos = 20, 768, 12, 12, 196, 19
     hd = H // NH
     scale = 1.0 / hd ** 0.5
     args = dict(num_heads=NH, beam_size=K, scale=scale)
@@ -685,7 +712,7 @@ def sweep_decode_kernels(torch, dev, smi):
         bit-identical to the plain version's (``cache_ulps`` None) or, where
         the kernel's own QKV GEMM made the appended rows, bit-identical but
         at ``pos`` and within ``cache_ulps`` there."""
-        what = f"sweep {kernel} {family} B={B}"
+        what = f"sweep {kernel} {family} {tag}B={B}"
         before = [c.clone() for c in caches]
         got = kern()
         got_caches = [c.clone() for c in caches]
@@ -716,10 +743,13 @@ def sweep_decode_kernels(torch, dev, smi):
               f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain "
               f"{plain_ms:.4f} ms{lib} [{smi}]", flush=True)
 
+    tag = "" if (K, ancestry) == (5, True) else \
+        f"K={K}{'' if ancestry else ' no-ancestry'} "
+    note = "" if ancestry else " no-ancestry"
     for B in SWEEP_BATCHES:
         Bk = B * K
-        anc = torch.randint(0, K, (Bk, S), generator=g, device=dev,
-                            dtype=torch.int32)
+        anc = (torch.randint(0, K, (Bk, S), generator=g, device=dev,
+                             dtype=torch.int32) if ancestry else None)
         w1 = _dense_weights(torch, g, dev, dt, 1, H, 4 * H)
         ws = (w1["wqkv"][0], w1["bqkv"][0], w1["wo"][0], w1["bo"][0])
         for family, P in ATTENTION_SHAPES:
@@ -727,7 +757,7 @@ def sweep_decode_kernels(torch, dev, smi):
             kc, vc = randn(Bk, S, H), randn(Bk, S, H)
             pk, pv = (randn(B, P, H), randn(B, P, H)) if P else (None, None)
             nbytes, ops = attention_work(torch, anc, pos, B, K, H, P, 2)
-            shape = f"B={B} K={K} S={S} H={H} P={P} pos={pos} bf16"
+            shape = f"B={B} K={K} S={S} H={H} P={P} pos={pos} bf16{note}"
             record("beam_decode_attention", family, B, shape,
                    lambda: beam_decode_attention(q, kn, vn, kc, vc, pk, pv,
                                                  anc, pos, **args),
@@ -750,7 +780,7 @@ def sweep_decode_kernels(torch, dev, smi):
         pk, pv = randn(L, B, P, H), randn(L, B, P, H)
         nbytes, ops = attention_work(torch, anc, pos, B, K, H, P, 2, layers=L)
         record("beam_decode_stack", "flagship", B,
-               f"L={L} B={B} K={K} S={S} H={H} P={P} pos={pos} bf16",
+               f"L={L} B={B} K={K} S={S} H={H} P={P} pos={pos} bf16{note}",
                lambda: beam_decode_stack(x, w, kc, vc, pk, pv, anc, pos,
                                          **args),
                lambda: beam_decode_stack_plain(x, w, kc, vc, pk, pv, anc,
@@ -1058,11 +1088,13 @@ def decode(torch, model, cfg, images):
                            min_length=ic.min_length)
 
 
-def check_reference(torch, dev, cfg, tree, images, configs, peaked=False):
+def check_reference(torch, dev, cfg, tree, images, configs, peaked=False,
+                    strategies=False):
     """The card's float32 decode through the kernels against the CPU's
     plain-version decode of the same weights and images, on each decode
     configuration of ``configs``; ``peaked`` first scales an LSTM's output
-    layer (:func:`peak_logits`)."""
+    layer (:func:`peak_logits`). With ``strategies``, then the other
+    decodes on the first configuration (:func:`check_strategies`)."""
     from image_captioning_ml_project_tpu_torch.models.captioning_model import (
         load_model)
 
@@ -1095,7 +1127,182 @@ def check_reference(torch, dev, cfg, tree, images, configs, peaked=False):
               f"[{name}] card and CPU decode different tokens")
         check(score_err <= 1e-4,
               f"[{name}] scores differ by {score_err} > 1e-4")
+    if strategies:
+        set_switches(configs[0][1])
+        check_strategies(torch, models, cfg32, x, configs[0][0])
     set_switches(CONFIGS[0][1])
+
+
+def check_strategies(torch, models, cfg, x, name):
+    """Greedy, diverse beam (6 beams in 3 groups, penalty 0.5), the
+    model's ``generate`` and nucleus sampling (top-p 0.9, the same noise
+    drawn on the CPU fed to both) on the card and on the CPU: tokens
+    identical, diverse scores and nucleus log-probabilities within 1e-4.
+    Of the diverse beam the best hypothesis is compared, the caption
+    ``decode()`` serves, with its score; the other five and all six scores
+    are printed. They need not agree: where two of a group's candidates
+    tie within the devices' float32 error (the seeded models' beams repeat
+    a token, and the place of a second token in them barely moves their
+    score), either device may keep either, and the token counts behind the
+    next groups' penalty, so those groups' hypotheses, follow that
+    choice."""
+    from image_captioning_ml_project_tpu_torch.inference import decoding
+
+    mc, ic = cfg.model, cfg.inference
+    ids = (mc.bos_token_id, mc.eos_token_id, mc.pad_token_id)
+    B, L = x.shape[0], ic.max_length
+    own_noise = decoding.gumbel_noise
+
+    def noise_from_cpu(seed):
+        g = torch.Generator().manual_seed(seed)
+        return lambda shape, generator, device: own_noise(
+            shape, g, torch.device("cpu")).to(device)
+
+    def greedy(model, state):
+        return decoding.greedy_decode(
+            model.step, state, B, ids[0], L, eos_token_id=ids[1],
+            pad_token_id=ids[2], min_length=ic.min_length), None
+
+    def diverse(model, state):
+        res = decoding.beam_search(
+            model.step, state, B, 6, *ids, L,
+            length_penalty=ic.length_penalty, min_length=ic.min_length,
+            num_beam_groups=3, diversity_penalty=0.5, return_all=True)
+        every.append((res.tokens.cpu(), res.scores.cpu()))
+        return res.tokens[:, 0], res.scores[:, 0]
+
+    def nucleus(model, state):
+        decoding.gumbel_noise = noise_from_cpu(1234)
+        try:
+            res = decoding.sample_decode(
+                model.step, state, None, B, *ids, L, top_p=0.9,
+                min_length=ic.min_length)
+        finally:
+            decoding.gumbel_noise = own_noise
+        return res.tokens, res.logprobs
+
+    every = []  # the diverse beam's hypotheses, card then CPU
+    for strategy, run in (("greedy", greedy), ("diverse K=6 G=3", diverse),
+                          ("nucleus top-p 0.9", nucleus), ("generate", None)):
+        out = {}
+        for where, model in models.items():
+            t0 = time.perf_counter()
+            images = x.to(next(model.parameters()).device)
+            with torch.inference_mode():
+                if run is None:
+                    tokens, extra = model.generate(images)[0], None
+                else:
+                    state = model.init_cache(images, L)
+                    tokens, extra = run(model, state)
+            out[where] = (tokens.cpu(),
+                          None if extra is None else extra.float().cpu())
+            print(f"reference [{name}] {strategy} on {where}: "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+        (tok_g, ex_g), (tok_c, ex_c) = out.values()
+        print(f"reference [{name}] {strategy} tokens gpu={tok_g.tolist()}",
+              flush=True)
+        if ex_g is not None:
+            err = float((ex_g - ex_c).abs().max())
+            print(f"reference [{name}] {strategy} scores/log-probs "
+                  f"max_abs_err={err:.3e}", flush=True)
+            if run is diverse:
+                (all_g, sc_g), (all_c, sc_c) = every
+                print(f"reference [{name}] {strategy} all 6 scores gpu="
+                      f"{sc_g.tolist()} cpu={sc_c.tolist()}; all 6 "
+                      f"hypotheses equal: {torch.equal(all_g, all_c)}",
+                      flush=True)
+        check(torch.equal(tok_g, tok_c),
+              f"[{name}] {strategy}: card and CPU decode different tokens "
+              f"(cpu={tok_c.tolist()})")
+        if ex_g is not None:
+            check(torch.isfinite(ex_g).all() and err <= 1e-4,
+                  f"[{name}] {strategy}: scores differ by {err} > 1e-4")
+
+
+# openai/clip-vit-base-patch32's widths (its HF config): the reranker's
+# scorer at full width; the word-hash tokenizer's special ids are CLIP's
+CLIP_SOT, CLIP_EOT, CLIP_POSITIONS = 49406, 49407, 77
+
+
+def clip_tokenize(texts):
+    """A deterministic word-hash CLIP tokenizer: SOT, one id in
+    [1, 49405] per word, EOT, then EOT as padding to 77 positions (the
+    real tokenizer's pad token is its EOT)."""
+    import numpy as np
+
+    out = np.full((len(texts), CLIP_POSITIONS), CLIP_EOT, np.int32)
+    for r, text in enumerate(texts):
+        words = [1 + sum(ord(c) * 131 ** i for i, c in enumerate(w))
+                 % (CLIP_SOT - 1) for w in text.split()]
+        row = [CLIP_SOT] + words[:CLIP_POSITIONS - 2] + [CLIP_EOT]
+        out[r, :len(row)] = row
+    return out
+
+
+def clip_scorer(torch, device, seed):
+    """The CLIP scorer at openai/clip-vit-base-patch32's widths (vision
+    ViT-B/32 on 224x224, text width 512 x 12 layers, 8 heads, vocabulary
+    49408, 77 positions, projection 512) in float32 on ``device``, weights
+    drawn from ``seed``: N(0, 0.02^2), LayerNorm scales 1 and biases 0,
+    ``logit_scale`` CLIP's initial 2.6592."""
+    from image_captioning_ml_project_tpu_torch.models.clip_text import (
+        CLIPScorer)
+    from image_captioning_ml_project_tpu_torch.params import load_scorer
+
+    with torch.device("meta"):
+        scorer = CLIPScorer()
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, p in scorer.state_dict().items():
+        if name == "logit_scale":
+            sd[name] = torch.tensor(2.6592)
+        elif "norm" in name:
+            sd[name] = (torch.ones if name.endswith("weight")
+                        else torch.zeros)(p.shape)
+        else:
+            sd[name] = torch.randn(p.shape, generator=g) * 0.02
+    return load_scorer(scorer, sd, device)
+
+
+def check_scorer(torch, dev, images, seed):
+    """The full-width CLIP scorer on the card (vision tower through #5 at
+    float32) against the CPU (its plain version), on 5 seeded candidate
+    captions for each image: scores within 1e-4 of the largest, the same
+    winners. Returns the card's scorer."""
+    import numpy as np
+
+    from image_captioning_ml_project_tpu_torch.inference.reranking import (
+        CLIPReranker, rerank_candidates)
+
+    rs = np.random.RandomState(seed)
+    cand = torch.from_numpy(rs.randint(4, 50257, (images.shape[0], 5, 20)))
+
+    def decode_fn(ids):
+        return " ".join(f"w{int(i)}" for i in ids)
+
+    out = []
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        scorer = clip_scorer(torch, where, seed)
+        reranker = CLIPReranker(scorer, clip_tokenize, decode_fn)
+        with torch.inference_mode():
+            best, scores = rerank_candidates(
+                cand, torch.from_numpy(images).to(where), decode_fn,
+                clip_tokenize, scorer, score_fn=reranker.score)
+        out.append((best, scores, scorer))
+        print(f"reference [CLIP scorer] on {where}: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    (best_g, sc_g, scorer), (best_c, sc_c, _) = out
+    err = float(np.abs(sc_g - sc_c).max())
+    tol = 1e-4 * float(np.abs(sc_c).max())
+    print(f"reference [CLIP scorer] scores gpu={sc_g.tolist()} "
+          f"cpu={sc_c.tolist()} max_abs_err={err:.3e} (tol {tol:.3e})",
+          flush=True)
+    check(np.isfinite(sc_g).all() and err <= tol,
+          f"CLIP scorer: scores differ by {err} > {tol}")
+    check(np.array_equal(best_g, best_c),
+          "CLIP scorer: card and CPU pick different captions")
+    return scorer
 
 
 # the LSTM family's configurations: (name, attention variant, use_pallas);
@@ -1199,12 +1406,15 @@ def counters():
         sdpa, additive_scores)}
 
 
-def serve(torch, dev, cfg, tree, smi, plan):
+def serve(torch, dev, cfg, tree, smi, plan, scorer=None):
     """``CaptionService`` for ``cfg`` behind its HTTP front end; ``plan``
     lists (name, switches, rounds of 64, single requests), each driven with
-    the launch counters set to 0 just before and read just after. Returns
-    {name: run}."""
+    the launch counters set to 0 just before and read just after. With a
+    CLIP ``scorer`` the service reranks its beam candidates with it (the
+    word-hash CLIP tokenizer). Returns {name: run}."""
     from image_captioning_ml_project_tpu_torch.data.tokenizer import WordVocab
+    from image_captioning_ml_project_tpu_torch.inference.reranking import (
+        CLIPReranker)
     from image_captioning_ml_project_tpu_torch.inference.server import (
         CaptionService, make_http_server)
 
@@ -1215,8 +1425,12 @@ def serve(torch, dev, cfg, tree, smi, plan):
     words.update({f"w{i}": i for i in range(len(words),
                                               cfg.model.vocab_size)})
     tokenizer = WordVocab(words)
+    reranker = None if scorer is None else CLIPReranker(
+        scorer, clip_tokenize,
+        lambda ids: tokenizer.decode(ids, skip_special_tokens=True))
     t0 = time.perf_counter()
-    service = CaptionService(cfg, tokenizer, dev, params=tree, batch_size=64,
+    service = CaptionService(cfg, tokenizer, dev, params=tree,
+                             reranker=reranker, batch_size=64,
                              bucket_sizes=[1, 8, 64], max_wait_ms=50.0,
                              request_timeout_s=300.0)
     service.start(warmup=True)
@@ -1392,6 +1606,42 @@ def serve_all(torch, dev, smi, trees):
             for name, by_family in carriers.items()}
 
 
+# the flagship's other decoding options, one service each: (name, the
+# inference settings)
+STRATEGIES = (
+    ("flagship greedy", dict(decoding_strategy="greedy")),
+    ("flagship nucleus top-p 0.9", dict(decoding_strategy="nucleus",
+                                        top_p=0.9)),
+    ("flagship diverse beam 6 in 3 groups", dict(
+        beam_size=6, num_beam_groups=3, diversity_penalty=0.5)),
+    ("flagship beam 5 + CLIP reranking", dict(
+        beam_size=5, num_candidates=5, use_clip_reranking=True)),
+)
+
+
+def serve_strategies(torch, dev, smi, cfg, tree, scorer):
+    """The flagship on its default switches, one round of 64 (after its
+    warm-up round) for each of :data:`STRATEGIES`, the reranked one with
+    the full-width CLIP ``scorer`` on the completer thread; checks every
+    counter: #3 once a step, #5 once an encoded batch plus once a reranked
+    one, #4 once a step on the beam paths only. Returns {name: run}."""
+    runs = {}
+    for name, settings in STRATEGIES:
+        scfg = copy.deepcopy(cfg)
+        for k, v in settings.items():
+            setattr(scfg.inference, k, v)
+        rerank = scfg.inference.use_clip_reranking
+        runs.update(serve(torch, dev, scfg, tree, smi,
+                          [(name, CONFIGS[0][1], 1, 0)],
+                          scorer=scorer if rerank else None))
+        run = runs[name]
+        beam = scfg.inference.decoding_strategy == "beam"
+        expect(run, {"beam_decode_stack": run["steps"],
+                     "encoder_stack": run["batches"] * (2 if rerank else 1),
+                     **({"lse_and_block_max": run["steps"]} if beam else {})})
+    return runs
+
+
 def kernel_entry(name, route, source, replaces, numbers, launches):
     """The summary line's entry for one kernel: the numbers at the shape
     of the first family that runs it of the Transformer, the flagship and
@@ -1520,6 +1770,12 @@ def main():
         sweep["lse_and_block_max"] = sweep_lse(torch, dev, smi)
         sweep["additive_scores"] = sweep_additive(torch, dev, smi)
         sweep["sdpa"] = sweep_sdpa(torch, dev, smi)
+        # greedy and nucleus decoding's shapes (one beam, no ancestry) and
+        # the diverse beam's (6 beams), under "decode_shapes"
+        decode_shapes = {
+            "K=1 no ancestry": sweep_decode_kernels(torch, dev, smi, K=1,
+                                                    ancestry=False),
+            "K=6": sweep_decode_kernels(torch, dev, smi, K=6)}
         for kernel, by_family in sweep.items():
             results[kernel] = {}
             for family, by_batch in by_family.items():
@@ -1533,6 +1789,15 @@ def main():
                                               "bound_ms", "library_ms")}
                         for B, e in by_batch.items()
                         if B != SWEEP_BATCHES[-1]})
+        for label, shapes in decode_shapes.items():
+            for kernel, by_family in shapes.items():
+                for family, by_batch in by_family.items():
+                    results[kernel][family].setdefault(
+                        "decode_shapes", {})[label] = {
+                        B: {k: e[k] for k in ("max_abs_err", "ms",
+                                              "device_ms", "plain_ms",
+                                              "bound_ms", "bound_by")}
+                        for B, e in by_batch.items()}
         check_ancestry(dev, "kernels")
 
         phase("reference")
@@ -1550,21 +1815,28 @@ def main():
             ref_images = torch.randint(0, 256, (2, cfg.image_size,
                                                 cfg.image_size, 3),
                                        generator=g, dtype=torch.uint8).numpy()
+            # the other decodes on each family's default configuration
+            # (the LSTM's: soft attention through its kernel)
             if name == "lstm":
-                for variant, attention, pallas in LSTM_VARIANTS:
+                for i, (variant, attention, pallas) in enumerate(
+                        LSTM_VARIANTS):
                     check_reference(torch, dev, *lstm_variant(
                         cfg, attention, pallas, cfg.seed), ref_images,
-                        [(variant, CONFIGS[0][1])], peaked=True)
+                        [(variant, CONFIGS[0][1])], peaked=True,
+                        strategies=i == 0)
             else:
                 check_reference(torch, dev, cfg, trees[name][1], ref_images,
                                 TRANSFORMER_CONFIGS if name == "transformer"
-                                else CONFIGS)
+                                else CONFIGS, strategies=True)
+        scorer = check_scorer(torch, dev, ref_images, args.seed)
 
         phase("encode A/B")
         encode_ab(torch, dev, *trees["flagship"], smi)
 
         phase("serve")
         launches = serve_all(torch, dev, smi, trees)
+        strategy_runs = serve_strategies(torch, dev, smi,
+                                         *trees["flagship"], scorer)
 
         # the port stands alone: nothing of JAX or the JAX package ran
         foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -1603,6 +1875,11 @@ def main():
     }
     kernels = [kernel_entry(name, *where, results[name], launches[name])
                for name, where in sources.items()]
+    for entry in kernels:
+        entry["decoding_options"] = {
+            run_name: run["launches"][entry["name"]]
+            for run_name, run in strategy_runs.items()
+            if run["launches"][entry["name"]]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": kind, "count": count}}))

@@ -10,7 +10,14 @@ same:
   the last image, and each request reads only its own output row;
 * the weights are cast once at start-up (bf16, norms f32) and stay frozen;
 * a completer thread copies batch N's tokens to the host and detokenizes
-  them while the batcher runs batch N+1 (``pipeline_depth``).
+  them while the batcher runs batch N+1 (``pipeline_depth``); with CLIP
+  reranking it first picks each image's caption among the batch's beam
+  candidates there.
+
+Every decoding option of ``config.inference`` is served: greedy, nucleus
+sampling (from one ``torch.Generator`` on the service's device seeded
+from ``config.seed``, drawn from batch after batch), beam search with or
+without diverse groups, and CLIP reranking of beam candidates.
 
 The HTTP layer is ``http.server``: POST image bytes to ``/caption``; GET
 ``/healthz``, ``/stats`` and ``/metrics``. Checkpoint reload is not yet
@@ -33,8 +40,9 @@ import numpy as np
 import torch
 
 from ..data.coco import center_crop_resize
+from ..main import _resolve_reranker
 from ..models.captioning_model import load_model
-from .decoding import beam_search
+from .decoding import beam_search, decode
 
 logger = logging.getLogger(__name__)
 
@@ -154,36 +162,38 @@ class _Request:
 
 
 class CaptionService:
-    """Micro-batching caption service around the port's beam-search decode.
+    """Micro-batching caption service around the port's decode engine.
 
     ``submit(image)`` blocks until the request's batch has run;
     ``submit_async``/``result`` let one caller keep many requests in
     flight. The model is built on ``device`` from ``params`` (the JAX
     package's variable tree) or, when None, from ``config.seed``, and cast
-    to ``config.model.dtype``. Only the beam strategy of
-    ``config.inference`` is ported.
+    to ``config.model.dtype``. Batches decode with ``config.inference``'s
+    strategy (:func:`.decoding.decode`). With a ``reranker`` (given, or
+    built from a local CLIP checkpoint when ``use_clip_reranking`` is set)
+    they decode ``max(beam_size, num_candidates)`` beams instead, and the
+    reranker picks each image's caption among the first
+    ``num_candidates`` on the completer thread.
     """
 
     def __init__(self, config, tokenizer, device, params=None,
-                 checkpoint_path: Optional[str] = None, batch_size: int = 8,
-                 max_wait_ms: float = 10.0, request_timeout_s: float = 60.0,
-                 pipeline_depth: int = 2, bucket_sizes=None):
-        ic = config.inference
+                 checkpoint_path: Optional[str] = None, reranker=None,
+                 batch_size: int = 8, max_wait_ms: float = 10.0,
+                 request_timeout_s: float = 60.0, pipeline_depth: int = 2,
+                 bucket_sizes=None):
         if checkpoint_path:
             raise NotImplementedError(_NOT_PORTED_RELOAD)
-        if ic.decoding_strategy != "beam" or ic.num_beam_groups != 1:
-            raise NotImplementedError(
-                f"decoding strategy {ic.decoding_strategy!r} with "
-                f"{ic.num_beam_groups} beam group(s) is not yet ported "
-                f"(ROADMAP.md Queue 1: greedy, sampling and diverse decodes)")
-        if ic.use_clip_reranking:
-            raise NotImplementedError(
-                "CLIP reranking is not yet ported (ROADMAP.md Queue 1: "
-                "reranking)")
         self.config = config
         self.tokenizer = tokenizer
         self.device = torch.device(device)
         self.model = load_model(config, self.device, params=params)
+        self.reranker = (reranker if reranker is not None
+                         else _resolve_reranker(config, tokenizer, None,
+                                                self.device))
+        # nucleus draws: one stream of noise, batch after batch (the JAX
+        # service splits its key per batch)
+        self._generator = torch.Generator(device=self.device).manual_seed(
+            config.seed)
         self.batch_size = batch_size
         # bucketed batch shapes: a quiet-hour single request should not pay
         # a full batch_size-wide decode; rows are independent, so captions
@@ -323,7 +333,7 @@ class CaptionService:
     def _serve_batch(self, reqs: List[_Request]):
         self.stats.record_batch(len(reqs))
         try:
-            tokens = self._dispatch([r.image for r in reqs])
+            tokens, images = self._dispatch([r.image for r in reqs])
         except Exception as e:  # surface the failure to every caller
             logger.exception("serving batch dispatch failed")
             for req in reqs:
@@ -331,13 +341,13 @@ class CaptionService:
                 req.event.set()
             return
         if self._sync:
-            self._complete_batch(reqs, tokens)
+            self._complete_batch(reqs, tokens, images)
             return
         # bounded put = pipeline-depth backpressure; poll _stop so a
         # shutdown with a stalled completer cannot wedge the batcher here
         while not self._stop.is_set():
             try:
-                self._pending.put((reqs, tokens), timeout=0.1)
+                self._pending.put((reqs, tokens, images), timeout=0.1)
                 return
             except queue.Full:
                 continue
@@ -355,9 +365,20 @@ class CaptionService:
                 continue
             self._complete_batch(*item)
 
-    def _complete_batch(self, reqs, tokens):
+    def _finish(self, tokens, images) -> np.ndarray:
+        """The batch's host tokens [B, L]: the reranker's pick among the
+        candidates, or the decode's tokens. Inference mode is per thread,
+        so the completer enters it here for the reranker's launches."""
+        with torch.inference_mode():
+            if self.reranker is not None:
+                tokens = self.reranker(images, tokens)
+            if isinstance(tokens, torch.Tensor):
+                tokens = tokens.cpu().numpy()
+        return np.asarray(tokens)
+
+    def _complete_batch(self, reqs, tokens, images):
         try:
-            tokens = tokens.cpu().numpy()
+            tokens = self._finish(tokens, images)
             for i, req in enumerate(reqs):
                 req.caption = self.tokenizer.decode(
                     tokens[i], skip_special_tokens=True)
@@ -370,7 +391,9 @@ class CaptionService:
                 req.event.set()
 
     def _decode(self, images: torch.Tensor) -> torch.Tensor:
-        """Beam-search captions for a device batch: tokens [B, L]."""
+        """Captions of a device batch: tokens [B, L] with the configured
+        strategy or, with a reranker, its candidates [B, num_candidates,
+        L] (the JAX CLI's ``_make_decode_batch``)."""
         mc, ic = self.config.model, self.config.inference
         steps = 0
 
@@ -379,24 +402,37 @@ class CaptionService:
             steps += 1
             return self.model.step(state, tokens)
 
+        B = images.shape[0]
+        ids = (mc.bos_token_id, mc.eos_token_id, mc.pad_token_id)
         state = self.model.init_cache(images, ic.max_length)
-        res = beam_search(step_fn, state, images.shape[0], ic.beam_size,
-                          mc.bos_token_id, mc.eos_token_id, mc.pad_token_id,
-                          ic.max_length, length_penalty=ic.length_penalty,
-                          min_length=ic.min_length)
+        if self.reranker is not None:
+            res = beam_search(step_fn, state, B,
+                              max(ic.beam_size, ic.num_candidates), *ids,
+                              ic.max_length,
+                              length_penalty=ic.length_penalty,
+                              min_length=ic.min_length,
+                              num_beam_groups=ic.num_beam_groups,
+                              diversity_penalty=ic.diversity_penalty,
+                              return_all=True)
+            tokens = res.tokens[:, :ic.num_candidates]
+        else:
+            tokens = decode(step_fn, state, B, ic, *ids,
+                            generator=self._generator)
         self.stats.record_steps(steps)
-        return res.tokens
+        return tokens
 
-    def _dispatch(self, images: List[np.ndarray]) -> torch.Tensor:
+    def _dispatch(self, images: List[np.ndarray]):
         """Pad to the smallest bucket >= the micro-batch and decode it on the
-        device; returns the device tokens."""
+        device; returns the device tokens and the device images (which the
+        reranker reads)."""
         if len(images) > self.batch_size:
             raise ValueError(f"micro-batch of {len(images)} exceeds "
                              f"batch_size {self.batch_size}")
         bucket = next(b for b in self.bucket_sizes if b >= len(images))
         batch = np.stack(images + [images[-1]] * (bucket - len(images)))
         with torch.inference_mode():
-            return self._decode(torch.from_numpy(batch).to(self.device))
+            arr = torch.from_numpy(batch).to(self.device)
+            return self._decode(arr), arr
 
     def _run_images(self, images: List[np.ndarray]) -> List[str]:
         """Synchronous decode of any number of images (warmup /
@@ -404,7 +440,7 @@ class CaptionService:
         captions: List[str] = []
         for lo in range(0, len(images), self.batch_size):
             chunk = images[lo:lo + self.batch_size]
-            tokens = self._dispatch(chunk).cpu().numpy()
+            tokens = self._finish(*self._dispatch(chunk))
             captions.extend(
                 self.tokenizer.decode(tokens[i], skip_special_tokens=True)
                 for i in range(len(chunk)))

@@ -15,8 +15,14 @@ Same flags as the JAX CLI's serve path
 without it the JAX package's default configuration (ViT-B/16 + 6-layer
 GPT-2) is served.
 With no checkpoint the weights are drawn from ``--seed`` (checkpoint
-restore is not yet ported). Training, evaluation and the demo are not yet
-ported and raise.
+restore is not yet ported). The JSON config's ``inference`` section picks
+the decode: ``decoding_strategy`` ``beam`` (``beam_size``,
+``num_beam_groups`` and ``diversity_penalty`` for diverse groups),
+``greedy`` or ``nucleus`` (``top_p``, ``temperature``), and
+``use_clip_reranking`` (``num_candidates``), which needs a locally cached
+HF CLIP checkpoint (without one the service warns and serves without
+reranking). Training, evaluation and the demo are not yet ported and
+raise.
 """
 
 from __future__ import annotations
@@ -237,6 +243,21 @@ def setup_tokenizer(config: Config, vocab_path: Optional[str] = None):
     config.model.bos_token_id = int(tokenizer.bos_token_id)
     config.model.eos_token_id = int(tokenizer.eos_token_id)
     return tokenizer
+
+
+def _resolve_reranker(config: Config, tokenizer, reranker, device):
+    """The CLIP reranker when ``use_clip_reranking`` is set: an injected
+    ``reranker`` wins; otherwise one is built on ``device`` from a locally
+    cached HF CLIP checkpoint, or None with a warning when there is none
+    (:func:`.inference.reranking.build_hf_reranker`)."""
+    if not config.inference.use_clip_reranking:
+        return None
+    if reranker is not None:
+        return reranker
+    from .inference.reranking import build_hf_reranker
+
+    return build_hf_reranker(
+        lambda ids: tokenizer.decode(ids, skip_special_tokens=True), device)
 
 
 def main(argv=None):

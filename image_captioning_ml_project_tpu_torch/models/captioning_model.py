@@ -4,7 +4,9 @@ Counterpart of ``image_captioning_ml_project_tpu.models.captioning_model.
 ImageCaptioningModel`` for the families ported so far (encoders: CLIP,
 ViT, ResNet; decoders: GPT-2, Transformer, LSTM with the four attention
 variants), with the same uniform decode interface
-(``init_cache``/``step``) consumed by :mod:`..inference.decoding`. Other
+(``init_cache``/``step``) consumed by every strategy of
+:mod:`..inference.decoding` (greedy, nucleus sampling, beam search with or
+without diverse groups), and the decoders' own greedy ``generate``. Other
 encoder or decoder families, and the Q-Former, raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -35,7 +37,8 @@ class ImageCaptioningModel(nn.Module):
         self.encoder = build_encoder(mc.encoder, config.image_size)
         self.decoder = build_decoder(
             mc.decoder, vocab_size=mc.vocab_size,
-            pad_token_id=mc.pad_token_id, feature_dim=mc.encoder.feature_dim,
+            pad_token_id=mc.pad_token_id, bos_token_id=mc.bos_token_id,
+            eos_token_id=mc.eos_token_id, feature_dim=mc.encoder.feature_dim,
             attention_config=mc.attention)
 
     def encode(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -47,6 +50,15 @@ class ImageCaptioningModel(nn.Module):
                 captions: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Teacher-forced forward: caption logits [B, T, V]."""
         return self.decoder(self.encode(images), captions)
+
+    def generate(self, images: torch.Tensor,
+                 max_length: Optional[int] = None):
+        """The decoder's greedy ``generate`` on the encoded images
+        (``max_length`` defaults to ``config.inference.max_length``):
+        (tokens [B, max_length], the decoder's extras)."""
+        if max_length is None:
+            max_length = self.config.inference.max_length
+        return self.decoder.generate(self.encode(images), max_length)
 
     # -- uniform decode interface (delegates to the decoder) ----------------
 

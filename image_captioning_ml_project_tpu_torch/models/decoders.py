@@ -53,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import DecoderType
+from ..inference.decoding import greedy_decode
 from ..ops.beam_decode_attention import (beam_decode_attention,
                                          beam_decode_attention_qkv)
 from ..ops.cross_attention import cross_attention
@@ -220,11 +221,13 @@ class TransformerDecoder(nn.Module):
     an output layer over the vocabulary."""
 
     def __init__(self, config, vocab_size: int, pad_token_id: int,
-                 feature_dim: int):
+                 bos_token_id: int, eos_token_id: int, feature_dim: int):
         super().__init__()
         h = config.hidden_dim
         self.config = config
         self.pad_token_id = pad_token_id
+        self.bos_token_id = bos_token_id
+        self.eos_token_id = eos_token_id
         self.embedding = nn.Embedding(vocab_size, h)
         self.position_encoding = nn.Embedding(config.max_length, h)
         self.layers = nn.ModuleList(
@@ -302,6 +305,16 @@ class TransformerDecoder(nn.Module):
                                   anc_local, shared["fold"])
         return self.output_layer(x), dict(state, pos=pos + 1)
 
+    def generate(self, encoder_features: Dict[str, torch.Tensor],
+                 max_length: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Greedy KV-cached generation through ``init_cache``/``step``:
+        tokens [B, max_length] with BOS at position 0, ``max_length`` steps,
+        no EOS handling (as the JAX decoder's)."""
+        B = encoder_features["features"].shape[0]
+        return greedy_decode(self.step,
+                             self.init_cache(encoder_features, max_length),
+                             B, self.bos_token_id, max_length), {}
+
 
 class LSTMDecoder(nn.Module):
     """LSTM decoder with per-step cross-attention over the image features:
@@ -309,11 +322,14 @@ class LSTMDecoder(nn.Module):
     (``init_cache``/``step``)."""
 
     def __init__(self, config, attention_config, vocab_size: int,
-                 pad_token_id: int, feature_dim: int):
+                 pad_token_id: int, bos_token_id: int, eos_token_id: int,
+                 feature_dim: int):
         super().__init__()
         H, L = config.hidden_dim, config.num_layers
         self.config = config
         self.pad_token_id = pad_token_id
+        self.bos_token_id = bos_token_id
+        self.eos_token_id = eos_token_id
         self.embedding = nn.Embedding(vocab_size, H)
         self.attention = build_attention(attention_config, query_dim=H,
                                          memory_dim=feature_dim)
@@ -373,11 +389,32 @@ class LSTMDecoder(nn.Module):
                 "attention_weights": torch.stack(weights, 1),
                 "hidden_states": torch.stack(hidden, 1)}
 
-    def generate(self, encoder_features, max_length: int):
-        raise NotImplementedError(
-            "the LSTM decoder's greedy generate is not yet ported to "
-            "PyTorch (ROADMAP.md Queue 1 item 4: greedy, sampling and "
-            "diverse decodes)")
+    def generate(self, encoder_features: Dict[str, torch.Tensor],
+                 max_length: int
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Greedy decode over ``_step_core``, the previous context carried
+        as in teacher forcing: tokens [B, max_length] with BOS at position
+        0, ``max_length`` steps, no EOS handling (as the JAX decoder's), and
+        the attention weights of each step ``{"attention_weights": [B,
+        max_length, S]}``."""
+        features = encoder_features["features"]
+        mem_pad = self._mem_pad(encoder_features)
+        memory = self.attention.project_memory(features, features)
+        h, c = self._init_states(encoder_features["pooled_features"])
+        context = features.new_zeros((features.shape[0],
+                                      self.config.hidden_dim))
+        current = torch.full((features.shape[0],), self.bos_token_id,
+                             dtype=torch.long, device=features.device)
+        tokens, weights = [], []
+        for _ in range(max_length):
+            h, c, context, w = self._step_core(h, c, context,
+                                               self.embedding(current),
+                                               memory, mem_pad)
+            tokens.append(current)
+            weights.append(w)
+            current = torch.argmax(self.output_layer(context), dim=-1)
+        return (torch.stack(tokens, dim=1),
+                {"attention_weights": torch.stack(weights, dim=1)})
 
     # -- uniform decode interface -------------------------------------------
 
@@ -410,22 +447,21 @@ class LSTMDecoder(nn.Module):
 
 
 def build_decoder(config, vocab_size: int, pad_token_id: int,
-                  feature_dim: int, attention_config=None) -> nn.Module:
+                  bos_token_id: int, eos_token_id: int, feature_dim: int,
+                  attention_config=None) -> nn.Module:
     """The decoder of ``config`` (a ``DecoderConfig``) over encoder
     features of width ``feature_dim``; the LSTM's cross-attention is
     ``attention_config`` (an ``AttentionConfig``), which the other
     decoders do not read, as in the JAX package."""
+    ids = dict(vocab_size=vocab_size, pad_token_id=pad_token_id,
+               bos_token_id=bos_token_id, eos_token_id=eos_token_id,
+               feature_dim=feature_dim)
     if config.decoder_type == DecoderType.GPT2:
-        return GPT2Decoder(config, vocab_size=vocab_size,
-                           pad_token_id=pad_token_id, feature_dim=feature_dim)
+        return GPT2Decoder(config, **ids)
     if config.decoder_type == DecoderType.TRANSFORMER:
-        return TransformerDecoder(config, vocab_size=vocab_size,
-                                  pad_token_id=pad_token_id,
-                                  feature_dim=feature_dim)
+        return TransformerDecoder(config, **ids)
     if config.decoder_type == DecoderType.LSTM:
         if attention_config is None:
             raise ValueError("the LSTM decoder needs an attention config")
-        return LSTMDecoder(config, attention_config, vocab_size=vocab_size,
-                           pad_token_id=pad_token_id,
-                           feature_dim=feature_dim)
+        return LSTMDecoder(config, attention_config, **ids)
     raise ValueError(f"Unsupported decoder type: {config.decoder_type}")

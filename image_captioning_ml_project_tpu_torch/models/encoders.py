@@ -51,7 +51,9 @@ class TransformerSelfAttention(nn.Module):
     """Multi-head self-attention with one ``[h, 3h]`` QKV projection (the
     flax module's unfused query/key/value params are concatenated by
     :func:`..params.from_flax`; each output column block is the same dot).
-    Scores and softmax in f32, weights cast to the value dtype."""
+    Scores and softmax in f32, weights cast to the value dtype; an optional
+    additive ``attn_bias`` (broadcast to [B, heads, S, S], e.g. the CLIP
+    text tower's causal mask) joins the scores before the softmax."""
 
     def __init__(self, hidden_size: int, num_heads: int):
         super().__init__()
@@ -59,7 +61,8 @@ class TransformerSelfAttention(nn.Module):
         self.qkv = nn.Linear(hidden_size, 3 * hidden_size)
         self.out = nn.Linear(hidden_size, hidden_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, S, h = x.shape
         nh = self.num_heads
         hd = h // nh
@@ -67,6 +70,8 @@ class TransformerSelfAttention(nn.Module):
                    for t in self.qkv(x).split(h, dim=-1))
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
             / (hd ** 0.5)
+        if attn_bias is not None:
+            scores = scores + attn_bias
         w = torch.softmax(scores, dim=-1).to(v.dtype)
         out = torch.matmul(w, v).transpose(1, 2).reshape(B, S, h)
         return self.out(out)
@@ -81,8 +86,9 @@ class CLIPLayer(nn.Module):
         self.fc1 = nn.Linear(hidden_size, mlp_dim)
         self.fc2 = nn.Linear(mlp_dim, hidden_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attention(self.layer_norm1(x))
+    def forward(self, x: torch.Tensor,
+                attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attention(self.layer_norm1(x), attn_bias)
         return x + self.fc2(quick_gelu(self.fc1(self.layer_norm2(x))))
 
 

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..inference.decoding import greedy_decode
 from ..ops.beam_decode_attention import (beam_decode_attention,
                                          beam_decode_attention_qkv)
 from ..ops.beam_decode_stack import beam_decode_stack
@@ -170,11 +171,14 @@ class GPT2Backbone(nn.Module):
 
 class GPT2Decoder(nn.Module):
     def __init__(self, config, vocab_size: int, pad_token_id: int,
+                 bos_token_id: int, eos_token_id: int,
                  feature_dim: Optional[int] = None):
         super().__init__()
         h = config.hidden_dim
         self.config = config
         self.pad_token_id = pad_token_id
+        self.bos_token_id = bos_token_id
+        self.eos_token_id = eos_token_id
         self.prefix_length = config.prefix_length
         self.backbone = GPT2Backbone(vocab_size, h, config.num_layers,
                                      config.num_heads,
@@ -298,3 +302,16 @@ class GPT2Decoder(nn.Module):
                                       shared["fold"])
         logits = self.backbone.logits(self.backbone.ln_f(x))
         return logits, dict(state, pos=pos + 1)
+
+    def generate(self, encoder_features: Dict[str, torch.Tensor],
+                 max_length: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Greedy KV-cached generation through ``init_cache``/``step``:
+        tokens [B, max_length] with BOS at position 0, ``max_length`` steps
+        (the JAX scan's), a row emitting pads after its first EOS."""
+        B = encoder_features["pooled_features"].shape[0]
+        return greedy_decode(self.step,
+                             self.init_cache(encoder_features, max_length),
+                             B, self.bos_token_id, max_length,
+                             eos_token_id=self.eos_token_id,
+                             pad_token_id=self.pad_token_id,
+                             early_exit=False), {}

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict
 
 import torch
@@ -105,8 +106,14 @@ def _launch(x, stack, num_heads, eps):
     if err != 0:
         raise RuntimeError(f"encoder_stack kernel launch failed: cudaError "
                            f"{err}")
-    encoder_stack.launches += 1
+    # the serving batcher and, for the reranker's vision tower, the
+    # completer thread both launch it
+    with _count_lock:
+        encoder_stack.launches += 1
     return out
+
+
+_count_lock = threading.Lock()
 
 
 def encoder_stack(x: torch.Tensor, stack: Dict[str, torch.Tensor], *,

@@ -113,14 +113,8 @@ def _patch_embed(br: _Bridge, src: str, dst: str) -> None:
     br.put(f"{dst}.weight", kernel.reshape(-1, kernel.shape[-1]).T)
 
 
-def _clip_encoder(br: _Bridge) -> None:
-    enc, out = "encoder/backbone", "encoder.backbone"
-    _patch_embed(br, f"{enc}/patch_embed", f"{out}.patch_embed")
-    br.put(f"{out}.class_embedding", br.take(f"{enc}/class_embedding"))
-    br.put(f"{out}.position_embeddings",
-           br.take(f"{enc}/position_embeddings"))
-    br.norm(f"{enc}/pre_layernorm", f"{out}.pre_layernorm")
-    br.norm(f"{enc}/post_layernorm", f"{out}.post_layernorm")
+def _clip_layers(br: _Bridge, enc: str, out: str) -> None:
+    """The ``CLIPLayer``s ``layer_i`` under ``enc``."""
     for i in br.indices(enc, "layer"):
         src, dst = f"{enc}/layer_{i}", f"{out}.layers.{i}"
         _qkv(br, f"{src}/attention", f"{dst}.attention")
@@ -129,6 +123,20 @@ def _clip_encoder(br: _Bridge) -> None:
         br.norm(f"{src}/layer_norm2", f"{dst}.layer_norm2")
         br.dense(f"{src}/fc1", f"{dst}.fc1")
         br.dense(f"{src}/fc2", f"{dst}.fc2")
+
+
+def _clip_vision(br: _Bridge, enc: str, out: str) -> None:
+    _patch_embed(br, f"{enc}/patch_embed", f"{out}.patch_embed")
+    br.put(f"{out}.class_embedding", br.take(f"{enc}/class_embedding"))
+    br.put(f"{out}.position_embeddings",
+           br.take(f"{enc}/position_embeddings"))
+    br.norm(f"{enc}/pre_layernorm", f"{out}.pre_layernorm")
+    br.norm(f"{enc}/post_layernorm", f"{out}.post_layernorm")
+    _clip_layers(br, enc, out)
+
+
+def _clip_encoder(br: _Bridge) -> None:
+    _clip_vision(br, "encoder/backbone", "encoder.backbone")
 
 
 def _vit_encoder(br: _Bridge) -> None:
@@ -273,6 +281,97 @@ def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     if br.flat:
         raise ValueError(f"unmapped flax leaves: {sorted(br.flat)}")
     return br.out
+
+
+def scorer_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Map the JAX ``CLIPScorer`` variables (with or without the top-level
+    ``"params"``) to an f32 state dict of
+    :class:`.models.clip_text.CLIPScorer`: the vision tower as the
+    captioning CLIP encoder's, the text tower's token embedding, position
+    embeddings, layers and final LayerNorm, the two bias-free projections
+    and ``logit_scale``."""
+    if "params" in tree and isinstance(tree["params"], Mapping):
+        tree = tree["params"]
+    br = _Bridge(_flatten(tree))
+    _clip_vision(br, "vision", "vision")
+    br.put("text.token_embedding.weight",
+           br.take("text/token_embedding/embedding"))
+    br.put("text.position_embeddings", br.take("text/position_embeddings"))
+    br.norm("text/final_layernorm", "text.final_layernorm")
+    _clip_layers(br, "text", "text")
+    for name in ("visual_projection", "text_projection"):
+        br.put(f"{name}.weight", br.take(f"{name}/kernel").T)
+    br.put("logit_scale", br.take("logit_scale"))
+    if br.flat:
+        raise ValueError(f"unmapped flax leaves: {sorted(br.flat)}")
+    return br.out
+
+
+def scorer_from_hf(sd: Mapping[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """Map an HF ``CLIPModel`` state dict (torch tensors, read as they are:
+    both sides keep ``nn.Linear``'s ``[out, in]``) to an f32 state dict of
+    :class:`.models.clip_text.CLIPScorer`, the counterpart of the JAX
+    package's ``port_clip_model``. The q/k/v projections are concatenated
+    into the one QKV projection and the patch convolution ``[H, C, P, P]``
+    is flattened in (kh, kw, c) order."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(name, t):
+        out[name] = t.detach().to(torch.float32).contiguous().clone()
+
+    def linear(src, dst, bias=True):
+        put(f"{dst}.weight", sd[f"{src}.weight"])
+        if bias:
+            put(f"{dst}.bias", sd[f"{src}.bias"])
+
+    def layers(src, dst):
+        pat = re.compile(rf"^{re.escape(src)}\.(\d+)\.")
+        for i in sorted({int(m.group(1)) for m in map(pat.match, sd) if m}):
+            a, b = f"{src}.{i}", f"{dst}.layers.{i}"
+            for n in ("weight", "bias"):
+                put(f"{b}.attention.qkv.{n}", torch.cat(
+                    [sd[f"{a}.self_attn.{p}_proj.{n}"] for p in "qkv"]))
+            linear(f"{a}.self_attn.out_proj", f"{b}.attention.out")
+            linear(f"{a}.layer_norm1", f"{b}.layer_norm1")
+            linear(f"{a}.layer_norm2", f"{b}.layer_norm2")
+            linear(f"{a}.mlp.fc1", f"{b}.fc1")
+            linear(f"{a}.mlp.fc2", f"{b}.fc2")
+
+    v, t = "vision_model", "text_model"
+    patch = sd[f"{v}.embeddings.patch_embedding.weight"]      # [H, C, P, P]
+    put("vision.patch_embed.weight",
+        patch.permute(0, 2, 3, 1).reshape(patch.shape[0], -1))
+    put("vision.class_embedding", sd[f"{v}.embeddings.class_embedding"])
+    put("vision.position_embeddings",
+        sd[f"{v}.embeddings.position_embedding.weight"])
+    # HF's attribute is spelled "pre_layrnorm"
+    linear(f"{v}.pre_layrnorm", "vision.pre_layernorm")
+    linear(f"{v}.post_layernorm", "vision.post_layernorm")
+    layers(f"{v}.encoder.layers", "vision")
+    put("text.token_embedding.weight",
+        sd[f"{t}.embeddings.token_embedding.weight"])
+    put("text.position_embeddings",
+        sd[f"{t}.embeddings.position_embedding.weight"])
+    linear(f"{t}.final_layer_norm", "text.final_layernorm")
+    layers(f"{t}.encoder.layers", "text")
+    linear("visual_projection", "visual_projection", bias=False)
+    linear("text_projection", "text_projection", bias=False)
+    put("logit_scale", sd["logit_scale"])
+    return out
+
+
+def load_scorer(scorer: nn.Module, state_dict: Mapping[str, torch.Tensor],
+                device) -> nn.Module:
+    """A :class:`.models.clip_text.CLIPScorer` (built on the ``meta``
+    device or anywhere) loaded from ``state_dict`` onto ``device`` in
+    float32 and inference mode, its vision tower's layer-stacked weights
+    built for the encoder kernel (as :func:`stack_layer_weights` builds the
+    captioning CLIP encoder's)."""
+    scorer.load_state_dict(state_dict, strict=True, assign=True)
+    scorer = scorer.to(device).eval().requires_grad_(False)
+    scorer.vision.stack = _stack_clip(scorer.vision)
+    return scorer
 
 
 def init_flax_params(config, seed: int) -> Dict[str, Any]:
@@ -521,7 +620,11 @@ def stack_layer_weights(model) -> None:
             sa.wqkv = _concatenated([m.weight for m in projs])
             sa.bqkv = _concatenated([m.bias for m in projs])
     if isinstance(backbone, CLIPVisionBackbone):
-        backbone.stack = _stack(
-            backbone.layers,
-            lambda m: (m.attention.qkv, m.attention.out, m.layer_norm1,
-                       m.layer_norm2, m.fc1, m.fc2))
+        backbone.stack = _stack_clip(backbone)
+
+
+def _stack_clip(backbone) -> Dict[str, torch.Tensor]:
+    """The encoder kernel's stacked weights of a CLIP vision tower."""
+    return _stack(backbone.layers,
+                  lambda m: (m.attention.qkv, m.attention.out, m.layer_norm1,
+                             m.layer_norm2, m.fc1, m.fc2))

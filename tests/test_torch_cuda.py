@@ -474,6 +474,43 @@ def test_encoder_kernel_matches_plain(dev, dtype, L, B, T, NH, H):
     _close(got, want, dtype, 1e-4, 8)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_kernel_from_two_threads(dev, dtype):
+    """The serving batcher and, for the CLIP reranker's vision tower, the
+    completer thread launch the encoder kernel on the same stream: each
+    thread keeps its own scratch, so two threads launching together give
+    what each gives alone, bit for bit, and every launch is counted."""
+    import threading
+
+    H, NH, T, L = 768, 12, 50, 2
+    w = {k: v.to(dev) for k, v in _stack_weights(L, H, 4 * H, dtype,
+                                                 seed=3).items()}
+    g = torch.Generator().manual_seed(4)
+    xs = [torch.randn((B, T, H), generator=g).to(dev, dtype) for B in (8, 5)]
+    with torch.inference_mode():
+        alone = [es.encoder_stack(x, w, num_heads=NH) for x in xs]
+    torch.cuda.synchronize()
+    before = es.encoder_stack.launches
+    got = [[], []]
+
+    def launch(i):
+        with torch.inference_mode():
+            for _ in range(20):
+                got[i].append(es.encoder_stack(xs[i], w, num_heads=NH))
+
+    threads = [threading.Thread(target=launch, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    torch.cuda.synchronize()
+    assert es.encoder_stack.launches == before + 40
+    for i in (0, 1):
+        assert len(got[i]) == 20
+        assert all(torch.equal(out, alone[i]) for out in got[i])
+
+
 # the Dense GEMM (csrc/common.cuh) at every (M, N, K) the two whole-stack
 # kernels give it (encoder rows 50 / 400 / 3200, decoder rows 5 / 40 / 320
 # for buckets 1 / 8 / 64; QKV, output projection, MLP in and out at width

@@ -1,10 +1,13 @@
 """Serving (port: inference/server.py) and the CLI (port: main.py) on the
 CPU: concurrent submits over a bucket ladder give the captions of a direct
 ``beam_search`` decode (CLIP + GPT-2, ViT + Transformer decoder, and
-ResNet + LSTM with soft attention through its kernel switch), the
-HTTP front end answers ``/caption`` for a PNG and its GET routes, the
-built-in configurations have their widths, and what is not yet ported
-says so."""
+ResNet + LSTM with soft attention through its kernel switch); greedy,
+nucleus, diverse-beam and CLIP-reranked serving give the captions of a
+direct ``decode()`` / ``rerank_candidates``, and two services of one seed
+the same nucleus captions; the CLI serves a JSON config's decoding
+options; the HTTP front end answers ``/caption`` for a PNG and its GET
+routes, the built-in configurations have their widths, and what is not yet
+ported (checkpoints) says so."""
 
 import io
 import json
@@ -18,12 +21,17 @@ import torch
 
 from image_captioning_ml_project_tpu_torch import main as port_main
 from image_captioning_ml_project_tpu_torch.data.tokenizer import WordVocab
+from image_captioning_ml_project_tpu_torch.inference import server
 from image_captioning_ml_project_tpu_torch.inference.decoding import (
-    beam_search)
+    beam_search, decode)
+from image_captioning_ml_project_tpu_torch.inference.reranking import (
+    CLIPReranker, rerank_candidates)
 from image_captioning_ml_project_tpu_torch.inference.server import (
     CaptionService, ServerStats, make_http_server)
 from image_captioning_ml_project_tpu_torch.models.captioning_model import (
     load_model)
+from image_captioning_ml_project_tpu_torch.models.clip_text import CLIPScorer
+from image_captioning_ml_project_tpu_torch.params import load_scorer
 from torch_port_helpers import IMAGE_SIZE, images_uint8, tiny_config
 
 torch.set_num_threads(1)
@@ -133,19 +141,190 @@ def test_submit_rejects_malformed_images(served):
                                       np.float32))
 
 
-@pytest.mark.parametrize("change", [
-    lambda c: setattr(c.inference, "decoding_strategy", "greedy"),
-    lambda c: setattr(c.inference, "use_clip_reranking", True),
-    lambda c: setattr(c.inference, "num_beam_groups", 2),
-])
-def test_unported_service_options_raise(change):
-    cfg = tiny_config()
-    change(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CaptionService(cfg, _vocab(), "cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+def test_checkpoint_path_still_raises():
+    with pytest.raises(NotImplementedError,
+                       match="not yet ported.*checkpoints and /reload"):
         CaptionService(tiny_config(), _vocab(), "cpu",
                        checkpoint_path="best_model")
+
+
+def _word_hash_clip_ids(texts):
+    """A deterministic CLIP tokenizer for the tests: SOT 98, one id in
+    [3, 97] per word, EOT 99, zero padding to 16 positions."""
+    out = np.zeros((len(texts), 16), np.int32)
+    for r, text in enumerate(texts):
+        words = [3 + sum(map(ord, w)) * 7919 % 95 for w in text.split()]
+        row = [98] + words[:14] + [99]
+        out[r, :len(row)] = row
+    return out
+
+
+def _reranker(tok):
+    """A CLIP reranker on seeded random weights (vision width 32 on 24x24
+    images, text width 32, vocabulary 100): the served 32x32 images are
+    resized to 24."""
+    torch.manual_seed(0)
+    scorer = CLIPScorer(vision_hidden=32, vision_layers=2, vision_heads=4,
+                        patch_size=8, image_size=24, text_vocab=100,
+                        text_hidden=32, text_layers=2, text_heads=4,
+                        text_eos_token_id=99, text_max_positions=16,
+                        projection_dim=16)
+    with torch.no_grad():
+        for p in scorer.parameters():
+            if p.dim():  # logit_scale keeps CLIP's initial value
+                p.normal_(0.0, 0.2)
+    scorer = load_scorer(scorer, scorer.state_dict(), "cpu")
+    return CLIPReranker(scorer, _word_hash_clip_ids,
+                        lambda ids: tok.decode(ids, skip_special_tokens=True),
+                        image_size=24)
+
+
+_OPTIONS = {
+    "greedy": dict(decoding_strategy="greedy"),
+    "nucleus": dict(decoding_strategy="nucleus", top_p=0.9,
+                    temperature=0.8),
+    "diverse": dict(beam_size=6, num_beam_groups=3, diversity_penalty=0.5),
+    "rerank": dict(num_beam_groups=1, num_candidates=3),
+}
+
+
+def _options_config(option):
+    cfg = tiny_config(vocab=VOCAB)
+    cfg.seed = 9
+    for k, v in _OPTIONS[option].items():
+        setattr(cfg.inference, k, v)
+    return cfg
+
+
+def _direct(cfg, tok, images, reranker=None):
+    """The captions of one direct decode of ``images`` as one batch: the
+    configured strategy (nucleus from a generator seeded as the service
+    seeds its own), or with ``reranker`` its pick among the beam
+    candidates."""
+    model = load_model(cfg, "cpu")
+    mc, ic = cfg.model, cfg.inference
+    ids = (mc.bos_token_id, mc.eos_token_id, mc.pad_token_id)
+    x = torch.from_numpy(images)
+    with torch.inference_mode():
+        state = model.init_cache(x, ic.max_length)
+        if reranker is None:
+            tokens = decode(model.step, state, len(images), ic, *ids,
+                            generator=torch.Generator().manual_seed(
+                                cfg.seed)).numpy()
+        else:
+            cand = beam_search(
+                model.step, state, len(images),
+                max(ic.beam_size, ic.num_candidates), *ids, ic.max_length,
+                length_penalty=ic.length_penalty, min_length=ic.min_length,
+                return_all=True).tokens[:, :ic.num_candidates]
+            tokens, _ = rerank_candidates(
+                cand, x, reranker.decode_fn, reranker.clip_tokenize_fn,
+                reranker.scorer, score_fn=reranker.score)
+    return [tok.decode(t, skip_special_tokens=True) for t in tokens]
+
+
+def _serve_one_batch(service, images):
+    """Submit ``images`` together so that the batcher runs them as one
+    batch (it waits up to 2 s for a batch to fill); their captions."""
+    reqs = [service.submit_async(img) for img in images]
+    return [service.result(r) for r in reqs]
+
+
+@pytest.mark.parametrize("option", list(_OPTIONS))
+def test_served_decoding_options_match_direct_decode(option):
+    """Greedy, nucleus (the service's generator seeded from the config's
+    seed, drawn by this first batch), diverse beam (6 beams in 3 groups)
+    and an injected CLIP reranker over 3 beam candidates, which runs on the
+    completer thread: the served captions are the direct decode's."""
+    cfg = _options_config(option)
+    tok = _vocab()
+    images = images_uint8(15, n=4)
+    reranker = _reranker(tok) if option == "rerank" else None
+    want = _direct(cfg, tok, images, reranker)
+    service = CaptionService(cfg, tok, "cpu", reranker=reranker,
+                             batch_size=4, bucket_sizes=[4],
+                             max_wait_ms=2000.0)
+    service.start(warmup=False)
+    try:
+        assert service.reranker is reranker
+        assert _serve_one_batch(service, images) == want
+        snap = service.stats.snapshot()
+        assert snap["batches"] == 1 and snap["decode_steps"] > 0
+    finally:
+        service.stop()
+
+
+def test_nucleus_service_is_reproducible():
+    """Two services of one seed, warmed up alike, caption the same images
+    alike; a service of another seed samples other captions."""
+    tok = _vocab()
+    images = images_uint8(16, n=4)
+    got = []
+    for seed in (9, 9, 10):
+        cfg = _options_config("nucleus")
+        cfg.seed = seed
+        service = CaptionService(cfg, tok, "cpu", batch_size=4,
+                                 bucket_sizes=[4], max_wait_ms=2000.0)
+        service.start(warmup=True)
+        try:
+            got.append(_serve_one_batch(service, images)
+                       + _serve_one_batch(service, images))
+        finally:
+            service.stop()
+    assert got[0] == got[1]
+    assert got[0] != got[2]
+
+
+@pytest.mark.parametrize("option", ["greedy", "nucleus", "diverse"])
+def test_cli_serves_the_json_configs_decoding_options(option, tmp_path,
+                                                      monkeypatch):
+    """``main.py --mode serve --config cfg.json --device cpu``: the
+    service it builds decodes with the JSON file's ``inference`` options
+    (``serve`` stood in for by one synchronous batch)."""
+    from image_captioning_ml_project_tpu_torch.config import save_config
+
+    cfg = _options_config(option)
+    path = tmp_path / "cfg.json"
+    save_config(cfg, str(path))
+    vocab = tmp_path / "vocab.json"
+    tok = _vocab()
+    tok.save(str(vocab))
+    images = images_uint8(17, n=2)
+    served = {}
+
+    def one_batch(config, tokenizer, device, **kw):
+        service = CaptionService(config, tokenizer, device, batch_size=2,
+                                 bucket_sizes=[2])
+        served["config"] = config
+        served["captions"] = service._run_images(list(images))
+
+    monkeypatch.setattr(server, "serve", one_batch)
+    port_main.main(["--mode", "serve", "--config", str(path), "--device",
+                    "cpu", "--vocab", str(vocab)])
+    ic = served["config"].inference
+    for k, v in _OPTIONS[option].items():
+        assert getattr(ic, k) == v
+    assert served["captions"] == _direct(cfg, tok, images)
+
+
+def test_cli_reranking_without_a_local_checkpoint_serves_beam(
+        tmp_path, monkeypatch, caplog):
+    """``use_clip_reranking`` with no local CLIP checkpoint: the JAX
+    package's warning, then plain beam captions."""
+    import logging
+
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "hf"))
+    cfg = _options_config("rerank")
+    cfg.inference.use_clip_reranking = True
+    tok = _vocab()
+    with caplog.at_level(logging.WARNING):
+        service = CaptionService(cfg, tok, "cpu", batch_size=2,
+                                 bucket_sizes=[2])
+    assert service.reranker is None
+    assert "continuing without reranking" in caplog.text
+    images = images_uint8(18, n=2)
+    assert service._run_images(list(images)) == _direct(cfg, tok, images)
 
 
 def test_stats_percentiles_are_nearest_rank():
@@ -225,16 +404,6 @@ def test_cli_builtin_configurations():
         with torch.device("meta"):
             model = ImageCaptioningModel(c)
         assert sum(p.numel() for p in model.parameters()) > 10 ** 8
-
-
-def test_lstm_decoder_names_its_roadmap_item():
-    """The LSTM decoder is built; its greedy ``generate`` waits for the
-    greedy, sampling and diverse decodes of ROADMAP.md Queue 1 item 4."""
-    cfg = tiny_config(encoder="resnet", decoder="lstm", attention="soft",
-                      attention_heads=1)
-    model = load_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
-        model.decoder.generate({}, 5)
 
 
 @pytest.mark.parametrize("attention", ["soft", "multi_head"])
