@@ -92,22 +92,51 @@ prints no result line:
    full-width scorer on the completer thread, a word-hash CLIP tokenizer);
    #3 must launch once a step, #5 once an encoded batch plus once a
    reranked one, #4 once a step on the beam paths and never on the
-   others.
+   others;
+7. train: the flagship at full width on a synthetic COCO fixture of
+   64 + 64 PNG images of 224 x 224 with its word vocabulary padded to
+   50257 ids, through ``CaptioningTrainer``; the training batches take
+   the training crop and flip on the host: two f32 CE steps of
+   batch 2 (dropout 0, no warmup) on the card and on the CPU from the same
+   seeded weights, losses within 1e-4 relative, ``grad_norm`` within 1e-3,
+   the Adam moments after the first step within the CPU parity tests'
+   tolerance (atol 1e-7 + rtol 1e-3: the first moment is then a tenth of
+   the gradient, so this holds every entry's gradient) and after the
+   second within atol 2e-7 + rtol 1e-3, and every parameter
+   within theirs (atol 1e-5 + rtol 1e-4; an entry whose gradient on
+   either device lies in (0, 1e-7) in a step, where AdamW's step follows
+   the gradient's rounding, moves within the bias-corrected Adam steps'
+   bound on each device, about a learning rate a step, and within twice
+   it of the other device); 20 bf16 steps at batch 64
+   (lr 1e-4, warmup 2, dropout 0.1) on one batch, the loss falling, with
+   the median step time, images per second and peak memory; no kernel
+   may launch in any training step. Then ``_validate_epoch`` on the 64
+   validation images (val loss and CIDEr > 0, and #3, #4 and #5 launched),
+   the ``eval_state`` decode token-identical to ``load_model``'s on the
+   trainer's current weights, ``save_checkpoint`` restored bit-identical
+   by a new trainer, the rolling step checkpoint's two slots; last a
+   service on the seeded weights answers requests from 8 threads while
+   ``reload_checkpoint("best_model")`` swaps the trained weights in, every
+   request answered, the captions after it equal to a fresh service's on
+   the checkpoint.
 
-The last two lines are a JSON summary of the kernels and
-``{"ok": true, "device": {...}}``. Each kernel's entry holds its numbers
+The last three lines are the train phase's numbers (JSON), a JSON summary
+of the kernels and ``{"ok": true, "device": {...}}``. Each kernel's entry holds its numbers
 and launches for the Transformer family where that family runs it, else
 for the flagship, else for the LSTM; the other families', where they have
 their own shape (the LSE over the LSTM's vocabulary of 10000), are under
 ``other_shapes``; the decode-step kernels' numbers at one beam with no
 ancestry and at 6 beams under ``decode_shapes``, and each kernel's
 launches in the flagship's other decoding options' runs under
-``decoding_options``.
+``decoding_options``, and their launches in the train phase (its
+steps, its validation, the service across the reload) under
+``training``.
 """
 
 import argparse
 import copy
 import json
+import math
 import os
 import re
 import statistics
@@ -1642,6 +1671,521 @@ def serve_strategies(torch, dev, smi, cfg, tree, scorer):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# train (phase 7)
+# ---------------------------------------------------------------------------
+
+TRAIN_IMAGES = 64          # fixture images per split, 5 captions each
+TRAIN_BF16_STEPS = 20
+TRAIN_RELOAD_THREADS = 8
+# the CPU parity tests' tolerances (tests/test_torch_trainer.py): every
+# parameter within atol 1e-5 + rtol 1e-4, but where an entry's gradient on
+# either device lies in (0, 1e-7) in a step. There AdamW's step
+# g / (|g| + 1e-8) follows the rounding of g (an attention key bias's
+# gradient is zero but for it; a patch-embedding weight's can cancel to
+# 1e-9 in one step), and each device's move of the entry is held to the
+# bias-corrected Adam steps' bound (adam_step_bound), the two devices to
+# twice it of each other. The Adam moments after the first step are a
+# tenth of the gradient and a thousandth of its square: held at the CPU
+# tests' atol 1e-7 + rtol 1e-3, they check every entry's gradient. After
+# the second step they also carry the first step's differences in those
+# rounding-driven entries (up to two learning rates apart on about 2 M
+# parameters, which moves every later gradient), and there the tied
+# embedding needs atol 2e-7: wte[30, 86] came 3.0e-7 apart at 1.565e-4
+# (chip_smoke.py's check at 1e-7 on the card, NVIDIA H100 80GB HBM3).
+TRAIN_PARAM_ATOL, TRAIN_PARAM_RTOL = 1e-5, 1e-4
+TRAIN_MOMENT_ATOL = (1e-7, 2e-7)   # after the first step, after the second
+TRAIN_MOMENT_RTOL = 1e-3
+SMALL_GRADIENT = 1e-7
+ADAM_B1, ADAM_B2 = 0.9, 0.999
+
+
+def adam_step_bound(count):
+    """The largest |m / sqrt(v)| of bias-corrected Adam moments after
+    ``count`` gradients: by Cauchy-Schwarz, sqrt(sum_k a_k^2 / c_k) *
+    sqrt(1 - b2^count) / (1 - b1^count) with a_k = (1 - b1) b1^k and
+    c_k = (1 - b2) b2^k; 1 at count 1, 1.0014 at 2."""
+    b1, b2 = ADAM_B1, ADAM_B2
+    s = sum(((1 - b1) * b1 ** k) ** 2 / ((1 - b2) * b2 ** k)
+            for k in range(count))
+    return math.sqrt(s) * math.sqrt(1 - b2 ** count) / (1 - b1 ** count)
+
+
+def _train_fixture(torch, cfg, tmp, seed):
+    """A synthetic COCO fixture of 224 x 224 PNG images and its word
+    vocabulary, padded with filler words to the flagship's 50257 ids.
+    Returns (tokenizer, train set, val set)."""
+    from image_captioning_ml_project_tpu_torch.data.coco import (
+        build_coco_datasets)
+    from image_captioning_ml_project_tpu_torch.data.synthetic import (
+        make_synthetic_coco)
+    from image_captioning_ml_project_tpu_torch.data.tokenizer import WordVocab
+
+    root = make_synthetic_coco(os.path.join(tmp, "coco"),
+                               num_images=TRAIN_IMAGES, captions_per_image=5,
+                               image_size=cfg.image_size, seed=seed)
+    with open(os.path.join(root, "annotations",
+                           "captions_train2014.json")) as f:
+        captions = [a["caption"] for a in json.load(f)["annotations"]]
+    words = WordVocab.build(captions, threshold=1).word2idx
+    words.update({f"w{i}": i for i in range(len(words),
+                                            cfg.model.vocab_size)})
+    tokenizer = WordVocab(words)
+    cfg.data_root = root
+    cfg.model.pad_token_id = tokenizer.pad_token_id
+    cfg.model.bos_token_id = tokenizer.bos_token_id
+    cfg.model.eos_token_id = tokenizer.eos_token_id
+    train_ds, val_ds = build_coco_datasets(cfg, tokenizer)
+    return tokenizer, train_ds, val_ds
+
+
+def _fixed_batch(dataset, n):
+    """The first batch of ``n`` examples of ``dataset``, as its own
+    iteration gives it: shuffled from seed 0 with the training crop and
+    flip for a training set, in order with the evaluation transform for
+    a validation set."""
+    from image_captioning_ml_project_tpu_torch.data.coco import (
+        iterate_batches)
+
+    return next(iterate_batches(dataset, n, shuffle=dataset.is_training,
+                                seed=0))
+
+
+def _train_config(base, tmp, use_amp, batch, lr, warmup, dropout):
+    cfg = copy.deepcopy(base)
+    cfg.model.dtype = "bfloat16" if use_amp else "float32"
+    cfg.model.decoder.dropout = dropout
+    tc = cfg.training
+    tc.use_amp, tc.batch_size, tc.learning_rate = use_amp, batch, lr
+    # a horizon of 10 epochs: the cosine schedule stays near lr for the
+    # steps taken
+    tc.warmup_steps, tc.use_rl, tc.num_epochs = warmup, False, 10
+    cfg.output_dir = os.path.join(tmp, "out")
+    cfg.checkpoint_dir = os.path.join(tmp, "checkpoints")
+    cfg.num_workers = 0
+    cfg.log_every = 10 ** 9
+    return cfg
+
+
+def _flat_state(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_state(v, f"{prefix}{k}/"))
+        elif hasattr(v, "dtype"):
+            out[prefix + k] = v
+    return out
+
+
+def record_steps(torch, trainer, steps):
+    """Each step ``trainer`` takes from now on appends, on the CPU, its
+    |gradient|s and the Adam moments after it to ``steps`` ({"grads",
+    "mu", "nu"}: {optimizer name: tensor})."""
+    opt = trainer.optimizer
+    step = opt.step
+
+    def recording(grads):
+        record = {"grads": {n: g.detach().abs().cpu()
+                            for n, g in grads.items()}}
+        out = step(grads)
+        record["mu"] = {n: m.float().cpu() for n, m in opt.mu.items()}
+        record["nu"] = {n: v.cpu() for n, v in opt.nu.items()}
+        steps.append(record)
+        return out
+
+    opt.step = recording
+
+
+def hold_train_state(torch, trainer, reference, before, steps, lrs):
+    """``trainer``'s state against ``reference``'s after the same steps
+    from the parameters ``before`` (``steps``: the two trainers' lists of
+    :func:`record_steps` records): every Adam moment after each step
+    within that step's :data:`TRAIN_MOMENT_ATOL` + :data:`TRAIN_MOMENT_RTOL`;
+    every parameter within :data:`TRAIN_PARAM_ATOL` +
+    :data:`TRAIN_PARAM_RTOL`, but an entry whose gradient on either
+    trainer lies in (0, :data:`SMALL_GRADIENT`) in a step: each trainer's
+    move of it within the bias-corrected Adam steps at the learning rates
+    ``lrs`` plus their decay, the two within twice the Adam steps. Fails
+    naming the worst entries. Returns a line that says how close they
+    came."""
+    mine, ref = trainer._state_tree(), reference._state_tree()
+    count0 = ref["opt_state"]["count"] - len(lrs)
+    adam = sum(lr * adam_step_bound(count0 + 1 + i)
+               for i, lr in enumerate(lrs))
+    wd = reference.config.training.weight_decay
+    worst = {"param": (0.0, ""), "loose": (0.0, "")}
+    worst.update({f"moment {i + 1}": (0.0, "") for i in range(len(lrs))})
+    n, n_loose, failures = 0, 0, []
+
+    def fail(key, excess, got, want):
+        over = int((excess > 0).sum())
+        top = excess.flatten().topk(min(3, over)).indices
+        rows = [f"[{int(i)}] {float(got.flatten()[i]):.6e} against "
+                f"{float(want.flatten()[i]):.6e}" for i in top]
+        failures.append(f"{key}: {over} entries beyond the tolerance, "
+                        + "; ".join(rows))
+
+    def note(kind, diff, key):
+        d = float(diff.max()) if diff.numel() else 0.0
+        if d > worst[kind][0]:
+            worst[kind] = (d, key)
+
+    for i, (got_step, want_step) in enumerate(zip(*steps)):
+        for moment in ("mu", "nu"):
+            for name, want in want_step[moment].items():
+                got = got_step[moment][name]
+                diff = (got - want).abs()
+                note(f"moment {i + 1}", diff, f"{moment} {name}")
+                excess = diff - (TRAIN_MOMENT_ATOL[i]
+                                 + TRAIN_MOMENT_RTOL * want.abs())
+                if float(excess.max()) > 0:
+                    fail(f"Adam {moment} of {name} after step {i + 1}",
+                         excess, got, want)
+    for group in ("model", "loss"):
+        for name, want in ref["params"][group].items():
+            key = f"{group}.{name}"
+            got = mine["params"][group][name].float().cpu()
+            want = want.float().cpu()
+            p0 = before[key]
+            loose = torch.zeros(want.shape, dtype=torch.bool)
+            for got_step, want_step in zip(*steps):
+                top = torch.maximum(got_step["grads"][key],
+                                    want_step["grads"][key])
+                loose |= (top > 0) & (top < SMALL_GRADIENT)
+            diff = (got - want).abs()
+            n += diff.numel()
+            n_loose += int(loose.sum())
+            note("param", diff[~loose], key)
+            note("loose", diff[loose], key)
+            # the decay of |p| <= |p0| + adam over the steps, and f32
+            # rounding of the bound's own terms
+            reach = (adam + sum(lrs) * wd * (p0.abs() + adam)) \
+                * (1 + 1e-5) + 1e-9
+            for side in (got, want):
+                excess = torch.where(loose, (side - p0).abs() - reach, 0.0)
+                if float(excess.max()) > 0:
+                    fail(f"the move of parameter {key}", excess, side, p0)
+            excess = torch.where(
+                loose, diff - 2 * adam,
+                diff - (TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL * want.abs()))
+            if float(excess.max()) > 0:
+                fail(f"parameter {key}", excess, got, want)
+    check(not failures, f"{len(failures)} leaves beyond the tolerance: "
+                        + " | ".join(failures))
+    moments = "; ".join(
+        f"after step {i + 1} {worst[f'moment {i + 1}'][0]:.3e} "
+        f"({worst[f'moment {i + 1}'][1]})" for i in range(len(lrs)))
+    return (f"Adam moments, largest |diff|: {moments}; {n} parameter "
+            f"entries: largest "
+            f"|diff| {worst['param'][0]:.3e} ({worst['param'][1]}) where "
+            f"every step's |gradient| is 0 or at least {SMALL_GRADIENT:g}; "
+            f"{n_loose} entries below it within {2 * adam:.3e} of each "
+            f"other (each moved within {adam:.3e} + decay), largest "
+            f"{worst['loose'][0]:.3e} ({worst['loose'][1]})")
+
+
+def _zero_launches(kernels):
+    for fn in kernels.values():
+        fn.launches = 0
+    return kernels
+
+
+def _launches(kernels):
+    return {k: fn.launches for k, fn in kernels.items()}
+
+
+def train_card_vs_cpu(torch, dev, cfg, tree, train_ds, tmp, kernels):
+    """Two f32 CE steps of batch 2 (dropout 0, warmup 0) on the card and
+    on the CPU from the same seeded weights and batch: losses within 1e-4
+    relative, grad_norm within 1e-3, the Adam moments and the parameters
+    as :func:`hold_train_state` holds them; no kernel launched."""
+    from image_captioning_ml_project_tpu_torch.train.trainer import (
+        CaptioningTrainer)
+
+    c = _train_config(cfg, os.path.join(tmp, "f32"), False, 2, 1e-4, 0, 0.0)
+    batch = _fixed_batch(train_ds, 2)
+    trainers, metrics, steps = {}, {}, {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        t = CaptioningTrainer(c, train_ds, train_ds, None, device=device,
+                              params=tree)
+        if name == "cpu":
+            before = {f"{group}.{k}": v.clone() for group, params in
+                      t._state_tree()["params"].items()
+                      for k, v in params.items()}
+        steps[name] = []
+        record_steps(torch, t, steps[name])
+        _zero_launches(kernels)
+        metrics[name] = [{k: float(v) for k, v in t.train_step(
+            batch["image"], batch["caption_tokens"],
+            batch["attention_mask"]).items()} for _ in range(2)]
+        launched = _launches(kernels)
+        check(not any(launched.values()),
+              f"f32 train steps on the {name} launched kernels: {launched}")
+        if name == "card":
+            torch.cuda.synchronize()
+            print(f"train f32 card: memory_allocated "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after "
+                  f"2 steps of batch 2", flush=True)
+        trainers[name] = t
+    worst = {}
+    for step, (a, b) in enumerate(zip(metrics["card"], metrics["cpu"])):
+        print(f"train f32 step {step + 1}: card {a} cpu {b}", flush=True)
+        for key in ("total_loss", "ce_loss"):
+            rel = abs(a[key] - b[key]) / abs(b[key])
+            worst[key] = max(worst.get(key, 0.0), rel)
+            check(rel <= 1e-4, f"train f32 step {step + 1}: {key} card "
+                               f"{a[key]} cpu {b[key]} (rel {rel:.2e})")
+        rel = abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+        worst["grad_norm"] = max(worst.get("grad_norm", 0.0), rel)
+        check(rel <= 1e-3, f"train f32 step {step + 1}: grad_norm card "
+                           f"{a['grad_norm']} cpu {b['grad_norm']}")
+        check(a["learning_rate"] == b["learning_rate"] > 0,
+              f"train f32 step {step + 1}: learning rates {a} {b}")
+    held = hold_train_state(torch, trainers["card"], trainers["cpu"],
+                            before, (steps["card"], steps["cpu"]),
+                            [m["learning_rate"] for m in metrics["cpu"]])
+    print(f"train f32 card vs CPU: worst relative loss {worst}; "
+          f"{held}", flush=True)
+    for t in trainers.values():
+        # the recording step closes over the optimizer: unwrap it so the
+        # card trainer's memory is freed here, not by a later collection
+        del t.optimizer.step
+    del trainers
+    return worst
+
+
+def train_bf16(torch, dev, cfg, tree, train_ds, val_ds, tmp, smi, kernels):
+    """20 bf16 CE steps at batch 64 (lr 1e-4, warmup 2, dropout 0.1) on
+    one fixed batch: finite, falling loss; step time, images/s, peak
+    memory. Returns (trainer, numbers)."""
+    from image_captioning_ml_project_tpu_torch.train.trainer import (
+        CaptioningTrainer)
+
+    c = _train_config(cfg, os.path.join(tmp, "bf16"), True,
+                      cfg.training.batch_size, 1e-4, 2, 0.1)
+    B = c.training.batch_size
+    batch = _fixed_batch(train_ds, B)
+    images = torch.from_numpy(batch["image"]).to(dev)
+    caps = torch.from_numpy(batch["caption_tokens"]).to(dev)
+    mask = torch.from_numpy(batch["attention_mask"]).to(dev)
+    t = CaptioningTrainer(c, train_ds, val_ds, None, device=dev, params=tree)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches(kernels)
+    losses, times = [], []
+    for _ in range(TRAIN_BF16_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = t.train_step(images, caps, mask)
+        loss = float(m["total_loss"])       # waits for the step
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launched = _launches(kernels)
+    check(not any(launched.values()),
+          f"bf16 train steps launched kernels: {launched}")
+    check(all(map(math.isfinite, losses)), f"bf16 losses {losses}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last < first, f"bf16 loss did not fall: first five {first:.4f}, "
+                        f"last five {last:.4f}: {losses}")
+    ms = statistics.median(times[-15:]) * 1e3
+    numbers = {"batch": B, "steps": TRAIN_BF16_STEPS, "launches": launched,
+               "ms_per_step": ms, "images_per_s": B / ms * 1e3,
+               "max_memory_allocated_gib":
+                   torch.cuda.max_memory_allocated() / 2 ** 30,
+               "loss_first5": first, "loss_last5": last}
+    print(f"train bf16 batch {B}: losses {[round(x, 4) for x in losses]}",
+          flush=True)
+    print(f"train bf16 batch {B}: {ms:.2f} ms/step (median of the last 15),"
+          f" {B / ms * 1e3:.1f} images/s, max_memory_allocated "
+          f"{numbers['max_memory_allocated_gib']:.2f} GiB [{smi}]",
+          flush=True)
+    return t, numbers
+
+
+def train_validate_and_checkpoint(torch, dev, trainer, tree, tokenizer,
+                                  val_ds, kernels):
+    """_validate_epoch through the kernels; the eval_state decode against
+    load_model on the same weights; a checkpoint round trip bit-identical;
+    the rolling step checkpoint's two slots."""
+    from image_captioning_ml_project_tpu_torch.models.captioning_model import (
+        load_model)
+    from image_captioning_ml_project_tpu_torch.train.trainer import (
+        CaptioningTrainer)
+    from image_captioning_ml_project_tpu_torch.utils.checkpoint import (
+        latest_step_checkpoint)
+
+    trainer.tokenizer = tokenizer
+    _zero_launches(kernels)
+    t0 = time.perf_counter()
+    val_loss, metrics = trainer._validate_epoch(0)
+    seconds = time.perf_counter() - t0
+    launched = _launches(kernels)
+    print(f"train validation of {len(val_ds)} images: val loss "
+          f"{val_loss:.4f}, CIDEr {metrics['CIDEr']:.4f}, {seconds:.1f} s; "
+          f"launches {launched}", flush=True)
+    check(val_loss > 0 and metrics["CIDEr"] > 0,
+          f"validation: val loss {val_loss}, CIDEr {metrics['CIDEr']}")
+    for name in ("beam_decode_stack", "lse_and_block_max", "encoder_stack"):
+        check(launched[name] > 0, f"validation launched no {name}")
+
+    # the eval_state decode is load_model's on the current weights
+    images = torch.from_numpy(_fixed_batch(val_ds, 8)
+                              ["image"]).to(dev)
+    cfg = trainer.config
+    mcfg = copy.deepcopy(cfg)
+    mcfg.model.dtype = "bfloat16"
+    tree_now = trainer._state_tree()
+    state = dict(tree_now["params"]["model"])
+    state.update(tree_now["batch_stats"])
+    tokens = {}
+    for name, model in (("eval_state", trainer.eval_state()),
+                        ("load_model", load_model(mcfg, dev,
+                                                  state_dict=state))):
+        tokens[name] = trainer.val_decode_step(model, images).cpu()
+        del model
+    check(torch.equal(tokens["eval_state"], tokens["load_model"]),
+          "eval_state decodes other tokens than load_model on the trainer's "
+          "weights")
+    print("train: eval_state's tokens equal load_model's on the current "
+          "weights (8 images, beam 5)", flush=True)
+
+    # checkpoint round trip
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(0, is_best=True)
+    trainer.ckpt.wait_until_finished()
+    save_s = time.perf_counter() - t0
+    fresh = CaptioningTrainer(cfg, trainer.train_dataset, val_ds, tokenizer,
+                              device=dev, params=tree)
+    t0 = time.perf_counter()
+    fresh.load_checkpoint("best_model")
+    load_s = time.perf_counter() - t0
+    a, b = _flat_state(tree_now), _flat_state(fresh._state_tree())
+    check(set(a) == set(b), f"restored state keys differ: "
+                            f"{sorted(set(a) ^ set(b))}")
+    for name, t in a.items():
+        check(torch.equal(t, b[name].to(t.device)),
+              f"restored {name} is not bit-identical")
+    check(fresh.step == trainer.step and fresh.optimizer.count
+          == trainer.optimizer.count, "restored step or count differs")
+    print(f"train: checkpoint best_model saved in {save_s:.1f} s (epoch 1 "
+          f"and best_model) and restored in {load_s:.1f} s: {len(a)} "
+          f"tensors, the step and the count bit-identical", flush=True)
+    del fresh
+    slots = []
+    for i in range(2):
+        trainer.save_step_checkpoint(0, i + 1, "ce")
+        trainer.ckpt.wait_until_finished()
+        slots.append(latest_step_checkpoint(trainer.config.checkpoint_dir))
+    check(slots == ["checkpoint_step_0", "checkpoint_step_1"],
+          f"step checkpoints went to {slots}")
+    import shutil
+
+    for name in slots + ["checkpoint_epoch_1"]:  # 2.5 GB each
+        shutil.rmtree(os.path.join(trainer.config.checkpoint_dir, name))
+    print(f"train: step checkpoints {slots}, latest_step_checkpoint follows "
+          f"them", flush=True)
+    return {"val_loss": val_loss, "cider": metrics["CIDEr"],
+            "validation_s": seconds, "launches": launched}
+
+
+def train_reload(torch, dev, trainer, tree, tokenizer, val_ds, smi,
+                 kernels):
+    """A CaptionService on the seeded weights serves requests from 8
+    threads while reload_checkpoint("best_model") runs: every request is
+    answered; the captions after the swap equal a fresh service's on the
+    checkpoint, image for image."""
+    from image_captioning_ml_project_tpu_torch.inference.server import (
+        CaptionService)
+
+    cfg = copy.deepcopy(trainer.config)
+    cfg.model.dtype = "bfloat16"
+    images = _fixed_batch(val_ds, 16)["image"]
+    service = CaptionService(cfg, tokenizer, dev, params=tree,
+                             batch_size=8, bucket_sizes=[1, 8],
+                             max_wait_ms=20.0, request_timeout_s=300.0)
+    service.start(warmup=True)
+    before = [service.submit(img) for img in images]
+    _zero_launches(kernels)
+    stop = threading.Event()
+    answered, failed = [], []
+
+    def client(k):
+        i = k
+        while not stop.is_set():
+            try:
+                service.submit(images[i % len(images)])
+                answered.append(i)
+            except Exception as e:  # every request must be answered
+                failed.append(f"{type(e).__name__}: {e}")
+            i += TRAIN_RELOAD_THREADS
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(TRAIN_RELOAD_THREADS)]
+    for th in threads:
+        th.start()
+    time.sleep(1.0)
+    during = len(answered)
+    result = service.reload_checkpoint("best_model")
+    time.sleep(1.0)
+    stop.set()
+    for th in threads:
+        th.join(timeout=120)
+    launched = _launches(kernels)
+    after = [service.submit(img) for img in images]
+    service.stop()
+    check(not failed, f"requests failed across the reload: {failed[:3]}")
+    check(not any(th.is_alive() for th in threads), "a client hung")
+    for name in ("beam_decode_stack", "lse_and_block_max", "encoder_stack"):
+        check(launched[name] > 0, f"the service launched no {name}")
+    fresh = CaptionService(cfg, tokenizer, dev,
+                           checkpoint_path="best_model", batch_size=8,
+                           bucket_sizes=[1, 8], request_timeout_s=300.0)
+    fresh.start(warmup=False)
+    want = [fresh.submit(img) for img in images]
+    fresh.stop()
+    check(after == want, "captions after the reload differ from a fresh "
+                         "service's on the checkpoint")
+    changed = sum(a != b for a, b in zip(before, after))
+    why_not = (" (the 20 bf16 steps at lr 1e-4 did not change a beam-5 "
+               "caption)")
+    print(f"train reload: {len(answered)} requests from "
+          f"{TRAIN_RELOAD_THREADS} threads answered across the swap "
+          f"({during} before it), none failed; reload {result}; captions "
+          f"after it equal a fresh service's on best_model for all "
+          f"{len(images)} images and differ from those before it on "
+          f"{changed}{'' if changed else why_not}; "
+          f"launches {launched} [{smi}]", flush=True)
+    return {"seconds": result["seconds"], "requests": len(answered),
+            "changed": changed, "launches": launched}
+
+
+def train_phase(torch, dev, smi, cfg, tree, seed):
+    """Phase 7 (module docstring). Returns the summary line's numbers."""
+    import shutil
+    import tempfile
+
+    kernels = counters()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        cfg = copy.deepcopy(cfg)
+        tokenizer, train_ds, val_ds = _train_fixture(torch, cfg, tmp, seed)
+        t0 = time.perf_counter()
+        worst = train_card_vs_cpu(torch, dev, cfg, tree, train_ds, tmp,
+                                  kernels)
+        print(f"train f32 card vs CPU: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        trainer, bf16 = train_bf16(torch, dev, cfg, tree, train_ds, val_ds,
+                                   tmp, smi, kernels)
+        validation = train_validate_and_checkpoint(
+            torch, dev, trainer, tree, tokenizer, val_ds, kernels)
+        reload = train_reload(torch, dev, trainer, tree, tokenizer, val_ds,
+                              smi, kernels)
+        del trainer
+        return {"f32_card_vs_cpu": worst, "bf16": bf16,
+                "validation": validation, "reload": reload}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def kernel_entry(name, route, source, replaces, numbers, launches):
     """The summary line's entry for one kernel: the numbers at the shape
     of the first family that runs it of the Transformer, the flagship and
@@ -1838,6 +2382,12 @@ def main():
         strategy_runs = serve_strategies(torch, dev, smi,
                                          *trees["flagship"], scorer)
 
+        phase("train")
+        t0 = time.perf_counter()
+        training = train_phase(torch, dev, smi, *trees["flagship"],
+                               args.seed)
+        print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
         # the port stands alone: nothing of JAX or the JAX package ran
         foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
             "jax", "jaxlib", "flax", "image_captioning_ml_project_tpu"))
@@ -1880,6 +2430,18 @@ def main():
             run_name: run["launches"][entry["name"]]
             for run_name, run in strategy_runs.items()
             if run["launches"][entry["name"]]}
+        entry["training"] = {
+            "train_steps": training["bf16"]["launches"][entry["name"]],
+            "validation": training["validation"]["launches"][entry["name"]],
+            "reload": training["reload"]["launches"][entry["name"]]}
+    print(json.dumps({"training": {
+        "f32_card_vs_cpu": training["f32_card_vs_cpu"],
+        "bf16": {k: v for k, v in training["bf16"].items()
+                 if k != "launches"},
+        "validation": {k: v for k, v in training["validation"].items()
+                       if k != "launches"},
+        "reload": {k: v for k, v in training["reload"].items()
+                   if k != "launches"}}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": kind, "count": count}}))

@@ -1,2 +1,3 @@
-"""Host-side data code of the port: the word vocabulary and the image
-preprocessing the served path needs."""
+"""Host-side data code of the port: the word vocabulary, the COCO caption
+dataset and its batching, the synthetic fixture, and the prefetch that
+moves batches to the device."""

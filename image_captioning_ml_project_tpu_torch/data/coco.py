@@ -1,13 +1,26 @@
-"""Image preprocessing of the served path, in PyTorch.
+"""COCO caption data in the port: image preprocessing, the caption
+dataset, fixed-shape batching.
 
-Counterpart of the image half of ``image_captioning_ml_project_tpu.data.
-coco``: images leave the host as uint8 NHWC, resized and center-cropped
-there (:func:`center_crop_resize`, PIL), and are normalised with the
-ImageNet constants on their device (:func:`normalize_images`).
+A copy of the caption half of ``image_captioning_ml_project_tpu.data.
+coco``, held equal to it by the tests (same examples, same batches in the
+same order from the same seed): training yields one example per
+(image, caption) annotation with RandomResizedCrop + horizontal flip on
+the host, evaluation groups every caption of an image, padded to a fixed
+reference count, with a resize + center crop. Images leave the host as
+uint8 NHWC and are normalised on their device (:func:`normalize_images`).
+
+Images are read with PIL, imported where an image is opened.
+The JAX package's native JPEG loader and device-resident resize are not
+ported (ROADMAP.md Queue 1 items 7 and 9): asking for them raises.
 """
 
 from __future__ import annotations
 
+import json
+import os
+from typing import Any, Dict, Iterator, List, Optional
+
+import numpy as np
 import torch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -23,10 +36,46 @@ def normalize_images(images_uint8: torch.Tensor) -> torch.Tensor:
     return (x - mean) / std
 
 
+# ---------------------------------------------------------------------------
+# Host-side image transforms (PIL)
+# ---------------------------------------------------------------------------
+
+
+def draw_crop_box(W: int, H: int, rng: np.random.RandomState,
+                  scale=(0.08, 1.0), ratio=(3 / 4, 4 / 3)):
+    """The RandomResizedCrop box draw — torchvision semantics; returns
+    (x, y, w, h) or None for the center-crop fallback."""
+    area = W * H
+    for _ in range(10):
+        target_area = area * rng.uniform(*scale)
+        log_ratio = (np.log(ratio[0]), np.log(ratio[1]))
+        aspect = np.exp(rng.uniform(*log_ratio))
+        w = int(round(np.sqrt(target_area * aspect)))
+        h = int(round(np.sqrt(target_area / aspect)))
+        if 0 < w <= W and 0 < h <= H:
+            x = rng.randint(0, W - w + 1)
+            y = rng.randint(0, H - h + 1)
+            return x, y, w, h
+    return None
+
+
+def random_resized_crop(img, size: int, rng: np.random.RandomState,
+                        scale=(0.08, 1.0), ratio=(3 / 4, 4 / 3)):
+    """torchvision RandomResizedCrop semantics."""
+    from PIL import Image
+
+    W, H = img.size
+    box = draw_crop_box(W, H, rng, scale, ratio)
+    if box is not None:
+        x, y, w, h = box
+        return img.crop((x, y, x + w, y + h)).resize((size, size),
+                                                     Image.BILINEAR)
+    return center_crop_resize(img, size)
+
+
 def center_crop_resize(img, size: int):
     """Resize a PIL image's shorter side to ``size`` (bilinear), then crop
-    the ``size`` x ``size`` center. PIL is imported here: the serving
-    machine may lack it, and only encoded-bytes requests need it."""
+    the ``size`` x ``size`` center (reference: src/main.py:147-150)."""
     from PIL import Image
 
     W, H = img.size
@@ -37,3 +86,299 @@ def center_crop_resize(img, size: int):
     left = (W - size) // 2
     top = (H - size) // 2
     return img.crop((left, top, left + size, top + size))
+
+
+def load_image(path: str, size: int, train: bool,
+               rng: Optional[np.random.RandomState] = None) -> np.ndarray:
+    """Decode + transform one image to uint8 [size, size, 3]."""
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB")
+    if train:
+        rng = rng or np.random
+        img = random_resized_crop(img, size, rng)
+        if rng.rand() < 0.5:
+            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+    else:
+        img = center_crop_resize(img, size)
+    return np.asarray(img, dtype=np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Dataset
+# ---------------------------------------------------------------------------
+
+
+def build_caption_examples(annotations, image_id_to_filename,
+                           is_training: bool):
+    """Annotation rows -> example dicts, shared by the image and
+    object-region datasets (reference: src/data/dataset.py:54-100):
+    training yields one row per caption; eval groups all captions of an
+    image into one row (``captions`` list, annotation order)."""
+    examples = []
+    for ann in annotations:
+        if ann["image_id"] not in image_id_to_filename:
+            continue
+        examples.append({
+            "image_id": ann["image_id"],
+            "filename": image_id_to_filename[ann["image_id"]],
+            "caption": ann["caption"],
+        })
+    if is_training:
+        return examples
+    grouped: Dict[int, Dict[str, Any]] = {}
+    for ex in examples:
+        g = grouped.setdefault(
+            ex["image_id"], {"filename": ex["filename"], "captions": []})
+        g["captions"].append(ex["caption"])
+    return [
+        {"image_id": iid, "filename": d["filename"],
+         "captions": d["captions"]}
+        for iid, d in grouped.items()
+    ]
+
+
+class COCOCaptionDataset:
+    """COCO captions dataset (reference: src/data/dataset.py:12-177)."""
+
+    def __init__(
+        self,
+        root_dir: str,
+        annotation_file: str,
+        image_dir: str,
+        tokenizer,
+        image_size: int = 224,
+        max_length: int = 50,
+        is_training: bool = True,
+        max_ref_captions: int = 5,
+        seed: int = 0,
+        device_resize: bool = False,
+        native_loader: bool = False,
+    ):
+        if native_loader or (device_resize and not is_training):
+            raise NotImplementedError(
+                "the native JPEG loader and the device-resident resize are "
+                "not yet ported to PyTorch (ROADMAP.md Queue 1 items 7 and "
+                "9)")
+        self.root_dir = root_dir
+        self.image_dir = os.path.join(root_dir, image_dir)
+        self.annotation_path = os.path.join(root_dir, annotation_file)
+        self.tokenizer = tokenizer
+        self.image_size = image_size
+        self.max_length = max_length
+        self.is_training = is_training
+        self.max_ref_captions = max_ref_captions
+        self.rng = np.random.RandomState(seed)
+        with open(self.annotation_path) as f:
+            self.annotations = json.load(f)
+        self._process_annotations()
+
+    def _process_annotations(self):
+        """reference: src/data/dataset.py:54-100."""
+        self.image_id_to_filename = {
+            img["id"]: img["file_name"] for img in self.annotations["images"]
+        }
+        self.examples = build_caption_examples(
+            self.annotations["annotations"], self.image_id_to_filename,
+            self.is_training)
+
+    def __len__(self):
+        return len(self.examples)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        return self.get_sample(idx)
+
+    def get_sample(self, idx: int, image=None) -> Dict[str, Any]:
+        """Assemble one sample; ``image`` may be given already decoded."""
+        ex = self.examples[idx]
+        if image is None:
+            image = load_image(os.path.join(self.image_dir, ex["filename"]),
+                               self.image_size, self.is_training, self.rng)
+        if self.is_training:
+            ids, mask = self.tokenizer.encode(ex["caption"], self.max_length)
+            return {
+                "image": image,
+                "caption_tokens": ids,
+                "attention_mask": mask,
+                "caption": ex["caption"],
+                "image_id": ex["image_id"],
+            }
+        # eval: all references, padded to a fixed count (SURVEY.md §2.4 fix)
+        R = self.max_ref_captions
+        caps = ex["captions"][:R]
+        ids = np.zeros((R, self.max_length), dtype=np.int32)
+        mask = np.zeros((R, self.max_length), dtype=np.int32)
+        ref_mask = np.zeros(R, dtype=np.int32)
+        for i, cap in enumerate(caps):
+            ids[i], mask[i] = self.tokenizer.encode(cap, self.max_length)
+            ref_mask[i] = 1
+        sample = {
+            "image": image,
+            "caption_tokens": ids,
+            "attention_mask": mask,
+            "ref_mask": ref_mask,
+            "captions": ex["captions"],
+            "image_id": ex["image_id"],
+        }
+        return sample
+
+    def caption_lengths(self) -> np.ndarray:
+        """Token lengths per example (curriculum difficulty input,
+        reference: src/train/curriculum.py:82-98). Training mode only."""
+        return np.array(
+            [len(ex["caption"].split()) for ex in self.examples], dtype=np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Batching
+# ---------------------------------------------------------------------------
+
+_STACK_KEYS = {"image", "caption_tokens", "attention_mask", "ref_mask",
+               "region_features", "region_boxes", "region_mask", "image_id",
+               "image_size"}
+
+
+def collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Stack array fields; keep strings/lists as Python lists."""
+    out: Dict[str, Any] = {}
+    for k in samples[0]:
+        if k in _STACK_KEYS:
+            out[k] = np.stack([np.asarray(s[k]) for s in samples])
+        else:
+            out[k] = [s[k] for s in samples]
+    return out
+
+
+def iterate_batches(dataset, batch_size: int, shuffle: bool = False,
+                    drop_last: bool = True,
+                    sampler: Optional[Iterator[int]] = None,
+                    seed: int = 0,
+                    pad_last: bool = False,
+                    num_workers: int = 0,
+                    skip_batches: int = 0) -> Iterator[Dict[str, Any]]:
+    """Yield fixed-shape batches. ``sampler`` (e.g. the curriculum sampler)
+    overrides shuffling (reference: src/data/dataset.py:445-462).
+
+    ``pad_last=True`` pads the final short batch by repeating its last
+    sample (static shapes for XLA) and adds a ``batch_valid`` bool mask so
+    eval loops can cover every example without recompilation.
+
+    ``num_workers > 0`` loads samples through a fork-based process pool —
+    the equivalent of the reference's torch DataLoader workers
+    (reference: src/data/dataset.py:452). PIL decode barely scales with
+    threads on this stack (measured: 16 threads gave 1.1x), so workers are
+    processes inheriting the dataset via fork. Worker tasks reseed the
+    dataset's augmentation RNG per sample from ``(seed, index)``, torch
+    DataLoader style: results are deterministic for a given ``seed`` and
+    independent of the worker count (callers already mix the epoch into
+    ``seed``, so augmentations still vary across epochs).
+
+    ``skip_batches`` skips the first k chunks of the (identically seeded)
+    index order without loading them — mid-epoch checkpoint resume replays
+    the exact remaining batch sequence at zero decode cost."""
+    if sampler is not None:
+        indices = list(sampler)
+    else:
+        indices = list(range(len(dataset)))
+        if shuffle:
+            np.random.RandomState(seed).shuffle(indices)
+
+    pool = None
+    if num_workers and num_workers > 0:
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+
+        # Bind THIS dataset to the pool at construction: with the fork
+        # context, ``initargs`` is a live reference held by the executor, so
+        # even a lazily-forked worker (ProcessPoolExecutor spawns workers on
+        # demand) calls _set_ds(dataset) in the child — two concurrently
+        # consumed iterators can't cross-wire through a shared global.
+        pool = ProcessPoolExecutor(
+            max_workers=num_workers, mp_context=mp.get_context("fork"),
+            initializer=_set_ds, initargs=(dataset,))
+    try:
+        for start in range(skip_batches * batch_size, len(indices),
+                           batch_size):
+            chunk = indices[start:start + batch_size]
+            valid = len(chunk)
+            if valid < batch_size:
+                if pad_last:
+                    chunk = chunk + [chunk[-1]] * (batch_size - valid)
+                elif drop_last:
+                    return
+            tasks = [(i, (seed * 1_000_003 + i) & 0x7FFFFFFF)
+                     for i in chunk]
+            if pool is not None:
+                samples = list(pool.map(
+                    _worker_get, tasks,
+                    chunksize=max(1, len(tasks) // num_workers)))
+            else:
+                # same per-sample seeding as the worker path, so batches are
+                # identical for any worker count (incl. 0); no module global
+                # here — interleaved serial iterators stay independent
+                reseed = getattr(dataset, "rng", None) is not None
+                samples = []
+                for i, sample_seed in tasks:
+                    if reseed:
+                        dataset.rng = np.random.RandomState(sample_seed)
+                    samples.append(dataset[i])
+            batch = collate(samples)
+            if pad_last:
+                mask = np.zeros(batch_size, dtype=bool)
+                mask[:valid] = True
+                batch["batch_valid"] = mask
+            yield batch
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=False, cancel_futures=True)
+
+
+_WORKER_DATASET = None
+
+
+def _set_ds(dataset):
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+
+
+def _worker_get(task):
+    """Fetch one sample with a per-sample augmentation RNG.
+
+    Used by both the serial path and the forked process-pool workers (each
+    worker runs tasks single-threaded, so reseeding its copy of the
+    dataset RNG per task is race-free)."""
+    idx, sample_seed = task
+    ds = _WORKER_DATASET
+    if getattr(ds, "rng", None) is not None:
+        ds.rng = np.random.RandomState(sample_seed)
+    return ds[idx]
+
+
+def build_coco_datasets(config, tokenizer):
+    """Train/val dataset pair from a Config
+    (reference: build_coco_dataloaders, src/data/dataset.py:390-472)."""
+    native = dict(native_loader=getattr(config, "native_loader", False))
+    train = COCOCaptionDataset(
+        root_dir=config.data_root,
+        annotation_file=config.train_json,
+        image_dir=config.train_image_dir,
+        tokenizer=tokenizer,
+        image_size=config.image_size,
+        max_length=config.model.decoder.max_length,
+        is_training=True,
+        seed=config.seed,
+        **native,
+    )
+    val = COCOCaptionDataset(
+        root_dir=config.data_root,
+        annotation_file=config.val_json,
+        image_dir=config.val_image_dir,
+        tokenizer=tokenizer,
+        image_size=config.image_size,
+        max_length=config.model.decoder.max_length,
+        is_training=False,
+        seed=config.seed,
+        device_resize=getattr(config, "device_resize", False),
+        **native,
+    )
+    return train, val

@@ -19,9 +19,18 @@ sampling (from one ``torch.Generator`` on the service's device seeded
 from ``config.seed``, drawn from batch after batch), beam search with or
 without diverse groups, and CLIP reranking of beam candidates.
 
-The HTTP layer is ``http.server``: POST image bytes to ``/caption``; GET
-``/healthz``, ``/stats`` and ``/metrics``. Checkpoint reload is not yet
-ported and answers with an error.
+The weights come from a checkpoint of the port's trainer
+(``checkpoint_path``: its params and BatchNorm statistics only, read
+memory-mapped, never the optimizer state), from the JAX package's
+variable tree, or from ``config.seed``. :meth:`CaptionService.
+reload_checkpoint` swaps in another checkpoint's weights under load: the
+new model is built off the batcher thread and swapped in with one
+attribute assignment, each batch reading the attribute once, so in-flight
+batches finish on the old weights and the next dispatch runs the new ones.
+
+The HTTP layer is ``http.server``: POST image bytes to ``/caption`` and
+``{"checkpoint": name}`` to ``/reload``; GET ``/healthz``, ``/stats`` and
+``/metrics``.
 """
 
 from __future__ import annotations
@@ -42,12 +51,10 @@ import torch
 from ..data.coco import center_crop_resize
 from ..main import _resolve_reranker
 from ..models.captioning_model import load_model
+from ..utils.checkpoint import CheckpointManager
 from .decoding import beam_search, decode
 
 logger = logging.getLogger(__name__)
-
-_NOT_PORTED_RELOAD = ("checkpoint restore is not yet ported to PyTorch "
-                      "(ROADMAP.md Queue 1: checkpoints and /reload)")
 
 
 class ServerStats:
@@ -166,9 +173,11 @@ class CaptionService:
 
     ``submit(image)`` blocks until the request's batch has run;
     ``submit_async``/``result`` let one caller keep many requests in
-    flight. The model is built on ``device`` from ``params`` (the JAX
-    package's variable tree) or, when None, from ``config.seed``, and cast
-    to ``config.model.dtype``. Batches decode with ``config.inference``'s
+    flight. The model is built on ``device`` from the trainer checkpoint
+    ``checkpoint_path`` (a name under ``config.checkpoint_dir``, or a
+    path), from ``params`` (the JAX package's variable tree), or, when
+    neither is given, from ``config.seed``, and cast to
+    ``config.model.dtype``. Batches decode with ``config.inference``'s
     strategy (:func:`.decoding.decode`). With a ``reranker`` (given, or
     built from a local CLIP checkpoint when ``use_clip_reranking`` is set)
     they decode ``max(beam_size, num_candidates)`` beams instead, and the
@@ -181,12 +190,16 @@ class CaptionService:
                  batch_size: int = 8, max_wait_ms: float = 10.0,
                  request_timeout_s: float = 60.0, pipeline_depth: int = 2,
                  bucket_sizes=None):
-        if checkpoint_path:
-            raise NotImplementedError(_NOT_PORTED_RELOAD)
         self.config = config
         self.tokenizer = tokenizer
         self.device = torch.device(device)
-        self.model = load_model(config, self.device, params=params)
+        if checkpoint_path:
+            if params is not None:
+                raise ValueError("give the weights as params or as "
+                                 "checkpoint_path, not both")
+            self.model = self._load_checkpoint(checkpoint_path)
+        else:
+            self.model = load_model(config, self.device, params=params)
         self.reranker = (reranker if reranker is not None
                          else _resolve_reranker(config, tokenizer, None,
                                                 self.device))
@@ -300,6 +313,30 @@ class CaptionService:
             raise RuntimeError(req.error)
         return req.caption
 
+    def _load_checkpoint(self, name: str):
+        """The decode model of a trainer checkpoint's weights: its model
+        params and BatchNorm statistics, read memory-mapped without the
+        optimizer's files (``CheckpointManager.restore_partial``)."""
+        ckpt = CheckpointManager(self.config.checkpoint_dir)
+        restored, _, _ = ckpt.restore_partial(
+            name, {"params": None, "batch_stats": None})
+        state = dict(restored["params"]["model"])
+        state.update(restored.get("batch_stats", {}))
+        return load_model(self.config, self.device, state_dict=state)
+
+    def reload_checkpoint(self, name: str) -> dict:
+        """Hot-swap the serving weights from checkpoint ``name`` without
+        downtime: the new model is read, cast and stacked on the calling
+        thread while the batcher keeps serving on the old one, then swapped
+        in with one attribute assignment (each batch reads the attribute
+        once, so no batch mixes the two)."""
+        t0 = time.monotonic()
+        model = self._load_checkpoint(name)
+        self.model = model
+        dt = time.monotonic() - t0
+        logger.info("Reloaded checkpoint %r in %.2fs", name, dt)
+        return {"reloaded": name, "seconds": round(dt, 2)}
+
     def caption_bytes(self, data: bytes) -> str:
         """Caption raw encoded image bytes (JPEG/PNG/...): shorter-side
         resize + center crop on the host, as the JAX service does."""
@@ -395,16 +432,17 @@ class CaptionService:
         strategy or, with a reranker, its candidates [B, num_candidates,
         L] (the JAX CLI's ``_make_decode_batch``)."""
         mc, ic = self.config.model, self.config.inference
+        model = self.model  # read once: a reload swaps it between batches
         steps = 0
 
         def step_fn(state, tokens):
             nonlocal steps
             steps += 1
-            return self.model.step(state, tokens)
+            return model.step(state, tokens)
 
         B = images.shape[0]
         ids = (mc.bos_token_id, mc.eos_token_id, mc.pad_token_id)
-        state = self.model.init_cache(images, ic.max_length)
+        state = model.init_cache(images, ic.max_length)
         if self.reranker is not None:
             res = beam_search(step_fn, state, B,
                               max(ic.beam_size, ic.num_candidates), *ids,
@@ -488,7 +526,13 @@ def _make_handler(service: CaptionService):
 
         def do_POST(self):
             if self.path == "/reload":
-                self._reply(501, {"error": _NOT_PORTED_RELOAD})
+                try:
+                    length = int(self.headers.get("Content-Length", "0"))
+                    req = json.loads(self.rfile.read(length))
+                    self._reply(200,
+                                service.reload_checkpoint(req["checkpoint"]))
+                except Exception as e:
+                    self._reply(500, {"error": f"{type(e).__name__}: {e}"})
                 return
             if self.path != "/caption":
                 self._reply(404, {"error": "unknown path"})

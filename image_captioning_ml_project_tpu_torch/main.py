@@ -1,11 +1,15 @@
-"""CLI entry point of the PyTorch port: ``--mode serve``.
+"""CLI entry point of the PyTorch port: ``--mode train`` and
+``--mode serve``.
 
-Same flags as the JAX CLI's serve path
-(``python -m image_captioning_ml_project_tpu.main --mode serve``), plus
-``--device`` and ``--seed``. Run as::
+Same flags as the JAX CLI's train and serve paths
+(``python -m image_captioning_ml_project_tpu.main``), plus ``--device``
+(``cuda`` unless asked for the CPU) and ``--seed``. Run as::
 
-    python -m image_captioning_ml_project_tpu_torch.main --mode serve \\
-        --config flagship.json --vocab vocab.json
+    python -m image_captioning_ml_project_tpu_torch.main --mode train \
+        --config flagship --data_root data --output_dir runs/x
+    python -m image_captioning_ml_project_tpu_torch.main --mode serve \
+        --config flagship --vocab runs/x/vocab.json \
+        --output_dir runs/x --checkpoint best_model
 
 ``--config`` takes a JSON file, or the name of a built-in configuration:
 ``flagship`` (:func:`flagship_config`, CLIP + GPT-2), ``transformer``
@@ -13,16 +17,24 @@ Same flags as the JAX CLI's serve path
 (:func:`lstm_config`, ResNet-101 + LSTM with soft attention;
 ``--attention_type multi_head|adaptive|aoa`` picks another variant);
 without it the JAX package's default configuration (ViT-B/16 + 6-layer
-GPT-2) is served.
-With no checkpoint the weights are drawn from ``--seed`` (checkpoint
-restore is not yet ported). The JSON config's ``inference`` section picks
-the decode: ``decoding_strategy`` ``beam`` (``beam_size``,
-``num_beam_groups`` and ``diversity_penalty`` for diverse groups),
-``greedy`` or ``nucleus`` (``top_p``, ``temperature``), and
-``use_clip_reranking`` (``num_candidates``), which needs a locally cached
-HF CLIP checkpoint (without one the service warns and serves without
-reranking). Training, evaluation and the demo are not yet ported and
-raise.
+GPT-2).
+
+``train`` builds the COCO datasets under ``--data_root``, the tokenizer
+and :class:`.train.trainer.CaptioningTrainer`, resumes from
+``--checkpoint`` when given (an epoch checkpoint, ``best_model`` or the
+rolling ``checkpoint_step``), and trains with cross-entropy, writing
+checkpoints under ``output_dir/checkpoints``; SCST and curriculum epochs
+are not yet ported and raise.
+
+``serve`` loads ``--checkpoint`` (its weights only) or, without one,
+draws the weights from ``--seed``, and answers ``/caption`` and
+``/reload``. The JSON config's ``inference`` section picks the decode:
+``decoding_strategy`` ``beam`` (``beam_size``, ``num_beam_groups`` and
+``diversity_penalty`` for diverse groups), ``greedy`` or ``nucleus``
+(``top_p``, ``temperature``), and ``use_clip_reranking``
+(``num_candidates``), which needs a locally cached HF CLIP checkpoint
+(without one the service warns and serves without reranking).
+Evaluation and the demo are not yet ported and raise.
 """
 
 from __future__ import annotations
@@ -155,6 +167,9 @@ def build_argparser() -> argparse.ArgumentParser:
     parser.add_argument("--save_config", type=str, default=None)
     parser.add_argument("--checkpoint", type=str, default=None)
     parser.add_argument("--output_dir", type=str, default=None)
+    parser.add_argument("--batch_size", type=int, default=None)
+    parser.add_argument("--num_epochs", type=int, default=None)
+    parser.add_argument("--learning_rate", type=float, default=None)
     parser.add_argument("--encoder_type", type=str, default=None,
                         choices=["resnet", "vit", "swin", "clip"])
     parser.add_argument("--decoder_type", type=str, default=None,
@@ -168,10 +183,18 @@ def build_argparser() -> argparse.ArgumentParser:
                              "pretrained name, else a vocab built from the "
                              "train annotations")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to serve on (cuda, cuda:N, cpu)")
+                        help="torch device to train or serve on (cuda, "
+                             "cuda:N, cpu)")
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of the weights drawn when no checkpoint "
                              "is given (default: the config's seed)")
+    parser.add_argument("--save_every_steps", type=int, default=None,
+                        help="Rolling mid-epoch checkpoint every N train "
+                             "batches (two alternating slots)")
+    parser.add_argument("--step_ckpt_max_overhead", type=float,
+                        default=None,
+                        help="Skip step checkpoints while the last one's "
+                             "blocking cost exceeds this share of wall time")
     serve = parser.add_argument_group("serve mode (inference/server.py)")
     serve.add_argument("--host", type=str, default="127.0.0.1")
     serve.add_argument("--port", type=int, default=8000)
@@ -194,6 +217,12 @@ def _update_config_from_args(config: Config, args) -> None:
     if args.output_dir:
         config.output_dir = args.output_dir
         config.checkpoint_dir = os.path.join(args.output_dir, "checkpoints")
+    if args.batch_size:
+        config.training.batch_size = args.batch_size
+    if args.num_epochs:
+        config.training.num_epochs = args.num_epochs
+    if args.learning_rate:
+        config.training.learning_rate = args.learning_rate
     if args.encoder_type:
         config.model.encoder.encoder_type = EncoderType(args.encoder_type)
     if args.decoder_type:
@@ -205,6 +234,10 @@ def _update_config_from_args(config: Config, args) -> None:
         config.data_root = args.data_root
     if args.seed is not None:
         config.seed = args.seed
+    if args.save_every_steps is not None:
+        config.save_every_steps = args.save_every_steps
+    if args.step_ckpt_max_overhead is not None:
+        config.step_ckpt_max_overhead = args.step_ckpt_max_overhead
 
 
 def setup_tokenizer(config: Config, vocab_path: Optional[str] = None):
@@ -260,22 +293,47 @@ def _resolve_reranker(config: Config, tokenizer, reranker, device):
         lambda ids: tokenizer.decode(ids, skip_special_tokens=True), device)
 
 
+def train(config: Config, checkpoint_path: Optional[str] = None,
+          tokenizer=None, device="cuda"):
+    """Cross-entropy training on ``device`` (the JAX CLI's ``train``):
+    the COCO datasets, the tokenizer, the trainer, an optional resume from
+    ``checkpoint_path``, then ``train()``. Returns the trainer."""
+    from .data.coco import build_coco_datasets
+    from .train.trainer import CaptioningTrainer
+
+    if config.training.use_curriculum:
+        raise NotImplementedError(
+            "curriculum sampling is not yet ported to PyTorch (ROADMAP.md "
+            "Queue 1 item 7)")
+    tokenizer = tokenizer or setup_tokenizer(config)
+    train_ds, val_ds = build_coco_datasets(config, tokenizer)
+    trainer = CaptioningTrainer(config, train_ds, val_ds, tokenizer,
+                                device=device)
+    if checkpoint_path:
+        trainer.load_checkpoint(checkpoint_path)
+    trainer.train()
+    return trainer
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.mode != "serve":
+    if args.mode not in ("train", "serve"):
         raise NotImplementedError(
             f"--mode {args.mode} is not yet ported to PyTorch (ROADMAP.md "
-            f"Queue 1: remaining CLI modes)")
+            f"Queue 1 item 12: the eval and demo CLI modes)")
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device is available; pass --device cpu to "
-                         "serve on the CPU")
+        raise SystemExit(f"no CUDA device is available; pass --device cpu "
+                         f"to {args.mode} on the CPU")
     config = resolve_config(args.config)
     _update_config_from_args(config, args)
     if args.save_config:
         save_config(config, args.save_config)
     logging.basicConfig(level=logging.INFO)
     tokenizer = setup_tokenizer(config, vocab_path=args.vocab)
+    if args.mode == "train":
+        return train(config, checkpoint_path=args.checkpoint,
+                     tokenizer=tokenizer, device=args.device)
 
     from .inference.server import serve
 

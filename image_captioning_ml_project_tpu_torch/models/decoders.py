@@ -42,6 +42,12 @@ here they stay per image under ``shared``, with their key/value
 projections computed once per decode in ``init_cache`` rather than at
 every step (the same values: the projection depends on the image only).
 h, c and ``prev_context`` follow the beams.
+
+In training mode the teacher-forced forwards apply ``DecoderConfig.
+dropout`` where the JAX decoders do under ``deterministic=False``: the
+Transformer on its embeddings and on each sublayer's output (and inside
+the FFN), the LSTM on its token embeddings and on the context before the
+output layer (the carried context is not dropped).
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ from ..ops.beam_decode_attention import (beam_decode_attention,
 from ..ops.cross_attention import cross_attention
 from .attention import build_attention
 from .gpt2 import GPT2Decoder, decode_fold_enabled
-from .layers import LayerNorm
+from .layers import LayerNorm, dropout
 from .lstm import StackedLSTM
 
 _NEG_INF = -1e9
@@ -132,13 +138,14 @@ class CachedMHA(nn.Module):
 
 class TransformerDecoderLayer(nn.Module):
     """Post-LN decoder layer with an exact-GELU FFN (torch
-    ``nn.TransformerDecoderLayer`` semantics, dropout off: inference)."""
+    ``nn.TransformerDecoderLayer`` semantics; dropout in training only)."""
 
-    def __init__(self, hidden_dim: int, num_heads: int):
+    def __init__(self, hidden_dim: int, num_heads: int, rate: float = 0.0):
         super().__init__()
         h = hidden_dim
         self.hidden_dim = h
         self.num_heads = num_heads
+        self.rate = rate
         self.self_attn = CachedMHA(h, num_heads)
         self.cross_attn = CachedMHA(h, num_heads)
         self.linear1 = nn.Linear(h, 4 * h)
@@ -147,18 +154,22 @@ class TransformerDecoderLayer(nn.Module):
         self.norm2 = LayerNorm(h, eps=1e-5)
         self.norm3 = LayerNorm(h, eps=1e-5)
 
+    def _drop(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.rate, self.training)
+
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear2(F.gelu(self.linear1(x)))
+        return self.linear2(self._drop(F.gelu(self.linear1(x))))
 
     def full(self, x: torch.Tensor, memory: torch.Tensor,
              self_bias: Optional[torch.Tensor] = None,
              memory_key_padding_mask: Optional[torch.Tensor] = None
              ) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn.full(x, x, bias=self_bias))
-        x = self.norm2(x + self.cross_attn.attend_precomputed(
+        x = self.norm1(x + self._drop(self.self_attn.full(x, x,
+                                                          bias=self_bias)))
+        x = self.norm2(x + self._drop(self.cross_attn.attend_precomputed(
             x, *self.cross_attn.project_kv(memory),
-            key_padding_mask=memory_key_padding_mask))
-        return self.norm3(x + self._ffn(x))
+            key_padding_mask=memory_key_padding_mask)))
+        return self.norm3(x + self._drop(self._ffn(x)))
 
     def init_memory_cache(self, memory: torch.Tensor) -> Dict[str, Any]:
         """The cross-attention K/V of the image memory [B, Sm, H]: keys
@@ -231,7 +242,7 @@ class TransformerDecoder(nn.Module):
         self.embedding = nn.Embedding(vocab_size, h)
         self.position_encoding = nn.Embedding(config.max_length, h)
         self.layers = nn.ModuleList(
-            TransformerDecoderLayer(h, config.num_heads)
+            TransformerDecoderLayer(h, config.num_heads, config.dropout)
             for _ in range(config.num_layers))
         self.output_layer = nn.Linear(h, vocab_size)
         self.visual_projection = nn.Linear(feature_dim, h)
@@ -246,6 +257,7 @@ class TransformerDecoder(nn.Module):
         T = captions.shape[1]
         dev = captions.device
         x = self.embedding(captions) + self.position_encoding.weight[:T][None]
+        x = dropout(x, self.config.dropout, self.training)
         causal = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
         zero = torch.zeros((), device=dev)
         neg = torch.full((), _NEG_INF, device=dev)
@@ -340,7 +352,10 @@ class LSTMDecoder(nn.Module):
                 f"the {attention_config.attention_type.value} attention "
                 f"gives contexts of width {self.attention.context_dim}, the "
                 f"LSTM's hidden width is {H}: they must agree")
-        self.lstm = StackedLSTM(2 * H, H, L)
+        # the JAX decoder never enables the cells' inter-layer dropout (it
+        # calls its StackedLSTM without ``deterministic``): neither does
+        # this one
+        self.lstm = StackedLSTM(2 * H, H, L, rate=config.dropout)
         self.output_layer = nn.Linear(H, vocab_size)
         self.init_h = nn.Linear(feature_dim, H * L)
         self.init_c = nn.Linear(feature_dim, H * L)
@@ -369,20 +384,22 @@ class LSTMDecoder(nn.Module):
 
     def forward(self, encoder_features: Dict[str, torch.Tensor],
                 captions: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Teacher-forced forward (deterministic): captions [B, T] ->
-        logits [B, T, V], attention weights [B, T, S] and the top hidden
-        state of each step [B, T, H]."""
+        """Teacher-forced forward: captions [B, T] -> logits [B, T, V],
+        attention weights [B, T, S] and the top hidden state of each step
+        [B, T, H]."""
         features = encoder_features["features"]
         mem_pad = self._mem_pad(encoder_features)
         memory = self.attention.project_memory(features, features)
         h, c = self._init_states(encoder_features["pooled_features"])
-        emb = self.embedding(captions)
+        rate = self.config.dropout
+        emb = dropout(self.embedding(captions), rate, self.training)
         context = emb.new_zeros((captions.shape[0], self.config.hidden_dim))
         logits, weights, hidden = [], [], []
         for t in range(captions.shape[1]):
             h, c, context, w = self._step_core(h, c, context, emb[:, t],
                                                memory, mem_pad)
-            logits.append(self.output_layer(context))
+            logits.append(self.output_layer(dropout(context, rate,
+                                                     self.training)))
             weights.append(w)
             hidden.append(h[:, -1])
         return {"logits": torch.stack(logits, 1),

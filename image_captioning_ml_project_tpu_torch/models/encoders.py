@@ -19,15 +19,25 @@ already normalised. Every encoder returns the uniform dict
 [B, S]}``. :func:`build_encoder` picks the encoder from the config; the
 other encoder families raise ``NotImplementedError`` naming their ROADMAP
 item.
+
+In training mode (``model.train()``), as the JAX encoders under
+``train=True``: the ResNet's BatchNorm normalises with the batch's
+statistics and updates its running ones; ``remat`` recomputes each CLIP or
+ViT layer in the backward (``torch.utils.checkpoint``, as ``nn.remat``);
+``freeze`` stops the gradient at the backbone's output (the projection
+stays trainable) and keeps the ResNet's BatchNorm on its running
+statistics. The encoders have no dropout, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..config import EncoderType
@@ -45,6 +55,18 @@ def encoder_fold_enabled() -> bool:
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """CLIP's activation (HF 'quick_gelu')."""
     return x * torch.sigmoid(1.702 * x)
+
+
+def run_layers(layers, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """The layers in turn; with ``remat`` in a gradient pass, each one's
+    activations are recomputed in the backward instead of kept."""
+    for layer in layers:
+        if remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(layer, x,
+                                                  use_reentrant=False)
+        else:
+            x = layer(x)
+    return x
 
 
 class TransformerSelfAttention(nn.Module):
@@ -124,11 +146,13 @@ class CLIPVisionBackbone(nn.Module):
 
     def __init__(self, hidden_size: int = 768, num_layers: int = 12,
                  num_heads: int = 12, mlp_ratio: int = 4,
-                 patch_size: int = 32, image_size: int = 224):
+                 patch_size: int = 32, image_size: int = 224,
+                 remat: bool = False):
         super().__init__()
         h = hidden_size
         tokens = (image_size // patch_size) ** 2 + 1
         self.num_heads = num_heads
+        self.remat = remat
         self.patch_embed = PatchEmbed(h, patch_size)
         self.class_embedding = nn.Parameter(torch.zeros(h))
         self.position_embeddings = nn.Parameter(torch.zeros(tokens, h))
@@ -149,14 +173,15 @@ class CLIPVisionBackbone(nn.Module):
         x = torch.cat([cls, x], dim=1)
         x = x + self.position_embeddings.to(x.dtype)[None]
         x = self.pre_layernorm(x)
+        # the kernel has no backward: never in training. ``remat`` only
+        # matters to a backward, so a remat model folds in eval mode too
         if encoder_fold_enabled() and not self.training:
             if self.stack is None:
                 raise RuntimeError("the encoder fold needs the stacked "
                                    "weights: build the model with load_model")
             x = encoder_stack(x, self.stack, num_heads=self.num_heads)
         else:
-            for layer in self.layers:
-                x = layer(x)
+            x = run_layers(self.layers, x, self.remat and self.training)
         return x, self.post_layernorm(x[:, 0])
 
 
@@ -185,10 +210,12 @@ class ViTBackbone(nn.Module):
 
     def __init__(self, hidden_size: int = 768, num_layers: int = 12,
                  num_heads: int = 12, mlp_ratio: int = 4,
-                 patch_size: int = 16, image_size: int = 224):
+                 patch_size: int = 16, image_size: int = 224,
+                 remat: bool = False):
         super().__init__()
         h = hidden_size
         tokens = (image_size // patch_size) ** 2 + 1
+        self.remat = remat
         self.patch_embed = PatchEmbed(h, patch_size, use_bias=True)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, h))
         self.position_embeddings = nn.Parameter(torch.zeros(1, tokens, h))
@@ -204,8 +231,7 @@ class ViTBackbone(nn.Module):
         x = x.reshape(B, -1, h)
         x = torch.cat([self.cls_token.to(x.dtype).expand(B, 1, h), x], dim=1)
         x = x + self.position_embeddings.to(x.dtype)
-        for layer in self.layers:
-            x = layer(x)
+        x = run_layers(self.layers, x, self.remat and self.training)
         x = self.layernorm(x)
         return x, torch.tanh(self.pooler(x[:, 0]))
 
@@ -218,13 +244,17 @@ class ProjectedEncoder(nn.Module):
     def __init__(self, backbone: nn.Module, config):
         super().__init__()
         self.backbone = backbone
+        self.freeze = config.freeze
         self.proj = (nn.Linear(config.hidden_size, config.feature_dim)
                      if config.hidden_size != config.feature_dim else None)
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         if images.dtype == torch.uint8:
             images = normalize_images(images)
-        x, pooled = self.backbone(images)
+        # freeze: no gradient reaches the backbone (its parameters get
+        # zero gradients from the trainer, as jax.lax.stop_gradient gives)
+        with torch.no_grad() if self.freeze else contextlib.nullcontext():
+            x, pooled = self.backbone(images)
         features = x[:, 1:]
         if self.proj is not None:
             features = self.proj(features)
@@ -243,7 +273,8 @@ class CLIPEncoder(ProjectedEncoder):
         super().__init__(CLIPVisionBackbone(
             hidden_size=config.hidden_size, num_layers=config.num_layers,
             num_heads=config.num_heads, mlp_ratio=config.mlp_ratio,
-            patch_size=config.patch_size, image_size=image_size), config)
+            patch_size=config.patch_size, image_size=image_size,
+            remat=config.remat), config)
 
 
 class ViTEncoder(ProjectedEncoder):
@@ -254,16 +285,24 @@ class ViTEncoder(ProjectedEncoder):
         super().__init__(ViTBackbone(
             hidden_size=config.hidden_size, num_layers=config.num_layers,
             num_heads=config.num_heads, mlp_ratio=config.mlp_ratio,
-            patch_size=config.patch_size, image_size=image_size), config)
+            patch_size=config.patch_size, image_size=image_size,
+            remat=config.remat), config)
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm with flax's arithmetic (``_normalize`` under
-    ``use_running_average``): ``(x - mean) * (rsqrt(var + eps) * scale) +
-    bias`` in f32 from the f32 running statistics, scale and bias, the
-    result cast to the input dtype. Channels on axis 1. The scale and bias
-    stay f32 under :func:`..utils.amp.cast_float_params`, as flax keeps
-    them; the statistics are buffers, never cast."""
+    """BatchNorm with flax's arithmetic (``nn.BatchNorm(momentum=0.9)``),
+    channels on axis 1. In eval mode (``use_running_average``) it
+    normalises with the running statistics; in training mode with the
+    batch's mean and biased variance (``mean(x^2) - mean(x)^2`` clipped at
+    0, in f32 over every axis but the channels'), and then updates the
+    running statistics to ``0.9 * running + 0.1 * batch``, the biased
+    variance included (``F.batch_norm`` would store the unbiased one).
+    Either way ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32,
+    cast to the input dtype. The scale and bias stay f32 under
+    :func:`..utils.amp.cast_float_params`, as flax keeps them; the
+    statistics are buffers, never cast."""
+
+    momentum = 0.9
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -277,10 +316,21 @@ class BatchNorm(nn.Module):
         def per_channel(t):
             return t.float()[None, :, None, None]
 
-        mul = torch.rsqrt(per_channel(self.running_var) + self.eps) \
+        xf = x.float()
+        if self.training:
+            axes = (0, 2, 3)
+            mean = xf.mean(axes)
+            var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(per_channel(var) + self.eps) \
             * per_channel(self.weight)
-        y = (x.float() - per_channel(self.running_mean)) * mul \
-            + per_channel(self.bias)
+        y = (xf - per_channel(mean)) * mul + per_channel(self.bias)
         return y.to(x.dtype)
 
 
@@ -394,6 +444,7 @@ class ResNetEncoder(nn.Module):
             hidden_sizes=tuple(config.resnet_hidden_sizes),
             depths=tuple(config.resnet_depths),
             layer_type=config.resnet_layer_type)
+        self.freeze = config.freeze
         width = config.resnet_hidden_sizes[-1]
         self.proj = (nn.Linear(width, config.feature_dim)
                      if width != config.feature_dim else None)
@@ -403,7 +454,8 @@ class ResNetEncoder(nn.Module):
             images = normalize_images(images)
         dtype = self.backbone.embedder.convolution.weight.dtype
         # NHWC memory read as NCHW: the channels_last layout, no copy
-        x = self.backbone(images.to(dtype).permute(0, 3, 1, 2))
+        with torch.no_grad() if self.freeze else contextlib.nullcontext():
+            x = self.backbone(images.to(dtype).permute(0, 3, 1, 2))
         B, C = x.shape[:2]
         features = x.permute(0, 2, 3, 1).reshape(B, -1, C)
         pooled = features.mean(dim=1)
@@ -415,6 +467,14 @@ class ResNetEncoder(nn.Module):
                                              dtype=torch.bool,
                                              device=features.device)}
 
+    def train(self, mode: bool = True):
+        """Under ``freeze`` the backbone stays in eval mode: its BatchNorm
+        keeps to the running statistics (``train and not freeze``)."""
+        super().train(mode)
+        if self.freeze:
+            self.backbone.train(False)
+        return self
+
 
 def build_encoder(config, image_size: int) -> nn.Module:
     """The encoder of ``config`` (an ``EncoderConfig``) for square images
@@ -424,7 +484,7 @@ def build_encoder(config, image_size: int) -> nn.Module:
             or config.encoder_type == EncoderType.OBJECT_REGION):
         raise NotImplementedError(
             "object-region features are not yet ported to PyTorch "
-            "(ROADMAP.md Queue 1 item 6: other encoders)")
+            "(ROADMAP.md Queue 1 item 10: other encoders)")
     if config.encoder_type == EncoderType.CLIP:
         return CLIPEncoder(config, image_size)
     if config.encoder_type == EncoderType.VIT:
@@ -433,4 +493,4 @@ def build_encoder(config, image_size: int) -> nn.Module:
         return ResNetEncoder(config)
     raise NotImplementedError(
         f"encoder {config.encoder_type.value!r} is not yet ported to "
-        f"PyTorch (ROADMAP.md Queue 1 item 6: other encoders)")
+        f"PyTorch (ROADMAP.md Queue 1 item 10: other encoders)")

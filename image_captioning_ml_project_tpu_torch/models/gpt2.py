@@ -24,6 +24,10 @@ On a CUDA tensor each is a hand-written kernel, on a CPU tensor its plain
 version; the path does not depend on the device. The suffix cache holds
 exactly ``max_length`` positions; the JAX package's 8-row alignment exists
 only for TPU DMA tiling.
+
+In training mode the teacher-forced forward applies HF's embedding,
+attention and residual dropout (``DecoderConfig.dropout``) where the JAX
+decoder does under ``deterministic=False``.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from ..inference.decoding import greedy_decode
 from ..ops.beam_decode_attention import (beam_decode_attention,
                                          beam_decode_attention_qkv)
 from ..ops.beam_decode_stack import beam_decode_stack
-from .layers import LayerNorm
+from .layers import LayerNorm, dropout
 
 _NEG_INF = -1e9
 
@@ -61,10 +65,11 @@ def decode_path() -> str:
 
 
 class GPT2Attention(nn.Module):
-    def __init__(self, hidden_dim: int, num_heads: int):
+    def __init__(self, hidden_dim: int, num_heads: int, rate: float = 0.0):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_heads = num_heads
+        self.rate = rate  # HF attn_pdrop and resid_pdrop (training only)
         self.c_attn = nn.Linear(hidden_dim, 3 * hidden_dim)
         self.c_proj = nn.Linear(hidden_dim, hidden_dim)
 
@@ -83,8 +88,9 @@ class GPT2Attention(nn.Module):
         if attn_bias is not None:
             scores = scores + attn_bias
         w = torch.softmax(scores, dim=-1).to(v.dtype)
+        w = dropout(w, self.rate, self.training)
         out = torch.einsum("bnqk,bknd->bqnd", w, v).reshape(B, T, H)
-        return self.c_proj(out), (k, v)
+        return dropout(self.c_proj(out), self.rate, self.training), (k, v)
 
     def cached_step(self, x: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, pos: int,
@@ -114,22 +120,24 @@ class GPT2Attention(nn.Module):
 
 
 class GPT2MLP(nn.Module):
-    def __init__(self, hidden_dim: int):
+    def __init__(self, hidden_dim: int, rate: float = 0.0):
         super().__init__()
+        self.rate = rate  # HF resid_pdrop (training only)
         self.c_fc = nn.Linear(hidden_dim, 4 * hidden_dim)
         self.c_proj = nn.Linear(4 * hidden_dim, hidden_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
+        return dropout(self.c_proj(F.gelu(self.c_fc(x), approximate="tanh")),
+                       self.rate, self.training)
 
 
 class GPT2Block(nn.Module):
-    def __init__(self, hidden_dim: int, num_heads: int):
+    def __init__(self, hidden_dim: int, num_heads: int, rate: float = 0.0):
         super().__init__()
         self.ln_1 = LayerNorm(hidden_dim, eps=1e-5)
-        self.attn = GPT2Attention(hidden_dim, num_heads)
+        self.attn = GPT2Attention(hidden_dim, num_heads, rate)
         self.ln_2 = LayerNorm(hidden_dim, eps=1e-5)
-        self.mlp = GPT2MLP(hidden_dim)
+        self.mlp = GPT2MLP(hidden_dim, rate)
 
     def full(self, x, attn_bias=None):
         y, kv = self.attn.full(self.ln_1(x), attn_bias=attn_bias)
@@ -147,18 +155,19 @@ class GPT2Backbone(nn.Module):
     """HF GPT2LMHeadModel-compatible transformer with tied LM head."""
 
     def __init__(self, vocab_size: int, hidden_dim: int, num_layers: int,
-                 num_heads: int, n_positions: int = 1024):
+                 num_heads: int, n_positions: int = 1024, rate: float = 0.0):
         super().__init__()
+        self.rate = rate  # HF embd_pdrop (training only)
         self.wte = nn.Embedding(vocab_size, hidden_dim)
         self.wpe = nn.Embedding(n_positions, hidden_dim)
-        self.blocks = nn.ModuleList(GPT2Block(hidden_dim, num_heads)
+        self.blocks = nn.ModuleList(GPT2Block(hidden_dim, num_heads, rate)
                                     for _ in range(num_layers))
         self.ln_f = LayerNorm(hidden_dim, eps=1e-5)
 
     def full(self, inputs_embeds: torch.Tensor, attn_bias=None):
         """inputs_embeds [B, T, H] (positions added) -> (hidden [B, T, H],
         per-layer (k, v))."""
-        x = inputs_embeds
+        x = dropout(inputs_embeds, self.rate, self.training)
         kvs = []
         for block in self.blocks:
             x, kv = block.full(x, attn_bias=attn_bias)
@@ -182,7 +191,7 @@ class GPT2Decoder(nn.Module):
         self.prefix_length = config.prefix_length
         self.backbone = GPT2Backbone(vocab_size, h, config.num_layers,
                                      config.num_heads,
-                                     config.gpt2_n_positions)
+                                     config.gpt2_n_positions, config.dropout)
         self.image_to_prefix = nn.Linear(feature_dim or h,
                                          self.prefix_length * h)
         self.image_prefix = nn.Parameter(torch.zeros(1, self.prefix_length,

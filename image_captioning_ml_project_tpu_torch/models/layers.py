@@ -1,11 +1,47 @@
-"""Layers shared by the port's models."""
+"""Layers shared by the port's models, and their dropout."""
 
 from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Iterator, Optional
 
 import torch
 from torch import nn
 
 from ..ops.numerics import layer_norm
+
+_rng = threading.local()
+
+
+@contextlib.contextmanager
+def dropout_generator(generator: Optional[torch.Generator]
+                      ) -> Iterator[None]:
+    """Draw the dropout masks of the forwards run inside from
+    ``generator`` (on the activations' device): the trainer's explicit
+    stream, as the JAX trainer passes its ``"dropout"`` key. Per thread;
+    outside it, masks come from torch's default generator."""
+    before = getattr(_rng, "generator", None)
+    _rng.generator = generator
+    try:
+        yield
+    finally:
+        _rng.generator = before
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """``flax.linen.Dropout``: in training, keep each entry with
+    probability ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)``
+    (in ``x``'s dtype); the identity at rate 0 or outside training."""
+    if not training or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    if keep_prob == 0.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, device=x.device,
+                      generator=getattr(_rng, "generator", None)) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
 
 
 class LayerNorm(nn.Module):

@@ -4,7 +4,8 @@ Counterpart of ``image_captioning_ml_project_tpu.models.lstm``: each layer
 is one ``nn.Linear(in + H, 4H)`` over ``[x; h]``, gates in torch's packed
 order (i, f, g, o). ``nn.LSTM`` is not used: its two products (input and
 hidden) are rounded separately, which at bf16 is not the JAX cell's one
-product. Inference only: no dropout between layers.
+product. Dropout between layers only when asked for (``deterministic=
+False`` in training mode), as the JAX ``StackedLSTM``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import List, Tuple
 
 import torch
 from torch import nn
+
+from .layers import dropout
 
 
 class FusedLSTMCell(nn.Module):
@@ -34,16 +37,21 @@ class StackedLSTM(nn.Module):
     """``num_layers`` stacked cells; layer l > 0 takes layer l - 1's new
     hidden state as its input."""
 
-    def __init__(self, input_dim: int, hidden_dim: int, num_layers: int):
+    def __init__(self, input_dim: int, hidden_dim: int, num_layers: int,
+                 rate: float = 0.0):
         super().__init__()
+        self.rate = rate
         self.cells = nn.ModuleList(
             FusedLSTMCell(input_dim if l == 0 else hidden_dim, hidden_dim)
             for l in range(num_layers))
 
-    def forward(self, h: torch.Tensor, c: torch.Tensor, x: torch.Tensor
+    def forward(self, h: torch.Tensor, c: torch.Tensor, x: torch.Tensor,
+                deterministic: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """h, c [B, L, H]; x [B, in]. Returns (h', c' [B, L, H], the top
-        layer's output [B, H])."""
+        layer's output [B, H]). With ``deterministic`` False, in training
+        mode, each layer's output but the top one is dropped out on its way
+        to the next layer."""
         new_h: List[torch.Tensor] = []
         new_c: List[torch.Tensor] = []
         inp = x
@@ -52,4 +60,6 @@ class StackedLSTM(nn.Module):
             new_h.append(h_l)
             new_c.append(c_l)
             inp = h_l
+            if l < len(self.cells) - 1 and not deterministic:
+                inp = dropout(inp, self.rate, self.training)
         return torch.stack(new_h, dim=1), torch.stack(new_c, dim=1), inp

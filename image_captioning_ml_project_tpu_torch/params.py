@@ -52,10 +52,14 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 class _Bridge:
-    """Pops flax leaves by path and records torch tensors by name."""
+    """Pops flax leaves by path and records torch tensors by name. Without
+    ``stats`` (a tree of parameter-shaped leaves, such as an optimizer
+    moment) the BatchNorm running statistics are neither read nor
+    written."""
 
-    def __init__(self, flat: Dict[str, np.ndarray]):
+    def __init__(self, flat: Dict[str, np.ndarray], stats: bool = True):
         self.flat = dict(flat)
+        self.stats = stats
         self.out: Dict[str, torch.Tensor] = {}
 
     def take(self, path: str) -> np.ndarray:
@@ -77,6 +81,8 @@ class _Bridge:
 
     def batch_norm(self, src: str, dst: str) -> None:
         self.norm(src, dst)
+        if not self.stats:
+            return
         self.put(f"{dst}.running_mean", self.take(f"{_STATS}/{src}/mean"))
         self.put(f"{dst}.running_var", self.take(f"{_STATS}/{src}/var"))
 
@@ -245,19 +251,22 @@ def _lstm_decoder(br: _Bridge) -> None:
     _attention(br, "decoder/attention", "decoder.attention")
 
 
-def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+def from_flax(tree: Mapping, stats: bool = True) -> Dict[str, torch.Tensor]:
     """Map the JAX ``ImageCaptioningModel`` variables (CLIP, ViT or ResNet
     encoder, GPT-2, Transformer or LSTM decoder, told apart by their
     leaves; nested dict of arrays, either the collections ``"params"`` and,
     for the ResNet, ``"batch_stats"``, or the params alone) to an f32 state
-    dict of :class:`..models.captioning_model.ImageCaptioningModel`."""
+    dict of :class:`..models.captioning_model.ImageCaptioningModel`. With
+    ``stats=False`` the tree is parameter-shaped leaves alone (an optimizer
+    moment of the params, say), mapped by the same rules, and the result
+    holds the parameters only."""
     flat = {}
     if "params" in tree and isinstance(tree["params"], Mapping):
         flat = {f"{_STATS}/{k}": v
                 for k, v in _flatten(tree.get(_STATS, {})).items()}
         tree = tree["params"]
     flat.update(_flatten(tree))
-    br = _Bridge(flat)
+    br = _Bridge(flat, stats=stats)
     if "encoder/backbone/class_embedding" in br.flat:
         _clip_encoder(br)
     elif "encoder/backbone/cls_token" in br.flat:
@@ -281,6 +290,99 @@ def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     if br.flat:
         raise ValueError(f"unmapped flax leaves: {sorted(br.flat)}")
     return br.out
+
+
+def loss_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Map the JAX ``CombinedLoss`` params (with or without the top-level
+    ``"params"``; empty without contrastive and ITM losses) to an f32
+    state dict of :class:`.train.losses.CombinedLoss`: the ITM head's
+    ``Dense_0``/``Dense_1`` and the two feature projections."""
+    if "params" in tree and isinstance(tree["params"], Mapping):
+        tree = tree["params"]
+    br = _Bridge(_flatten(tree))
+    if "itm_head/Dense_0/kernel" in br.flat:
+        br.dense("itm_head/Dense_0", "itm_head.dense_0")
+        br.dense("itm_head/Dense_1", "itm_head.dense_1")
+    if "image_feat_proj/kernel" in br.flat:
+        br.dense("image_feat_proj", "image_feat_proj")
+        br.dense("text_feat_proj", "text_feat_proj")
+    if br.flat:
+        raise ValueError(f"unmapped flax leaves: {sorted(br.flat)}")
+    return br.out
+
+
+def _adam_state(node: Any):
+    """The optax ``ScaleByAdamState`` (count, mu, nu) inside an optimizer
+    state: namedtuples, lists or dicts of them, as the live state or an
+    Orbax restore gives it."""
+    if hasattr(node, "mu") and hasattr(node, "nu"):
+        return node.count, node.mu, node.nu
+    if isinstance(node, Mapping):
+        if "mu" in node and "nu" in node:
+            return node["count"], node["mu"], node["nu"]
+        children = list(node.values())
+    elif isinstance(node, (list, tuple)):
+        children = list(node)
+    else:
+        return None
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def _to_mapping(tree: Any) -> Any:
+    """A flax FrozenDict or dict tree as plain nested dicts."""
+    if isinstance(tree, Mapping):
+        return {k: _to_mapping(v) for k, v in tree.items()}
+    return tree
+
+
+def _grouped(model: Mapping, loss: Mapping, stats: bool = True):
+    out = {f"model.{k}": v for k, v in from_flax(model, stats=stats).items()}
+    out.update({f"loss.{k}": v for k, v in loss_from_flax(loss).items()})
+    return out
+
+
+def train_state_from_flax(tree: Mapping) -> Dict[str, Any]:
+    """Map the JAX trainer's state (``{"params": {"model", "loss"},
+    "batch_stats", "opt_state", "step"}``, arrays as numpy or jax arrays)
+    to the port's trainer state (``CaptioningTrainer._state_tree``'s
+    layout): the model's parameters through :func:`from_flax` and its
+    BatchNorm statistics as buffers, the loss's through
+    :func:`loss_from_flax`, the AdamW ``count`` and the moments ``mu`` and
+    ``nu`` mapped leaf for leaf onto the same parameters by the same rules
+    (the transposes and concatenations apply to the moments as to the
+    weights; a bfloat16 ``mu`` stays bfloat16), and the step."""
+    params = _to_mapping(tree["params"])
+    stats = _to_mapping(tree.get("batch_stats") or {})
+    model = from_flax({"params": params["model"], _STATS: stats})
+    buffers = {k: v for k, v in model.items()
+               if k.endswith(("running_mean", "running_var"))}
+    found = _adam_state(tree["opt_state"])
+    if found is None:
+        raise ValueError("the optimizer state holds no Adam moments")
+    count, mu, nu = found
+    mu, nu = _to_mapping(mu), _to_mapping(nu)
+    mu_bf16 = any(getattr(np.asarray(v), "dtype", None) is not None
+                  and np.asarray(v).dtype.name == "bfloat16"
+                  for v in _flatten(mu["model"]).values())
+    moments = {}
+    for key, tree_m in (("mu", mu), ("nu", nu)):
+        moments[key] = _grouped(tree_m["model"], tree_m.get("loss", {}),
+                                stats=False)
+    if mu_bf16:
+        moments["mu"] = {k: v.to(torch.bfloat16)
+                         for k, v in moments["mu"].items()}
+    return {
+        "params": {"model": {k: v for k, v in model.items()
+                             if k not in buffers},
+                   "loss": loss_from_flax(params.get("loss", {}))},
+        "batch_stats": buffers,
+        "opt_state": {"count": int(np.asarray(count)), **moments},
+        "step": int(np.asarray(tree["step"])),
+    }
 
 
 def scorer_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:

@@ -4,7 +4,7 @@ Run from the repository root on a machine with a CUDA GPU::
 
     python -m image_captioning_ml_project_tpu_torch.profile_slice \\
         [--config flagship|transformer|lstm] [--attention_type TYPE]
-        [--seed N] [--trace PATH]
+        [--seed N] [--trace PATH] [--train]
 
 It decodes synthetic uint8 images through a served model, bf16 weights
 drawn from ``--seed``: ``flagship`` (the default;
@@ -36,6 +36,14 @@ prints:
    the kernels' self device times), the number of kernel launches (in all
    and per decode step), and the kernels ranked by device time; ``--trace``
    writes the Chrome trace.
+
+With ``--train`` it profiles a cross-entropy training step of the
+configuration instead (:class:`.train.trainer.CaptioningTrainer`, bf16
+compute over f32 masters, batch 64 of random images and caption ids of
+the decoder's ``max_length``, dropout as configured): the step's wall
+time with the device synchronised and its host enqueue time (median of
+10 after 3 warm-up steps), its forward with the loss, backward and AdamW
+update timed apart, and ``torch.profiler`` over one step as in 3.
 
 The card's name, power limit and SM clock (``nvidia-smi``) open and close
 the output.
@@ -212,6 +220,98 @@ def profile_batch(model, cfg, images, trace=None):
         print(f"trace written to {trace}", flush=True)
 
 
+def _median_ms(fn, runs):
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def profile_train(cfg, dev, seed, batch=64, trace=None):
+    """The ``--train`` profile (module docstring)."""
+    from .models.layers import dropout_generator
+    from .train.trainer import CaptioningTrainer
+
+    cfg.training.use_amp, cfg.training.batch_size = True, batch
+    cfg.training.use_rl = False
+    cfg.output_dir = cfg.checkpoint_dir = os.path.join(
+        os.environ.get("TMPDIR", "/tmp"), "profile_train")
+    trainer = CaptioningTrainer(cfg, [None] * batch, [], None, device=dev)
+    g = torch.Generator().manual_seed(seed)
+    T = cfg.model.decoder.max_length
+    images = torch.randint(0, 256, (batch, cfg.image_size, cfg.image_size,
+                                    3), generator=g,
+                           dtype=torch.uint8).to(dev)
+    caps = torch.randint(4, cfg.model.vocab_size, (batch, T), generator=g,
+                         dtype=torch.int32).to(dev)
+    mask = torch.ones((batch, T), dtype=torch.int32, device=dev)
+
+    def step():
+        trainer.train_step(images, caps, mask)
+
+    for _ in range(3):
+        step()
+    wall = _median_ms(step, 10)
+    enqueue = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        enqueue.append(time.perf_counter() - t0)
+    params = trainer._named_params()
+    drop_gen, itm_gen = trainer._step_generators(trainer.step)
+    holder = {}
+
+    def forward():
+        for p in params.values():
+            p.grad = None
+        with torch.enable_grad(), dropout_generator(drop_gen):
+            holder["loss"] = trainer._forward_loss(
+                images, caps, mask, itm_gen)["total_loss"]
+
+    def backward():
+        holder["loss"].backward()
+
+    fwd, bwd = [], []
+    for _ in range(5):
+        fwd.append(_median_ms(forward, 1))
+        bwd.append(_median_ms(backward, 1))
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in params.items()}
+    opt = _median_ms(lambda: trainer.optimizer.step(grads), 5)
+    print(f"train step B={batch} (bf16 compute, f32 masters, T={T}): "
+          f"{wall:.2f} ms with sync (median of 10), host enqueue "
+          f"{statistics.median(enqueue) * 1e3:.2f} ms; forward + loss "
+          f"{statistics.median(fwd):.2f} ms, backward "
+          f"{statistics.median(bwd):.2f} ms, AdamW "
+          f"{opt:.2f} ms (each synchronised); {batch / wall * 1e3:.1f} "
+          f"images/s", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    print(f"profiled train step: wall {wall * 1e3:.1f} ms (profiler on); "
+          f"device busy {busy * 1e3:.2f} ms ({100 * busy / wall:.1f}% of "
+          f"that wall); kernel launches "
+          f"{sum(e.count for e in kernels)}", flush=True)
+    print(events.table(sort_by="self_cuda_time_total", row_limit=30,
+                       max_name_column_width=70), flush=True)
+    if trace:
+        prof.export_chrome_trace(trace)
+        print(f"trace written to {trace}", flush=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", choices=sorted(CONFIGS),
@@ -223,6 +323,9 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--trace", type=str, default=None,
                         help="write the profiled batch's Chrome trace here")
+    parser.add_argument("--train", action="store_true",
+                        help="profile a bf16 cross-entropy training step "
+                             "of batch 64 instead of the decode")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_slice: no CUDA device")
@@ -235,6 +338,10 @@ def main(argv=None):
     print(f"{args.config}: {configuration(cfg)}", flush=True)
     cfg.seed = args.seed
     dev = torch.device("cuda:0")
+    if args.train:
+        profile_train(cfg, dev, args.seed, trace=args.trace)
+        print(card, flush=True)
+        return
     model = load_model(cfg, dev)
     g = torch.Generator().manual_seed(args.seed)
     images = torch.randint(0, 256, (64, cfg.image_size, cfg.image_size, 3),

@@ -1,0 +1,570 @@
+"""Training engine of the port: cross-entropy training, validation with
+caption metrics, checkpoints.
+
+Counterpart of the cross-entropy half of ``image_captioning_ml_project_tpu.
+train.trainer.CaptioningTrainer``, with the same construction surface,
+schedule horizon, logging cadence, validation and checkpoint policy
+(best val CIDEr, rolling mid-epoch step checkpoints, full resume):
+
+* the state is f32 master weights (the model's parameters and the loss's
+  ITM head and projections), the ResNet's BatchNorm statistics (buffers of
+  the model), the AdamW state and the step (:meth:`_state_tree`);
+* :meth:`train_step` runs the teacher-forced forward and the combined
+  loss in ``bfloat16`` when ``use_amp`` (weights cast at use, as flax
+  modules with ``dtype=bfloat16`` cast their f32 params; norms stay f32),
+  backpropagates to the masters and takes one optax-exact AdamW step
+  (:mod:`.optim`). Dropout masks and ITM negatives come from generators
+  seeded from ``config.seed`` and the step (``fold_in``), so a resumed run
+  draws what the uninterrupted one would have drawn. No kernel runs in a
+  training step: the kernels have no backward, and the model's training
+  mode routes around every one of them;
+* decoding (validation here, and the server after a reload) runs on
+  :meth:`eval_state`: a :func:`..models.captioning_model.load_model` copy
+  of the current masters, cast once and stacked for the kernels, in eval
+  mode. It is built anew at each call, so it can never hold stale
+  weights.
+
+Not yet ported, and raising ``NotImplementedError`` naming their
+``ROADMAP.md`` item: SCST epochs (``use_rl`` from ``rl_start_epoch``), a
+curriculum sampler, CLIP reranking in validation, object-region inputs,
+and a device mesh.
+"""
+
+from __future__ import annotations
+
+import copy
+import time
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config, EncoderType
+from ..data.coco import iterate_batches
+from ..data.pipeline import prefetch
+from ..evaluate.metrics import calculate_metrics
+from ..inference.decoding import decode
+from ..models.captioning_model import (ImageCaptioningModel,
+                                       build_train_model, load_model)
+from ..models.layers import dropout_generator
+from ..utils.amp import cast_for_compute, castable_parameters
+from ..utils.checkpoint import CheckpointManager
+from ..utils.logging import MetricLogger, setup_logging
+from ..utils.rng import fold_in, generator
+from .losses import CombinedLoss, shifted_cross_entropy
+from .optim import create_optimizer
+
+_SCST = ("SCST fine-tuning is not yet ported to PyTorch (ROADMAP.md Queue "
+         "1 item 8: SCST and on-device CIDEr)")
+
+
+def _not_ported(what: str, items: str) -> NotImplementedError:
+    word = "items" if " " in items else "item"
+    return NotImplementedError(f"{what} is not yet ported to PyTorch "
+                               f"(ROADMAP.md Queue 1 {word} {items})")
+
+
+def _init_loss(loss_mod: CombinedLoss, seed: int) -> None:
+    """Seeded weights of the loss's linear layers: N(0, 1/fan_in) kernels
+    drawn from ``numpy.random.RandomState(seed)``, zero biases."""
+    rs = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, p in loss_mod.named_parameters():
+            if name.endswith("weight"):
+                p.copy_(torch.from_numpy(
+                    (rs.standard_normal(tuple(p.shape))
+                     / np.sqrt(p.shape[1])).astype(np.float32)))
+            else:
+                p.zero_()
+
+
+class CaptioningTrainer:
+    """Cross-entropy trainer on ``device`` (``"cuda"`` unless the caller
+    passes the CPU, as the tests do). ``params`` is the JAX package's
+    variable tree to start from; without it the weights are drawn from
+    ``config.seed`` (:func:`..params.init_flax_params`)."""
+
+    def __init__(self, config: Config, train_dataset, val_dataset,
+                 tokenizer, mesh=None, curriculum_sampler=None,
+                 reranker=None, device="cuda", params=None):
+        if mesh is not None:
+            raise _not_ported("training over a device mesh", "13")
+        if curriculum_sampler is not None:
+            raise _not_ported("curriculum sampling", "7")
+        if reranker is not None:
+            raise _not_ported("CLIP reranking in validation", "12")
+        enc = config.model.encoder
+        if (enc.encoder_type == EncoderType.OBJECT_REGION
+                or enc.use_object_features):
+            raise _not_ported("object-region training", "10")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' to train on the CPU")
+        self.config = config
+        self.train_dataset = train_dataset
+        self.val_dataset = val_dataset
+        self.tokenizer = tokenizer
+        self.logger = setup_logging(config.output_dir, __name__)
+
+        # bf16 compute when use_amp, f32 masters either way
+        dtype = torch.bfloat16 if config.training.use_amp else torch.float32
+        if config.model.dtype == "float32":
+            dtype = torch.float32
+        self.dtype = dtype
+        self.model = build_train_model(config, self.device, params=params)
+
+        tc = config.training
+        mc = config.model
+        self.loss_mod = CombinedLoss(
+            pad_token_id=mc.pad_token_id,
+            use_contrastive=tc.use_contrastive_loss,
+            use_itm=tc.use_itm_loss,
+            contrastive_weight=tc.contrastive_weight,
+            itm_weight=tc.itm_weight,
+            temperature=tc.contrastive_temperature,
+            hidden_dim=mc.projection_dim,
+            attention_reg_weight=tc.attention_reg_weight,
+            image_dim=mc.encoder.feature_dim,
+            text_dim=mc.decoder.hidden_dim)
+        _init_loss(self.loss_mod, config.seed + 2)
+        self.loss_mod.to(self.device).train()
+
+        self.steps_per_epoch = max(len(train_dataset) // tc.batch_size, 1)
+
+        # Epochs >= rl_start_epoch take two optimizer passes (CE, then
+        # SCST), so they count twice in the schedule's horizon, as in the
+        # JAX trainer.
+        def _passes(e: int) -> int:
+            return 2 if (tc.use_rl and e >= tc.rl_start_epoch) else 1
+
+        self.total_steps = self.steps_per_epoch * sum(
+            _passes(e) for e in range(tc.num_epochs))
+
+        # async: the epoch-N save's disk write overlaps epoch N+1 compute;
+        # train() drains in-flight saves before returning
+        self.ckpt = CheckpointManager(config.checkpoint_dir, async_save=True)
+        self.best_val_score = 0.0
+        self.start_epoch = 0
+        # mid-epoch resume position (set by load_checkpoint on a step
+        # checkpoint): the first resumed epoch continues at this batch
+        self.start_batch = 0
+        self.start_phase = "ce"
+        self.history = []
+
+        self._cast_names = {
+            "model": castable_parameters(self.model),
+            "loss": castable_parameters(self.loss_mod)}
+        self.optimizer, self.lr_schedule = create_optimizer(
+            tc, self.total_steps, self._named_params())
+        self.step = 0
+        self._rng_seed = config.seed + 1
+
+    # ------------------------------------------------------------------
+    # state
+    # ------------------------------------------------------------------
+
+    def _named_params(self) -> Dict[str, torch.nn.Parameter]:
+        """Every trained parameter by optimizer name: the model's under
+        ``model.``, the loss's under ``loss.``."""
+        out = {f"model.{n}": p for n, p in self.model.named_parameters()}
+        out.update({f"loss.{n}": p
+                    for n, p in self.loss_mod.named_parameters()})
+        return out
+
+    def _state_tree(self) -> Dict[str, Any]:
+        """The one checkpointed view of the training state — save_checkpoint,
+        save_step_checkpoint and load_checkpoint must agree or resume
+        silently drops fields."""
+        return {
+            "params": {
+                "model": {n: p.detach()
+                          for n, p in self.model.named_parameters()},
+                "loss": {n: p.detach()
+                         for n, p in self.loss_mod.named_parameters()}},
+            "batch_stats": {n: b for n, b in self.model.named_buffers()},
+            "opt_state": self.optimizer.state_dict(),
+            "step": self.step,
+        }
+
+    @torch.no_grad()
+    def _load_weights(self, params: Dict[str, Dict[str, torch.Tensor]],
+                      batch_stats: Optional[Dict[str, torch.Tensor]]) -> None:
+        """Copy checkpointed weights (any device) into the masters."""
+        for group, module in (("model", self.model),
+                              ("loss", self.loss_mod)):
+            theirs = params[group]
+            mine = dict(module.named_parameters())
+            if set(theirs) != set(mine):
+                raise KeyError(f"checkpoint {group} parameters differ from "
+                               f"the model's: "
+                               f"{sorted(set(theirs) ^ set(mine))}")
+            for n, t in theirs.items():
+                mine[n].copy_(t)
+        if batch_stats is not None:
+            buffers = dict(self.model.named_buffers())
+            for n, t in batch_stats.items():
+                buffers[n].copy_(t)
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        """Take a whole training state (a :meth:`_state_tree` dict, e.g. a
+        JAX trainer's through :func:`..params.train_state_from_flax`)."""
+        self._load_weights(state["params"], state.get("batch_stats"))
+        self.optimizer.load_state_dict(state["opt_state"])
+        self.step = int(state["step"])
+
+    # ------------------------------------------------------------------
+    # inputs
+    # ------------------------------------------------------------------
+
+    def _prepare_inputs(self, inputs):
+        """Model inputs of a device batch: uint8 NHWC images pass as they
+        are (the encoder normalises them on the device, the JAX trainer's
+        ``normalize_images``; under ``fold_normalize`` the JAX patch embed
+        folds the same affine). Device-resize canvases and region
+        features are not ported."""
+        if isinstance(inputs, dict):
+            raise _not_ported("device-resize canvases and region features",
+                              "9 and 10")
+        return inputs
+
+    def _batch_inputs(self, batch):
+        """Host: select the model-input arrays from a data batch."""
+        if "image_size" in batch:
+            raise _not_ported("device-resize canvases", "9")
+        return batch["image"]
+
+    def _to_device(self, x):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        return x.to(self.device)
+
+    # ------------------------------------------------------------------
+    # steps
+    # ------------------------------------------------------------------
+
+    def _apply(self, module, group: str, *args, **kwargs):
+        """``module(*args)`` computing in the trainer's dtype: in bf16 a
+        ``functional_call`` with its castable parameters cast (gradients
+        reach the f32 masters), in f32 the module itself."""
+        if self.dtype == torch.float32:
+            return module(*args, **kwargs)
+        weights = cast_for_compute(module, self._cast_names[group],
+                                   self.dtype)
+        return torch.func.functional_call(module, weights, args, kwargs)
+
+    def _forward_loss(self, images, captions, caption_mask, itm_gen
+                      ) -> Dict[str, torch.Tensor]:
+        out = self._apply(self.model, "model", images, captions)
+        return self._apply(
+            self.loss_mod, "loss", out["logits"].float(), captions,
+            image_features=out.get("pooled_features"),
+            text_features=out.get("text_features"),
+            attention_weights=out.get("attention_weights"),
+            target_mask=caption_mask, generator=itm_gen)
+
+    def _step_generators(self, step: int):
+        """(dropout, ITM) generators of ``step``, on the trainer's device."""
+        seed = fold_in(self._rng_seed, step)
+        return (generator(fold_in(seed, 0), self.device),
+                generator(fold_in(seed, 1), self.device))
+
+    def train_step(self, images, captions, caption_mask
+                   ) -> Dict[str, torch.Tensor]:
+        """One CE step on a batch (uint8 images [B, H, W, 3], caption ids
+        and their mask [B, T], host arrays or tensors). Returns the losses,
+        ``learning_rate`` and ``grad_norm`` as device scalars."""
+        images = self._prepare_inputs(self._to_device(images))
+        captions = self._to_device(captions)
+        caption_mask = self._to_device(caption_mask)
+        self.model.train()
+        self.loss_mod.train()
+        drop_gen, itm_gen = self._step_generators(self.step)
+        params = self._named_params()
+        for p in params.values():
+            p.grad = None
+        with torch.enable_grad(), dropout_generator(drop_gen):
+            losses = self._forward_loss(images, captions, caption_mask,
+                                        itm_gen)
+            losses["total_loss"].backward()
+        # a parameter the loss does not reach has a zero gradient, as in
+        # jax.grad: it still takes AdamW's decay
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in params.items()}
+        lr = float(self.lr_schedule(self.step))
+        norm = self.optimizer.step(grads)
+        for p in params.values():
+            p.grad = None
+        self.step += 1
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["learning_rate"] = torch.tensor(lr, dtype=torch.float32)
+        metrics["grad_norm"] = norm
+        return metrics
+
+    def eval_state(self) -> ImageCaptioningModel:
+        """The decode model of the current masters: a
+        :func:`..models.captioning_model.load_model` copy, cast once to
+        the trainer's compute dtype (bf16 under ``use_amp``, norms f32) and
+        stacked for the kernels, in eval mode. Built anew at every call:
+        its stacked operands are copies, so a kept one would decode with
+        old weights."""
+        cfg = copy.copy(self.config)
+        cfg.model = copy.copy(self.config.model)
+        cfg.model.dtype = ("bfloat16" if self.dtype == torch.bfloat16
+                           else "float32")
+        state = {n: t.detach() for n, t in self.model.state_dict().items()}
+        return load_model(cfg, self.device, state_dict=state)
+
+    @torch.inference_mode()
+    def eval_loss_step(self, model, images, captions, caption_mask,
+                       row_valid) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-token CE over *valid* rows only (``row_valid`` [B] masks out
+        pad_last duplicate rows), on an :meth:`eval_state` model; also the
+        supervised-token count, so the caller weights batches by tokens."""
+        images = self._prepare_inputs(self._to_device(images))
+        captions = self._to_device(captions)
+        caption_mask = self._to_device(caption_mask)
+        row_valid = self._to_device(row_valid)
+        caption_mask = caption_mask * row_valid[:, None].to(
+            caption_mask.dtype)
+        out = model(images, captions)
+        ce = shifted_cross_entropy(out["logits"].float(), captions,
+                                   self.config.model.pad_token_id,
+                                   target_mask=caption_mask)
+        return ce, caption_mask[:, 1:].float().sum()
+
+    @torch.inference_mode()
+    def val_decode_step(self, model, images,
+                        gen: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+        """Decode with the configured ``InferenceConfig`` strategy on an
+        :meth:`eval_state` model, so best-CIDEr checkpoint selection runs
+        the decode that ships."""
+        images = self._prepare_inputs(self._to_device(images))
+        mc = self.config.model
+        max_length = self.config.inference.max_length
+        state = model.init_cache(images, max_length)
+        return decode(model.step, state, images.shape[0],
+                      self.config.inference, mc.bos_token_id,
+                      mc.eos_token_id, mc.pad_token_id, generator=gen,
+                      max_length=max_length)
+
+    # ------------------------------------------------------------------
+    # epoch loops
+    # ------------------------------------------------------------------
+
+    def _needs_scst(self, epoch: int) -> bool:
+        tc = self.config.training
+        return tc.use_rl and epoch >= tc.rl_start_epoch
+
+    def train(self):
+        tc = self.config.training
+        if any(self._needs_scst(e)
+               for e in range(self.start_epoch, tc.num_epochs)):
+            raise NotImplementedError(_SCST)
+        self.logger.info("Starting training...")
+        for epoch in range(self.start_epoch, tc.num_epochs):
+            self.logger.info("Epoch %d/%d", epoch + 1, tc.num_epochs)
+            resumed = epoch == self.start_epoch
+            train_loss = self._train_epoch(
+                epoch, start_batch=self.start_batch if resumed else 0,
+                start_phase=self.start_phase if resumed else "ce")
+            val_loss, val_metrics = self._validate_epoch(epoch)
+            self.logger.info(
+                "Epoch %d: Train Loss: %.4f, Val Loss: %.4f, Val CIDEr: %.4f",
+                epoch + 1, train_loss, val_loss, val_metrics.get("CIDEr", 0.0))
+            self.history.append({
+                "epoch": epoch + 1, "train_loss": float(train_loss),
+                "val_loss": float(val_loss),
+                "val_metrics": {k: float(v) for k, v in val_metrics.items()},
+                "scst": False})
+            is_best = val_metrics.get("CIDEr", 0.0) > self.best_val_score
+            if is_best:
+                self.best_val_score = val_metrics.get("CIDEr", 0.0)
+                self.logger.info("New best model with CIDEr: %.4f",
+                                 self.best_val_score)
+            if (epoch + 1) % self.config.save_every == 0 or is_best:
+                self.save_checkpoint(epoch, is_best=is_best)
+        self.ckpt.wait_until_finished()
+
+    def _train_batches(self, epoch: int = 0,
+                       skip_batches: int = 0) -> Iterator[Dict[str, Any]]:
+        it = iterate_batches(
+            self.train_dataset, self.config.training.batch_size,
+            shuffle=True,
+            # fresh shuffle every epoch (torch DataLoader(shuffle=True))
+            seed=self.config.seed + epoch,
+            num_workers=self.config.num_workers,
+            skip_batches=skip_batches)
+        return prefetch(it, self.device)
+
+    def save_step_checkpoint(self, epoch: int, batch_index: int, phase: str):
+        """Rolling mid-epoch checkpoint (``config.save_every_steps``).
+
+        ``batch_index`` is the number of batches *completed* this epoch;
+        resume re-creates the identically seeded epoch iterator and skips
+        exactly that many. Two alternating slots keep disk bounded while
+        the newest committed save is never the one being written.
+
+        With ``config.step_ckpt_max_overhead`` > 0 the save is adaptively
+        throttled: after a save whose blocking portion cost ``c`` seconds,
+        further step saves are skipped until ``c / frac`` wall seconds have
+        passed, so a degraded storage path coarsens checkpoints instead of
+        stalling the train loop."""
+        frac = getattr(self.config, "step_ckpt_max_overhead", 0.0)
+        now = time.monotonic()
+        if frac and hasattr(self, "_step_ckpt_done_t"):
+            wait_s = self._step_ckpt_cost_s / frac
+            if now - self._step_ckpt_done_t < wait_s:
+                self.logger.warning(
+                    "step checkpoint throttled: last save blocked %.1fs; "
+                    "next allowed %.0fs after it (%.0fs remain)",
+                    self._step_ckpt_cost_s, wait_s,
+                    wait_s - (now - self._step_ckpt_done_t))
+                return
+        # the blocking cost includes the drain of the previous in-flight
+        # save, so a slow disk write shows in the throttle too
+        t0 = time.monotonic()
+        self.ckpt.wait_until_finished()
+        self.ckpt.save_step(
+            self._state_tree(),
+            metadata={"epoch": epoch, "batch_index": batch_index,
+                      "phase": phase, "step": int(self.step),
+                      "best_val_score": self.best_val_score},
+            config=self.config)
+        self._step_ckpt_done_t = time.monotonic()
+        self._step_ckpt_cost_s = self._step_ckpt_done_t - t0
+
+    def _train_epoch(self, epoch: int, start_batch: int = 0,
+                     start_phase: str = "ce") -> float:
+        if start_phase == "scst" or self._needs_scst(epoch):
+            raise NotImplementedError(_SCST)
+        tc = self.config.training
+        save_steps = getattr(self.config, "save_every_steps", 0)
+        meter = MetricLogger()
+        epoch_batches = max(len(self.train_dataset) // tc.batch_size, 1)
+        # Off the logging cadence, losses stay device scalars and are read
+        # at epoch end: a per-batch read would make the host wait for each
+        # step before preparing the next.
+        pending_losses = []
+        t0, n_since = None, 0
+        for i, batch in enumerate(self._train_batches(epoch, start_batch),
+                                  start=start_batch):
+            metrics = self.train_step(self._batch_inputs(batch),
+                                      batch["caption_tokens"],
+                                      batch["attention_mask"])
+            n_since += 1
+            if save_steps and (i + 1) % save_steps == 0:
+                self.save_step_checkpoint(epoch, i + 1, "ce")
+            if t0 is None:
+                # the first step (kernel builds, allocator warm-up) is
+                # outside the timed window
+                host = {k: float(v) for k, v in metrics.items()}
+                meter.update(**host)
+                t0, n_since = time.perf_counter(), 0
+                continue
+            if (i + 1) % self.config.log_every == 0:
+                host = {k: float(v) for k, v in metrics.items()}
+                dt = time.perf_counter() - t0
+                meter.update(**host)
+                self.logger.info(
+                    "Epoch %d, Batch %d/%d, Loss: %.4f, LR: %.6f, "
+                    "step: %.0f ms (windowed avg)",
+                    epoch + 1, i + 1, epoch_batches,
+                    host["total_loss"], host["learning_rate"],
+                    1e3 * dt / max(n_since, 1))
+                t0, n_since = time.perf_counter(), 0
+            else:
+                pending_losses.append(metrics["total_loss"])
+        for v in (torch.stack(pending_losses).float().cpu().numpy()
+                  if pending_losses else []):
+            meter.update(total_loss=float(v))
+        return meter.averages().get("total_loss", 0.0)
+
+    # ------------------------------------------------------------------
+    # validation
+    # ------------------------------------------------------------------
+
+    def _validate_epoch(self, epoch: int) -> Tuple[float, Dict[str, float]]:
+        # validation batch size = inference.num_candidates, as in the JAX
+        # trainer (one device: no data-axis rounding)
+        batch_size = self.config.inference.num_candidates
+        gen = generator(self.config.seed + 17, self.device)
+        losses = []
+        generated, references, image_ids = [], [], []
+        # pad_last so the trailing short batch is evaluated, covering every
+        # val image
+        it = iterate_batches(self.val_dataset, batch_size, shuffle=False,
+                             drop_last=False, pad_last=True,
+                             num_workers=self.config.num_workers)
+        model = self.eval_state()
+        for batch in prefetch(it, self.device):
+            first_ref = batch["caption_tokens"][:, 0, :]
+            first_mask = batch["attention_mask"][:, 0, :]
+            inputs = self._batch_inputs(batch)
+            valid = batch.get("batch_valid")
+            if valid is None:
+                valid = torch.ones(batch_size, dtype=torch.bool,
+                                   device=self.device)
+            loss_b, ntok_b = self.eval_loss_step(model, inputs, first_ref,
+                                                 first_mask, valid)
+            losses.append((float(loss_b), float(ntok_b)))
+            tokens = self.val_decode_step(model, inputs, gen).cpu().numpy()
+            valid = valid.cpu().numpy()
+            ids = batch["image_id"].cpu().numpy()
+            for j in range(len(tokens)):
+                if not valid[j]:
+                    continue
+                generated.append(self.tokenizer.decode(
+                    tokens[j], skip_special_tokens=True))
+                references.append(batch["captions"][j])
+                image_ids.append(int(ids[j]))
+        del model
+        val_loss = (sum(l * n for l, n in losses)
+                    / max(sum(n for _, n in losses), 1)) if losses else 0.0
+        metrics = calculate_metrics(generated, references, image_ids) \
+            if generated else {"CIDEr": 0.0}
+        return val_loss, metrics
+
+    # ------------------------------------------------------------------
+    # checkpointing
+    # ------------------------------------------------------------------
+
+    def save_checkpoint(self, epoch: int, is_best: bool = False):
+        self.ckpt.save_epoch(
+            epoch, self._state_tree(),
+            metadata={"epoch": epoch, "best_val_score": self.best_val_score},
+            config=self.config, is_best=is_best)
+
+    def load_checkpoint(self, name: str = "best_model"):
+        restored, meta, _ = self.ckpt.restore(name, self._state_tree())
+        self.load_state(restored)
+        self.best_val_score = meta.get("best_val_score", 0.0)
+        if "batch_index" in meta:
+            # mid-epoch (step) checkpoint: resume INSIDE meta["epoch"] at
+            # the recorded batch index / phase
+            self.start_epoch = meta.get("epoch", 0)
+            self.start_batch = int(meta["batch_index"])
+            self.start_phase = meta.get("phase", "ce")
+            self.logger.info(
+                "Loaded step checkpoint '%s' (epoch %d, %s batch %d, "
+                "best %.4f)", name, self.start_epoch + 1, self.start_phase,
+                self.start_batch, self.best_val_score)
+            return
+        self.start_epoch = meta.get("epoch", -1) + 1
+        self.start_batch = 0
+        self.start_phase = "ce"
+        self.logger.info("Loaded checkpoint '%s' (epoch %d, best %.4f)",
+                         name, self.start_epoch, self.best_val_score)
+
+    def load_weights(self, name: str = "best_model"):
+        """Restore params + BatchNorm statistics ONLY (optimizer state
+        untouched), reading none of the optimizer's bytes. For
+        inference-side swaps; resuming training takes
+        :meth:`load_checkpoint`."""
+        restored, meta, _ = self.ckpt.restore_partial(
+            name, {"params": None, "batch_stats": None})
+        self._load_weights(restored["params"], restored.get("batch_stats"))
+        self.best_val_score = meta.get("best_val_score", 0.0)
+        self.logger.info("Loaded weights from '%s' (best %.4f)",
+                         name, self.best_val_score)

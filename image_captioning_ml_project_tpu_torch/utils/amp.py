@@ -1,9 +1,13 @@
-"""Inference-time weight cast (counterpart of
+"""Weight casts for bf16 compute (counterpart of
 ``image_captioning_ml_project_tpu.utils.amp``).
 
 Serving runs the model in bf16: the weights are cast once, before any
-decode, rather than at every use. Norm-layer scale and bias stay f32,
-because the layer norm computes its statistics and affine in f32 from them
+decode, rather than at every use (:func:`cast_float_params`). Training
+keeps f32 master weights and computes in bf16 from a differentiable cast
+of them at each step (:func:`cast_for_compute`), as flax modules with
+``dtype=bfloat16`` cast their f32 params at use: the gradients land on
+the f32 masters. Either way norm-layer scale and bias stay f32, because
+the layer norm computes its statistics and affine in f32 from them
 (:class:`..models.layers.LayerNorm`, as flax's ``_normalize`` does); so do
 a BatchNorm's scale and bias (:class:`..models.encoders.BatchNorm`), and
 its running statistics, buffers, are never cast: the JAX policy keeps the
@@ -12,6 +16,8 @@ norm dicts and the ``batch_stats`` collection f32 alike.
 
 from __future__ import annotations
 
+from typing import Dict, List
+
 import torch
 from torch import nn
 
@@ -19,15 +25,34 @@ from ..models.encoders import BatchNorm
 from ..models.layers import LayerNorm
 
 
+def castable_parameters(model: nn.Module) -> List[str]:
+    """Names of ``model``'s float32 parameters outside :class:`LayerNorm`
+    and :class:`BatchNorm` modules: the ones a bf16 compute casts."""
+    names = []
+    for prefix, module in model.named_modules():
+        if isinstance(module, (LayerNorm, BatchNorm)):
+            continue
+        for name, p in module.named_parameters(recurse=False):
+            if p.dtype == torch.float32:
+                names.append(f"{prefix}.{name}" if prefix else name)
+    return names
+
+
 def cast_float_params(model: nn.Module,
                       dtype: torch.dtype = torch.bfloat16) -> nn.Module:
     """Cast every float32 parameter of ``model`` to ``dtype`` in place,
     except those of :class:`LayerNorm` and :class:`BatchNorm` modules.
     Returns ``model``."""
-    for module in model.modules():
-        if isinstance(module, (LayerNorm, BatchNorm)):
-            continue
-        for p in module.parameters(recurse=False):
-            if p.dtype == torch.float32:
-                p.data = p.data.to(dtype)
+    for name in castable_parameters(model):
+        p = model.get_parameter(name)
+        p.data = p.data.to(dtype)
     return model
+
+
+def cast_for_compute(model: nn.Module, names: List[str],
+                     dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """``{name: parameter cast to dtype}`` for the parameters ``names``
+    (:func:`castable_parameters`), each cast differentiable, so that a
+    ``torch.func.functional_call`` of ``model`` with them computes in
+    ``dtype`` and its gradients reach the f32 parameters."""
+    return {name: model.get_parameter(name).to(dtype) for name in names}

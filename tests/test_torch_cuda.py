@@ -474,6 +474,26 @@ def test_encoder_kernel_matches_plain(dev, dtype, L, B, T, NH, H):
     _close(got, want, dtype, 1e-4, 8)
 
 
+def test_remat_model_launches_the_encoder_kernel(dev):
+    """``remat`` is a training option: a remat flagship built by
+    ``load_model`` still encodes through the encoder kernel, as the same
+    model without remat does (f32, within 1e-4)."""
+    out = []
+    for remat in (True, False):
+        c = flagship_config()
+        e = c.model.encoder
+        e.num_layers, e.remat, c.model.dtype = 2, remat, "float32"
+        c.model.decoder.num_layers = 1
+        model = load_model(c, dev)
+        images = torch.from_numpy(np.random.RandomState(0).randint(
+            0, 256, (2, 224, 224, 3)).astype(np.uint8)).to(dev)
+        before = es.encoder_stack.launches
+        with torch.inference_mode():
+            out.append(model.encode(images)["features"].cpu())
+        assert es.encoder_stack.launches == before + 1, remat
+    torch.testing.assert_close(out[0], out[1], atol=1e-4, rtol=0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_encoder_kernel_from_two_threads(dev, dtype):
     """The serving batcher and, for the CLIP reranker's vision tower, the
@@ -944,3 +964,93 @@ def _tiny_decode_matches_cpu(dev, vocab, c=None):
     else:
         assert torch.equal(out[0][0], out[1][0])
     torch.testing.assert_close(out[0][1], out[1][1], atol=1e-4, rtol=0)
+
+
+# -- training (the CE step reaches no kernel; validation does) --------------
+
+_KERNELS = (bds.beam_decode_stack, es.encoder_stack,
+            port_lse.lse_and_block_max, bda.beam_decode_attention, bda.beam_decode_attention_qkv,
+            ca.cross_attention, port_sdpa.sdpa, adds.additive_scores)
+
+
+def test_global_norm_on_the_card(dev):
+    """The card's one ``_foreach_norm`` over a list holding GPT-2's
+    embedding-sized gradient: within 1e-6 relative of a float64 sum."""
+    from image_captioning_ml_project_tpu_torch.train.optim import (
+        global_norm)
+
+    g = torch.Generator().manual_seed(3)
+    grads = [torch.randn(50257, 768, generator=g) * 1e-3,
+             torch.randn(768, generator=g), torch.zeros(5)]
+    want = float(sum(t.double().square().sum() for t in grads).sqrt())
+    got = global_norm([t.to(dev) for t in grads])
+    assert got.is_cuda
+    assert float(got) == pytest.approx(want, rel=1e-6)
+
+
+def _train_config(tmp_path, family):
+    from image_captioning_ml_project_tpu_torch.config import (
+        EncoderType, get_default_config)
+
+    c = get_default_config()
+    e, d = c.model.encoder, c.model.decoder
+    e.encoder_type = EncoderType(family[0])
+    e.hidden_size = e.feature_dim = d.hidden_dim = 64
+    e.num_layers = d.num_layers = 2
+    e.num_heads = d.num_heads = 4
+    e.patch_size, e.resnet_depths, e.resnet_hidden_sizes = 16, (1, 2), \
+        (16, 32)
+    e.resnet_embedding_size = 8
+    d.decoder_type = DecoderType(family[1])
+    d.prefix_length, d.max_length, d.dropout = 3, 16, 0.0
+    c.model.attention.attention_type = AttentionType.SOFT
+    c.model.attention.hidden_dim, c.model.attention.use_pallas = 64, True
+    c.model.vocab_size, c.model.dtype, c.image_size = 5000, "float32", 32
+    c.inference.max_length = 8
+    tc = c.training
+    tc.use_rl, tc.use_amp, tc.warmup_steps, tc.batch_size = False, False, 0, 2
+    tc.learning_rate = 1e-3
+    c.output_dir = c.checkpoint_dir = str(tmp_path)
+    return c
+
+
+@pytest.mark.parametrize("family", [("clip", "gpt2"), ("vit", "transformer"),
+                                    ("resnet", "lstm")],
+                         ids=lambda f: "-".join(f))
+def test_train_step_on_the_card_matches_the_cpu(dev, tmp_path, family):
+    """Two f32 CE steps of a tiny model on the card and on the CPU: losses
+    within 1e-5 relative, ``grad_norm`` within 1e-4; no kernel launched in
+    a step; the validation decode of the trained weights launches the
+    family's kernels."""
+    from image_captioning_ml_project_tpu_torch.train.trainer import (
+        CaptioningTrainer)
+
+    cfg = _train_config(tmp_path, family)
+    g = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (2, 32, 32, 3), generator=g,
+                           dtype=torch.uint8)
+    caps = torch.randint(3, 1000, (2, 7), generator=g)
+    mask = torch.ones(2, 7, dtype=torch.int32)
+    metrics = {}
+    for device in (dev, "cpu"):
+        t = CaptioningTrainer(cfg, [None] * 2, [], None, device=device)
+        for k in _KERNELS:
+            k.launches = 0
+        metrics[str(device)] = [t.train_step(images, caps, mask)
+                                for _ in range(2)]
+        assert all(k.launches == 0 for k in _KERNELS)
+        if device == dev:
+            model = t.eval_state()
+            tokens = t.val_decode_step(model, images)
+            assert tokens.is_cuda
+            assert port_lse.lse_and_block_max.launches > 0
+            if family[1] == "gpt2":
+                assert es.encoder_stack.launches > 0
+                assert bds.beam_decode_stack.launches > 0
+            if family[1] == "lstm":
+                assert adds.additive_scores.launches > 0
+    for a, b in zip(metrics[str(dev)], metrics["cpu"]):
+        for key in ("total_loss", "ce_loss"):
+            assert float(a[key]) == pytest.approx(float(b[key]), rel=1e-5)
+        assert float(a["grad_norm"]) == pytest.approx(float(b["grad_norm"]),
+                                                      rel=1e-4)

@@ -1,7 +1,10 @@
 """The port imports no JAX: in a fresh interpreter, importing every module
-of ``image_captioning_ml_project_tpu_torch`` and building and running a
-tiny model of each ported family leaves ``jax``, ``flax``, ``triton`` and the
-JAX package ``image_captioning_ml_project_tpu`` out of ``sys.modules``; no
+of ``image_captioning_ml_project_tpu_torch`` (the trainer, its losses,
+optimizer, checkpoints, data and metrics included) and building and
+running a tiny model of each ported family, and a training step and
+checkpoint of each, leaves ``jax``, ``flax``, ``optax``, ``orbax``,
+``triton`` and the JAX package ``image_captioning_ml_project_tpu`` out of
+``sys.modules``; no
 source of the port names ``triton`` in an import (its kernels are CUDA C++
 built with nvcc). And
 ``chip_smoke.py`` refuses to run, printing no result, without a GPU or
@@ -42,8 +45,21 @@ for make in CONFIGS.values():
         state = model.init_cache(torch.zeros(1, 64, 64, 3,
                                              dtype=torch.uint8), 4)
         model.step(state, torch.ones(1, dtype=torch.long))
+    # and one training step of each, checkpointed
+    import tempfile
+    from image_captioning_ml_project_tpu_torch.train.trainer import (
+        CaptioningTrainer)
+    c.training.use_rl, c.training.batch_size = False, 2
+    c.output_dir = c.checkpoint_dir = tempfile.mkdtemp()
+    t = CaptioningTrainer(c, [None] * 2, [], None, device="cpu")
+    t.train_step(torch.zeros(2, 64, 64, 3, dtype=torch.uint8),
+                 torch.ones(2, 5, dtype=torch.long),
+                 torch.ones(2, 5, dtype=torch.long))
+    t.save_checkpoint(0)
+    t.ckpt.wait_until_finished()
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton",
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "triton",
                                     "image_captioning_ml_project_tpu"))
 print(bad)
 sys.exit(1 if bad else 0)

@@ -118,9 +118,10 @@ def test_resnet_encoder_in_bf16_matches_jax():
 
 
 def test_batch_norm_uses_the_running_statistics_and_flax_arithmetic():
-    """(x - mean) * (rsqrt(var + eps) * scale) + bias in f32, cast back;
-    swapping the mean and the variance changes the output."""
-    bn = BatchNorm(3)
+    """In eval mode, (x - mean) * (rsqrt(var + eps) * scale) + bias in
+    f32, cast back; swapping the mean and the variance changes the
+    output."""
+    bn = BatchNorm(3).eval()
     rs = np.random.RandomState(1)
     with torch.no_grad():
         for t, v in ((bn.running_mean, rs.randn(3)),

@@ -60,7 +60,8 @@ def test_vit_backbone_uses_its_patch_bias_and_position_table():
 def test_other_encoders_name_their_roadmap_item(encoder):
     cfg = get_default_config().model.encoder
     cfg.encoder_type = EncoderType(encoder)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 10"):
         build_encoder(cfg, 224)
     cfg.encoder_type = EncoderType.VIT
     cfg.use_object_features = True

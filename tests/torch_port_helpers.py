@@ -1,10 +1,13 @@
 """Shared set-up of the tests/test_torch_*.py files: a tiny configuration
 of each ported family (CLIP, ViT or ResNet encoder, GPT-2, Transformer or
 LSTM decoder with any attention variant), and the JAX model and the port's
-model built from one set of weights. Inputs are made with numpy from a seed
-and fed to both."""
+model built from one set of weights; for the trainer tests, a synthetic
+COCO fixture, their tiny training configurations and the bridge of a JAX
+trainer's state. Inputs are made with numpy from a seed and fed to both."""
 
 import functools
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -13,14 +16,21 @@ import torch
 
 from image_captioning_ml_project_tpu.config import (AttentionType,
                                                      DecoderType, EncoderType,
+                                                     config_to_dict,
                                                      get_default_config)
 from image_captioning_ml_project_tpu.data.coco import normalize_images
+from image_captioning_ml_project_tpu.data.synthetic import make_synthetic_coco
+from image_captioning_ml_project_tpu.data.tokenizer import WordVocab
 from image_captioning_ml_project_tpu.models.captioning_model import (
     ImageCaptioningModel)
+from image_captioning_ml_project_tpu_torch.config import config_from_dict
 from image_captioning_ml_project_tpu_torch.models.captioning_model import (
     load_model)
+from image_captioning_ml_project_tpu_torch.params import (
+    train_state_from_flax)
 
 IMAGE_SIZE = 32
+LR = 1e-2  # the trainer tests' learning rate
 
 
 def tiny_config(vocab: int = 1000, decode_kernel: str = "xla",
@@ -102,3 +112,85 @@ def bf16_ulp(ref: np.ndarray) -> float:
     """One bf16 ulp at the magnitude of ``ref``'s largest element."""
     mag = float(np.abs(ref).max())
     return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+def coco_fixture(root):
+    """A synthetic COCO fixture of 8 + 8 images of 32 x 32, 3 captions
+    each, under ``root``, and the JAX package's word vocabulary of every
+    train caption word: (root, vocab)."""
+    make_synthetic_coco(root, num_images=8, captions_per_image=3,
+                        image_size=32)
+    with open(os.path.join(root, "annotations/captions_train2014.json")) as f:
+        ann = json.load(f)
+    vocab = WordVocab.build([a["caption"] for a in ann["annotations"]],
+                            threshold=1)
+    return root, vocab
+
+
+def _trainer_fixture_config():
+    """tests/test_trainer.py's configuration (ViT + LSTM soft)."""
+    cfg = get_default_config()
+    cfg.image_size = 32
+    e, d = cfg.model.encoder, cfg.model.decoder
+    e.encoder_type = EncoderType.VIT
+    e.feature_dim = e.hidden_size = 16
+    e.num_layers, e.num_heads, e.patch_size, e.image_size = 1, 2, 8, 32
+    d.decoder_type = DecoderType.LSTM
+    d.hidden_dim, d.num_layers, d.max_length, d.dropout = 16, 1, 16, 0.0
+    cfg.model.attention.attention_type = AttentionType.SOFT
+    cfg.model.attention.hidden_dim = 16
+    cfg.model.projection_dim = 16
+    return cfg
+
+
+def train_config(kind, root, vocab, tmp):
+    """The JAX config of one of the trainer tests' tiny configurations
+    (``vit_lstm``: tests/test_trainer.py's; ``clip_gpt2`` with the
+    contrastive loss; ``resnet_transformer``), f32, dropout 0, batch 4,
+    lr :data:`LR` with one warmup step, over the fixture at ``root``."""
+    if kind == "vit_lstm":
+        cfg = _trainer_fixture_config()
+    elif kind == "clip_gpt2":
+        cfg = tiny_config(vocab=vocab.vocab_size)
+        cfg.training.use_contrastive_loss = True
+        cfg.model.projection_dim = 32
+    else:
+        cfg = tiny_config(vocab=vocab.vocab_size, encoder="resnet",
+                          decoder="transformer")
+    cfg.data_root = root
+    cfg.seed = 0
+    cfg.output_dir = str(tmp / "out")
+    cfg.checkpoint_dir = str(tmp / "ckpt")
+    cfg.log_every = 1
+    cfg.num_workers = 0
+    cfg.model.vocab_size = vocab.vocab_size
+    cfg.model.pad_token_id = vocab.pad_token_id
+    cfg.model.bos_token_id = vocab.bos_token_id
+    cfg.model.eos_token_id = vocab.eos_token_id
+    cfg.model.decoder.dropout = 0.0
+    cfg.model.dtype = "float32"
+    tc = cfg.training
+    tc.batch_size, tc.num_epochs, tc.use_rl, tc.use_amp = 4, 3, False, False
+    tc.learning_rate, tc.warmup_steps, tc.weight_decay = LR, 1, 0.01
+    cfg.inference.max_length = 8
+    cfg.inference.num_candidates = 4
+    return cfg
+
+
+def one_device_mesh():
+    from jax.sharding import Mesh
+
+    return Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+
+
+def port_config(cfg):
+    """The port's Config equal to a JAX one."""
+    return config_from_dict(config_to_dict(cfg))
+
+
+def bridge_state(jt):
+    """A JAX trainer's state as the port trainer's."""
+    s = jax.device_get(jt.state)
+    return train_state_from_flax({"params": s.params,
+                                  "batch_stats": s.batch_stats,
+                                  "opt_state": s.opt_state, "step": s.step})
