@@ -118,7 +118,20 @@ prints no result line:
    service on the seeded weights answers requests from 8 threads while
    ``reload_checkpoint("best_model")`` swaps the trained weights in, every
    request answered, the captions after it equal to a fresh service's on
-   the checkpoint.
+   the checkpoint. Then SCST: in f32 at batch 2 on the card and on the
+   CPU from the same seeded weights, the n-gram hashes on the card
+   bit-equal to ``ngram_hashes_np``, the device CIDEr rewards of the same
+   injected rollouts within 1e-5 relative, and one ``rl_update_step`` on
+   the same tokens, mask and advantages (the loss within 1e-5 relative,
+   the moments and parameters as the CE check holds them); then bf16 SCST
+   at batch 64 through ``scst_fused_step`` on the device CIDEr path, one
+   warm-up step and five timed, each split into rollouts, rewards and
+   update with the launches read on each side of each part: #5 once and
+   #3 two to 2 x 19 times in the rollouts, nothing else, and no kernel in
+   the rewards or the update; finite rewards and a non-zero advantage; the
+   refreshed rollout model's greedy decode token-identical to a fresh
+   ``eval_state()``'s; last an epoch's CE and SCST passes through
+   ``_train_epoch``.
 
 The last three lines are the train phase's numbers (JSON), a JSON summary
 of the kernels and ``{"ok": true, "device": {...}}``. Each kernel's entry holds its numbers
@@ -129,8 +142,8 @@ their own shape (the LSE over the LSTM's vocabulary of 10000), are under
 ancestry and at 6 beams under ``decode_shapes``, and each kernel's
 launches in the flagship's other decoding options' runs under
 ``decoding_options``, and their launches in the train phase (its
-steps, its validation, the service across the reload) under
-``training``.
+steps, its validation, the service across the reload, the timed SCST
+steps) under ``training``.
 """
 
 import argparse
@@ -2158,6 +2171,263 @@ def train_reload(torch, dev, trainer, tree, tokenizer, val_ds, smi,
             "changed": changed, "launches": launched}
 
 
+TRAIN_SCST_STEPS = 6           # one warm-up step, then five timed
+SCST_PARTS = ("rollouts", "rewards", "update")
+
+
+def _scst_rollouts(torch, L, vocab, ref_tokens, g):
+    """Injected (sampled, mask, greedy) for a batch of 2, as the decoders
+    give them (BOS, words, EOS, pads; the sampler's mask True from position
+    1 to the EOS): the sampled rows copy image 0's first reference and draw
+    as many random words for image 1, the greedy rows the other way
+    round."""
+    out = []
+    for copies in ((True, False), (False, True)):
+        tokens = torch.full((2, L), vocab["pad"], dtype=torch.long)
+        mask = torch.zeros((2, L), dtype=torch.bool)
+        for i, copy_ref in enumerate(copies):
+            words = torch.from_numpy(ref_tokens[i, 0]).long()
+            words = words[(words >= 0) & (words != vocab["bos"])
+                          & (words != vocab["eos"])]
+            if not copy_ref:
+                words = torch.randint(4, vocab["size"], (len(words),),
+                                      generator=g)
+            row = torch.cat([torch.tensor([vocab["bos"]]), words,
+                             torch.tensor([vocab["eos"]])])[:L]
+            tokens[i, :len(row)] = row
+            mask[i, 1:len(row)] = True
+        out.append((tokens, mask))
+    return out[0][0], out[0][1], out[1][0]
+
+
+def scst_card_vs_cpu(torch, dev, cfg, tree, tokenizer, train_ds, tmp,
+                     kernels):
+    """SCST in f32 at batch 2, on the card and on the CPU from the same
+    seeded weights: the n-gram hashes on the card bit-equal to
+    ``ngram_hashes_np`` (and to the CPU's), the rewards of the same
+    injected rollouts within 1e-5 relative, and one ``rl_update_step`` on
+    the same tokens, mask and advantages: the loss within 1e-5 relative,
+    the Adam moments and the parameters as :func:`hold_train_state` holds
+    them; no kernel launched in the rewards or the update."""
+    import numpy as np
+    from image_captioning_ml_project_tpu_torch.ops.ngram import (
+        ngram_hashes, ngram_hashes_np)
+    from image_captioning_ml_project_tpu_torch.train.trainer import (
+        CaptioningTrainer)
+
+    g = torch.Generator().manual_seed(11)
+    V = cfg.model.vocab_size
+    toks = torch.randint(-1, V, (2, 5, 50), generator=g)
+    toks[0, 0, :10] = -1
+    valid = toks >= 0
+    for n in range(1, 5):
+        h, v = ngram_hashes(toks.to(dev), n, valid.to(dev))
+        h_cpu, v_cpu = ngram_hashes(toks, n, valid)
+        check(torch.equal(h.cpu(), h_cpu) and torch.equal(v.cpu(), v_cpu),
+              f"n-gram hashes (n = {n}) on the card differ from the CPU's")
+        for row, hashes in zip(toks.reshape(10, 50).numpy(),
+                               h.cpu().reshape(10, 50).numpy()):
+            host = ngram_hashes_np(row.astype(np.uint32), n)
+            check(np.array_equal(hashes[:len(host)].astype(np.uint32), host),
+                  f"n-gram hashes (n = {n}) on the card differ from "
+                  f"ngram_hashes_np")
+    print("scst: n-gram hashes on the card bit-equal to ngram_hashes_np and "
+          "to the CPU's (n = 1..4, [2, 5, 50] ids in [-1, 50256])",
+          flush=True)
+
+    c = _train_config(cfg, os.path.join(tmp, "scst_f32"), False, 2, 1e-4, 0,
+                      0.0)
+    batch = _fixed_batch(train_ds, 2)
+    mc = c.model
+    vocab = {"bos": mc.bos_token_id, "eos": mc.eos_token_id,
+             "pad": mc.pad_token_id, "size": V}
+    trainers, rewards, metrics, steps = {}, {}, {}, {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        t = CaptioningTrainer(c, train_ds, train_ds, tokenizer, device=device,
+                              params=tree)
+        ref_tokens, ref_valid = t.scst_references(batch["image_id"])
+        if name == "card":
+            sampled, mask, greedy = _scst_rollouts(
+                torch, c.inference.max_length, vocab, ref_tokens, g)
+            before = {f"{group}.{k}": v.float().cpu() for group, params in
+                      t._state_tree()["params"].items()
+                      for k, v in params.items()}
+        steps[name] = []
+        record_steps(torch, t, steps[name])
+        _zero_launches(kernels)
+        rewards[name] = [r.cpu() for r in t.scst_rewards(
+            sampled, greedy, ref_tokens, ref_valid)]
+        # the same advantages on both devices: the card's
+        metrics[name] = {k: float(v) for k, v in t.rl_update_step(
+            batch["image"], sampled, mask, rewards["card"][2]).items()}
+        launched = _launches(kernels)
+        check(not any(launched.values()),
+              f"f32 SCST rewards and update on the {name} launched "
+              f"kernels: {launched}")
+        trainers[name] = t
+    for what, a, b in zip(("reward", "greedy reward", "advantage"),
+                          rewards["card"], rewards["cpu"]):
+        rel = float(((a - b).abs() / b.abs().clamp_min(1e-12)).max())
+        check(rel <= 1e-5, f"scst f32 {what}: card {a.tolist()} cpu "
+                           f"{b.tolist()} (rel {rel:.2e})")
+    check(float(rewards["cpu"][0][0]) > 0 and float(rewards["cpu"][1][1]) > 0,
+          f"the copied references scored no CIDEr: {rewards['cpu']}")
+    a, b = metrics["card"], metrics["cpu"]
+    rel = abs(a["rl_loss"] - b["rl_loss"]) / abs(b["rl_loss"])
+    check(rel <= 1e-5, f"scst f32 rl_loss card {a['rl_loss']} cpu "
+                       f"{b['rl_loss']} (rel {rel:.2e})")
+    held = hold_train_state(torch, trainers["card"], trainers["cpu"],
+                            before, (steps["card"], steps["cpu"]),
+                            [b["learning_rate"]])
+    print(f"scst f32 card vs CPU: rewards {rewards['cpu'][0].tolist()} / "
+          f"greedy {rewards['cpu'][1].tolist()}, card within 1e-5; rl_loss "
+          f"card {a['rl_loss']:.8f} cpu {b['rl_loss']:.8f} (rel {rel:.2e}); "
+          f"{held}", flush=True)
+    for t in trainers.values():
+        del t.optimizer.step
+    del trainers
+    return {"rl_loss_rel": rel}
+
+
+def scst_bf16(torch, dev, cfg, tree, tokenizer, train_ds, tmp, smi,
+              kernels):
+    """bf16 SCST at batch 64 on the device CIDEr path through
+    ``scst_fused_step``: one warm-up step, then five timed, each split into
+    rollouts / rewards / update (the device synchronised at each boundary)
+    with the launches of each part: #5 once and #3 at least twice and at
+    most twice a decode step in the rollouts, nothing else there, and no
+    kernel in the rewards or the update; finite rewards, a non-zero
+    advantage; then the refreshed rollout model's greedy decode
+    token-identical to a fresh ``eval_state()``'s, and an epoch's CE and
+    SCST passes over the fixture through ``_train_epoch``. Returns the
+    numbers."""
+    from image_captioning_ml_project_tpu_torch.inference.decoding import (
+        greedy_decode)
+    from image_captioning_ml_project_tpu_torch.train.trainer import (
+        CaptioningTrainer)
+
+    c = _train_config(cfg, os.path.join(tmp, "scst_bf16"), True,
+                      cfg.training.batch_size, 1e-4, 2, 0.1)
+    c.training.use_rl, c.training.rl_start_epoch = True, 0
+    B, L = c.training.batch_size, c.inference.max_length
+    mc = c.model
+    batch = _fixed_batch(train_ds, B)
+    images = torch.from_numpy(batch["image"]).to(dev)
+    t = CaptioningTrainer(c, train_ds, train_ds, tokenizer, device=dev,
+                          params=tree)
+    ref_tokens, ref_valid = t.scst_references(batch["image_id"])
+    times = {p: [] for p in SCST_PARTS}
+    launches = {p: [] for p in SCST_PARTS}
+
+    def timed(part, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = _launches(kernels)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[part].append(time.perf_counter() - t0)
+            after = _launches(kernels)
+            launches[part].append({k: after[k] - before[k] for k in after})
+            return out
+        return run
+
+    t.rollout_step = timed("rollouts", t.rollout_step)
+    t.scst_rewards = timed("rewards", t.scst_rewards)
+    t.rl_update_step = timed("update", t.rl_update_step)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches(kernels)
+    totals, metrics = [], []
+    for _ in range(TRAIN_SCST_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = t.scst_fused_step(images, ref_tokens, ref_valid)
+        metrics.append({k: float(v) for k, v in m.items()})
+        totals.append(time.perf_counter() - t0)
+    launched = _launches(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, parts in enumerate(zip(*(launches[p] for p in SCST_PARTS))):
+        roll, rew, upd = parts
+        check(roll["encoder_stack"] == 1,
+              f"scst step {i + 1}: the rollouts launched #5 "
+              f"{roll['encoder_stack']} times, not once")
+        check(2 <= roll["beam_decode_stack"] <= 2 * (L - 1),
+              f"scst step {i + 1}: the rollouts launched #3 "
+              f"{roll['beam_decode_stack']} times")
+        others = {k: v for k, v in roll.items()
+                  if v and k not in ("encoder_stack", "beam_decode_stack")}
+        check(not others, f"scst step {i + 1}: the rollouts launched {others}")
+        check(not any(rew.values()) and not any(upd.values()),
+              f"scst step {i + 1}: kernels launched in the rewards {rew} or "
+              f"the update {upd}")
+    for m in metrics:
+        check(all(math.isfinite(m[k]) for k in ("rl_loss", "reward",
+                                                "greedy_reward", "adv_abs")),
+              f"scst metrics not finite: {m}")
+    check(any(m["adv_abs"] > 0 for m in metrics),
+          f"no SCST step had a non-zero advantage: {metrics}")
+    timed_steps = slice(1, None)
+    ms = {p: statistics.median(times[p][timed_steps]) * 1e3
+          for p in SCST_PARTS}
+    ms["step"] = statistics.median(totals[timed_steps]) * 1e3
+    mean = {k: statistics.mean(m[k] for m in metrics[timed_steps])
+            for k in ("rl_loss", "reward", "greedy_reward", "adv_abs")}
+    per_step = [{k: v for k, v in roll.items() if v}
+                for roll in launches["rollouts"]]
+    numbers = {"batch": B, "steps": TRAIN_SCST_STEPS - 1,
+               "launches": launched, "ms_per_step": ms["step"],
+               "ms": ms, "images_per_s": B / ms["step"] * 1e3,
+               "max_memory_allocated_gib": peak, "means": mean,
+               "rollout_launches_per_step": per_step}
+    print(f"scst bf16 batch {B}: per step {metrics}", flush=True)
+    print(f"scst bf16 batch {B}: {ms['step']:.2f} ms/step (median of "
+          f"{TRAIN_SCST_STEPS - 1} after a warm-up): rollouts "
+          f"{ms['rollouts']:.2f}, rewards {ms['rewards']:.2f}, update "
+          f"{ms['update']:.2f} ms, the rest (the rollout model's refresh "
+          f"and host) {ms['step'] - sum(ms[p] for p in SCST_PARTS):.2f} ms; "
+          f"{B / ms['step'] * 1e3:.1f} images/s; max_memory_allocated "
+          f"{peak:.2f} GiB; means {mean}; rollout launches per step "
+          f"{per_step}; no kernel in the rewards or the update [{smi}]",
+          flush=True)
+
+    # the refreshed rollout model decodes as a fresh eval_state
+    tokens = []
+    for model in (t.rollout_model(), t.eval_state()):
+        with torch.no_grad():
+            state = model.init_cache(images, L)
+            tokens.append(greedy_decode(
+                model.step, state, B, mc.bos_token_id, L,
+                eos_token_id=mc.eos_token_id,
+                pad_token_id=mc.pad_token_id).cpu())
+    check(torch.equal(tokens[0], tokens[1]),
+          "the refreshed rollout model's greedy decode differs from a "
+          "fresh eval_state's")
+    print(f"scst: after {TRAIN_SCST_STEPS} steps the refreshed rollout "
+          f"model's greedy decode of {B} images equals a fresh "
+          f"eval_state's, token for token", flush=True)
+
+    # the epoch's passes over the fixture's captions: CE, then SCST
+    del t.rollout_step, t.scst_rewards, t.rl_update_step   # untimed
+    n = t.steps_per_epoch
+    step0 = t.step
+    _zero_launches(kernels)
+    t0 = time.perf_counter()
+    loss = t._train_epoch(0)
+    seconds = time.perf_counter() - t0
+    epoch_launches = _launches(kernels)
+    check(t.step == step0 + 2 * n and math.isfinite(loss),
+          f"_train_epoch took {t.step - step0} steps, loss {loss}")
+    check(epoch_launches["encoder_stack"] == n
+          and 2 * n <= epoch_launches["beam_decode_stack"] <= 2 * n * (L - 1),
+          f"_train_epoch's SCST pass launched {epoch_launches}")
+    print(f"scst: _train_epoch ({n} CE and {n} SCST steps of {B}, the "
+          f"rollout model built at the pass's start) {seconds:.2f} s, CE "
+          f"loss {loss:.4f}, launches {epoch_launches}", flush=True)
+    numbers["train_epoch_s"] = seconds
+    del t
+    return numbers
+
+
 def train_phase(torch, dev, smi, cfg, tree, seed):
     """Phase 7 (module docstring). Returns the summary line's numbers."""
     import shutil
@@ -2180,8 +2450,15 @@ def train_phase(torch, dev, smi, cfg, tree, seed):
         reload = train_reload(torch, dev, trainer, tree, tokenizer, val_ds,
                               smi, kernels)
         del trainer
+        t0 = time.perf_counter()
+        scst = scst_card_vs_cpu(torch, dev, cfg, tree, tokenizer, train_ds,
+                                tmp, kernels)
+        scst.update(scst_bf16(torch, dev, cfg, tree, tokenizer, train_ds,
+                              tmp, smi, kernels))
+        print(f"scst part of the train phase: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         return {"f32_card_vs_cpu": worst, "bf16": bf16,
-                "validation": validation, "reload": reload}
+                "validation": validation, "reload": reload, "scst": scst}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2433,15 +2710,13 @@ def main():
         entry["training"] = {
             "train_steps": training["bf16"]["launches"][entry["name"]],
             "validation": training["validation"]["launches"][entry["name"]],
-            "reload": training["reload"]["launches"][entry["name"]]}
+            "reload": training["reload"]["launches"][entry["name"]],
+            "scst": training["scst"]["launches"][entry["name"]]}
     print(json.dumps({"training": {
-        "f32_card_vs_cpu": training["f32_card_vs_cpu"],
-        "bf16": {k: v for k, v in training["bf16"].items()
-                 if k != "launches"},
-        "validation": {k: v for k, v in training["validation"].items()
-                       if k != "launches"},
-        "reload": {k: v for k, v in training["reload"].items()
-                   if k != "launches"}}}))
+        key: (training[key] if key == "f32_card_vs_cpu" else
+              {k: v for k, v in training[key].items() if k != "launches"})
+        for key in ("f32_card_vs_cpu", "bf16", "validation", "reload",
+                    "scst")}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": kind, "count": count}}))

@@ -22,9 +22,10 @@ GPT-2).
 ``train`` builds the COCO datasets under ``--data_root``, the tokenizer
 and :class:`.train.trainer.CaptioningTrainer`, resumes from
 ``--checkpoint`` when given (an epoch checkpoint, ``best_model`` or the
-rolling ``checkpoint_step``), and trains with cross-entropy, writing
-checkpoints under ``output_dir/checkpoints``; SCST and curriculum epochs
-are not yet ported and raise.
+rolling ``checkpoint_step``), and trains: cross-entropy every epoch,
+then with ``use_rl`` (the default) an SCST pass from ``rl_start_epoch``,
+writing checkpoints under ``output_dir/checkpoints``. Curriculum epochs
+and CLIP-reranked validation are not yet ported and raise.
 
 ``serve`` loads ``--checkpoint`` (its weights only) or, without one,
 draws the weights from ``--seed``, and answers ``/caption`` and
@@ -294,10 +295,13 @@ def _resolve_reranker(config: Config, tokenizer, reranker, device):
 
 
 def train(config: Config, checkpoint_path: Optional[str] = None,
-          tokenizer=None, device="cuda"):
-    """Cross-entropy training on ``device`` (the JAX CLI's ``train``):
-    the COCO datasets, the tokenizer, the trainer, an optional resume from
-    ``checkpoint_path``, then ``train()``. Returns the trainer."""
+          tokenizer=None, device="cuda", reranker=None):
+    """Training on ``device`` (the JAX CLI's ``train``): the COCO
+    datasets, the tokenizer, the CLIP reranker of validation when
+    ``use_clip_reranking`` is set (``reranker``, or one built by
+    :func:`_resolve_reranker`), the trainer, an optional resume from
+    ``checkpoint_path``, then ``train()``: cross-entropy epochs, and SCST
+    from ``rl_start_epoch`` when ``use_rl``. Returns the trainer."""
     from .data.coco import build_coco_datasets
     from .train.trainer import CaptioningTrainer
 
@@ -307,8 +311,11 @@ def train(config: Config, checkpoint_path: Optional[str] = None,
             "Queue 1 item 7)")
     tokenizer = tokenizer or setup_tokenizer(config)
     train_ds, val_ds = build_coco_datasets(config, tokenizer)
+    # with use_clip_reranking, validation reranks too, so the best-CIDEr
+    # checkpoint is selected by the decode that ships
+    reranker = _resolve_reranker(config, tokenizer, reranker, device)
     trainer = CaptioningTrainer(config, train_ds, val_ds, tokenizer,
-                                device=device)
+                                reranker=reranker, device=device)
     if checkpoint_path:
         trainer.load_checkpoint(checkpoint_path)
     trainer.train()

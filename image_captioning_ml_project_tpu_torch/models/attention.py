@@ -11,8 +11,9 @@ plain PyTorch ops on every device; True runs the attention core through a
 kernel wrapper (:func:`..ops.additive_scores.additive_scores` for the soft
 variant, :func:`..ops.sdpa.sdpa` for the multi-head one), which takes its
 plain version on a CPU tensor and launches the hand-written kernel on a
-CUDA tensor. The kernels have no backward: in training mode the plain
-PyTorch ops run whatever the switch says.
+CUDA tensor. The kernels have no backward: in training mode, and inside
+:func:`.layers.plain_routes`, the plain PyTorch ops run whatever the
+switch says.
 
 The keys and values may be per image while the queries are per beam row:
 where ``query`` has ``beam_size`` rows for each key row (row r belonging
@@ -40,6 +41,7 @@ from torch import nn
 from ..config import AttentionType
 from ..ops.additive_scores import additive_scores
 from ..ops.sdpa import sdpa
+from .layers import kernels_on
 
 _NEG_INF = -1e9
 
@@ -87,7 +89,7 @@ class SoftAttention(nn.Module):
         K = _beam_size(query, B)
         q_proj = self.query_proj(query)
         T = self.config.temperature
-        if self.config.use_pallas and not self.training:
+        if self.config.use_pallas and kernels_on(self):
             scores = additive_scores(
                 q_proj, k_proj, self.energy.weight, self.energy.bias,
                 key_padding_mask, temperature=T, beam_size=K)
@@ -150,7 +152,7 @@ class MultiHeadAttention(nn.Module):
         B, NH, S, hd = k.shape
         K = _beam_size(query, B)
         scale = 1.0 / (self.config.temperature * (hd ** 0.5))
-        if self.config.use_pallas and not self.training:
+        if self.config.use_pallas and kernels_on(self):
             context4, weights4 = sdpa(q, k, v, key_padding_mask, scale=scale,
                                       beam_size=K)
         else:

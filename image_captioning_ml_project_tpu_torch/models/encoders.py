@@ -6,7 +6,8 @@ Counterpart of the CLIP and ViT parts of ``image_captioning_ml_project_tpu.
 models.encoders``. For CLIP, as there, ``ICT_ENCODER_FOLD`` (default on;
 ``0`` off; ``force`` means on) chooses, once per forward, between the
 whole-stack encoder kernel (:func:`..ops.encoder_stack.encoder_stack`,
-inference only: it is skipped in training mode) and the per-layer modules.
+inference only: it is skipped in training mode and inside
+:func:`.layers.plain_routes`) and the per-layer modules.
 ViT and ResNet have no such fold in the JAX package and none here: their
 layers are plain PyTorch modules (the ResNet's convolutions, plain XLA in
 the JAX package, go to cuDNN, in the ``channels_last`` memory format so
@@ -43,7 +44,7 @@ from torch import nn
 from ..config import EncoderType
 from ..data.coco import normalize_images
 from ..ops.encoder_stack import encoder_stack
-from .layers import LayerNorm
+from .layers import LayerNorm, kernels_on
 
 
 def encoder_fold_enabled() -> bool:
@@ -173,15 +174,16 @@ class CLIPVisionBackbone(nn.Module):
         x = torch.cat([cls, x], dim=1)
         x = x + self.position_embeddings.to(x.dtype)[None]
         x = self.pre_layernorm(x)
-        # the kernel has no backward: never in training. ``remat`` only
-        # matters to a backward, so a remat model folds in eval mode too
-        if encoder_fold_enabled() and not self.training:
+        # the kernel has no backward: never in training or under
+        # plain_routes. ``remat`` only matters to a backward, so a remat
+        # model folds in eval mode too
+        if encoder_fold_enabled() and kernels_on(self):
             if self.stack is None:
                 raise RuntimeError("the encoder fold needs the stacked "
                                    "weights: build the model with load_model")
             x = encoder_stack(x, self.stack, num_heads=self.num_heads)
         else:
-            x = run_layers(self.layers, x, self.remat and self.training)
+            x = run_layers(self.layers, x, self.remat)
         return x, self.post_layernorm(x[:, 0])
 
 
@@ -231,7 +233,7 @@ class ViTBackbone(nn.Module):
         x = x.reshape(B, -1, h)
         x = torch.cat([self.cls_token.to(x.dtype).expand(B, 1, h), x], dim=1)
         x = x + self.position_embeddings.to(x.dtype)
-        x = run_layers(self.layers, x, self.remat and self.training)
+        x = run_layers(self.layers, x, self.remat)
         x = self.layernorm(x)
         return x, torch.tanh(self.pooler(x[:, 0]))
 

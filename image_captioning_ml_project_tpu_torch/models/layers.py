@@ -12,6 +12,7 @@ from torch import nn
 from ..ops.numerics import layer_norm
 
 _rng = threading.local()
+_routes = threading.local()
 
 
 @contextlib.contextmanager
@@ -27,6 +28,27 @@ def dropout_generator(generator: Optional[torch.Generator]
         yield
     finally:
         _rng.generator = before
+
+
+@contextlib.contextmanager
+def plain_routes() -> Iterator[None]:
+    """Run the forwards inside on plain torch ops in eval mode too: eval
+    numerics (no dropout, BatchNorm on its running statistics) that
+    autograd can differentiate, since no kernel has a backward. The
+    trainer's REINFORCE forward runs inside it, as the JAX trainer
+    differentiates ``apply(..., train=False)``. Per thread."""
+    before = getattr(_routes, "plain", False)
+    _routes.plain = True
+    try:
+        yield
+    finally:
+        _routes.plain = before
+
+
+def kernels_on(module: nn.Module) -> bool:
+    """Whether ``module``'s forward takes its kernel route: in eval mode,
+    outside :func:`plain_routes`. Decided before any kernel is called."""
+    return not module.training and not getattr(_routes, "plain", False)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:

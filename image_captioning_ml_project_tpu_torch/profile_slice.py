@@ -4,7 +4,7 @@ Run from the repository root on a machine with a CUDA GPU::
 
     python -m image_captioning_ml_project_tpu_torch.profile_slice \\
         [--config flagship|transformer|lstm] [--attention_type TYPE]
-        [--seed N] [--trace PATH] [--train]
+        [--seed N] [--trace PATH] [--train [--scst]]
 
 It decodes synthetic uint8 images through a served model, bf16 weights
 drawn from ``--seed``: ``flagship`` (the default;
@@ -43,7 +43,12 @@ compute over f32 masters, batch 64 of random images and caption ids of
 the decoder's ``max_length``, dropout as configured): the step's wall
 time with the device synchronised and its host enqueue time (median of
 10 after 3 warm-up steps), its forward with the loss, backward and AdamW
-update timed apart, and ``torch.profiler`` over one step as in 3.
+update timed apart, and ``torch.profiler`` over one step as in 3. With
+``--train --scst`` it profiles an SCST step instead (``scst_fused_step``,
+bf16, batch 64 of random images, 5 random references an image and their
+document frequencies): the step's wall time (median of 5 after 2 warm-up
+steps), its rollouts, rewards and update timed apart, the launches of
+#5 and #3 a step, and ``torch.profiler`` over one step.
 
 The card's name, power limit and SM clock (``nvidia-smi``) open and close
 the output.
@@ -290,6 +295,13 @@ def profile_train(cfg, dev, seed, batch=64, trace=None):
           f"{statistics.median(bwd):.2f} ms, AdamW "
           f"{opt:.2f} ms (each synchronised); {batch / wall * 1e3:.1f} "
           f"images/s", flush=True)
+    _profile_step(step, "train step", trace)
+
+
+def _profile_step(step, what, trace=None):
+    """``torch.profiler`` over one call of ``step``: its wall time, the
+    device busy time, the kernel launches and the operations ranked by
+    device time; ``trace`` receives the Chrome trace."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -301,7 +313,7 @@ def profile_train(cfg, dev, seed, batch=64, trace=None):
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")
                and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    print(f"profiled train step: wall {wall * 1e3:.1f} ms (profiler on); "
+    print(f"profiled {what}: wall {wall * 1e3:.1f} ms (profiler on); "
           f"device busy {busy * 1e3:.2f} ms ({100 * busy / wall:.1f}% of "
           f"that wall); kernel launches "
           f"{sum(e.count for e in kernels)}", flush=True)
@@ -310,6 +322,74 @@ def profile_train(cfg, dev, seed, batch=64, trace=None):
     if trace:
         prof.export_chrome_trace(trace)
         print(f"trace written to {trace}", flush=True)
+
+
+def profile_scst(cfg, dev, seed, batch=64, trace=None):
+    """The ``--train --scst`` profile (module docstring)."""
+    from .evaluate.cider_device import build_df_table, encode_references
+    from .ops.beam_decode_stack import beam_decode_stack
+    from .ops.encoder_stack import encoder_stack
+    from .train.trainer import CaptioningTrainer
+
+    cfg.training.use_amp, cfg.training.batch_size = True, batch
+    cfg.output_dir = cfg.checkpoint_dir = os.path.join(
+        os.environ.get("TMPDIR", "/tmp"), "profile_scst")
+    trainer = CaptioningTrainer(cfg, [None] * batch, [], None, device=dev)
+    g = torch.Generator().manual_seed(seed)
+    mc = cfg.model
+    images = torch.randint(0, 256, (batch, cfg.image_size, cfg.image_size,
+                                    3), generator=g,
+                           dtype=torch.uint8).to(dev)
+    # 5 references of 8-16 random words an image, their document
+    # frequencies over the batch
+    refs = [[torch.randint(4, mc.vocab_size, (int(n),), generator=g).tolist()
+             for n in torch.randint(8, 17, (5,), generator=g)]
+            for _ in range(batch)]
+    specials = (mc.pad_token_id, mc.bos_token_id, mc.eos_token_id)
+    trainer._cider_df = build_df_table(refs, special_ids=specials,
+                                       device=dev)
+    ref_tokens, ref_valid = encode_references(refs, 5,
+                                              mc.decoder.max_length)
+    parts = {"rollouts": [], "rewards": [], "update": []}
+    state = {}
+
+    def rollouts():
+        state["rollouts"] = trainer.rollout_step(
+            trainer.rollout_model(), images,
+            trainer._rollout_generator(trainer.step))
+
+    def rewards():
+        sampled, _, greedy = state["rollouts"]
+        state["adv"] = trainer.scst_rewards(sampled, greedy, ref_tokens,
+                                            ref_valid)[2]
+
+    def update():
+        sampled, mask, _ = state["rollouts"]
+        trainer.rl_update_step(images, sampled, mask, state["adv"])
+
+    def step():
+        trainer.scst_fused_step(images, ref_tokens, ref_valid)
+
+    for _ in range(2):
+        step()
+    wall = _median_ms(step, 5)
+    for _ in range(5):
+        for name, fn in (("rollouts", rollouts), ("rewards", rewards),
+                         ("update", update)):
+            parts[name].append(_median_ms(fn, 1))
+    ms = {k: statistics.median(v) for k, v in parts.items()}
+    before = (encoder_stack.launches, beam_decode_stack.launches)
+    step()
+    torch.cuda.synchronize()
+    print(f"scst step B={batch} (bf16, device CIDEr, max length "
+          f"{cfg.inference.max_length}): {wall:.2f} ms with sync (median "
+          f"of 5), {batch / wall * 1e3:.1f} images/s; timed apart rollouts "
+          f"{ms['rollouts']:.2f} ms, rewards {ms['rewards']:.2f} ms, update "
+          f"{ms['update']:.2f} ms (each synchronised); kernels a step: "
+          f"encoder_stack {encoder_stack.launches - before[0]}, "
+          f"beam_decode_stack {beam_decode_stack.launches - before[1]}",
+          flush=True)
+    _profile_step(step, "scst step", trace)
 
 
 def main(argv=None):
@@ -326,6 +406,9 @@ def main(argv=None):
     parser.add_argument("--train", action="store_true",
                         help="profile a bf16 cross-entropy training step "
                              "of batch 64 instead of the decode")
+    parser.add_argument("--scst", action="store_true",
+                        help="with --train: profile a bf16 SCST step "
+                             "(rollouts, device CIDEr, update) instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_slice: no CUDA device")
@@ -338,8 +421,11 @@ def main(argv=None):
     print(f"{args.config}: {configuration(cfg)}", flush=True)
     cfg.seed = args.seed
     dev = torch.device("cuda:0")
+    if args.scst and not args.train:
+        parser.error("--scst profiles a training step: add --train")
     if args.train:
-        profile_train(cfg, dev, args.seed, trace=args.trace)
+        (profile_scst if args.scst else profile_train)(
+            cfg, dev, args.seed, trace=args.trace)
         print(card, flush=True)
         return
     model = load_model(cfg, dev)

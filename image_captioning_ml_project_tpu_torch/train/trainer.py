@@ -1,10 +1,10 @@
-"""Training engine of the port: cross-entropy training, validation with
-caption metrics, checkpoints.
+"""Training engine of the port: cross-entropy training, SCST fine-tuning
+with on-device CIDEr rewards, validation with caption metrics, checkpoints.
 
-Counterpart of the cross-entropy half of ``image_captioning_ml_project_tpu.
-train.trainer.CaptioningTrainer``, with the same construction surface,
-schedule horizon, logging cadence, validation and checkpoint policy
-(best val CIDEr, rolling mid-epoch step checkpoints, full resume):
+Counterpart of ``image_captioning_ml_project_tpu.train.trainer.
+CaptioningTrainer``, with the same construction surface, schedule horizon,
+logging cadence, validation and checkpoint policy (best val CIDEr, rolling
+mid-epoch step checkpoints, full resume):
 
 * the state is f32 master weights (the model's parameters and the loss's
   ITM head and projections), the ResNet's BatchNorm statistics (buffers of
@@ -18,16 +18,32 @@ schedule horizon, logging cadence, validation and checkpoint policy
   draws what the uninterrupted one would have drawn. No kernel runs in a
   training step: the kernels have no backward, and the model's training
   mode routes around every one of them;
+* epochs from ``rl_start_epoch`` (with ``use_rl``) add an SCST pass after
+  the CE pass. Each step (:meth:`scst_fused_step`) is three parts that can
+  be called apart: :meth:`rollout_step` (a sampled and a greedy decode
+  from one ``init_cache``, through the kernels, on :meth:`rollout_model`),
+  :meth:`scst_rewards` (per-sample CIDEr-D on the device,
+  :mod:`..evaluate.cider_device`) and :meth:`rl_update_step` (the
+  REINFORCE loss with the greedy reward as baseline, then one AdamW step).
+  The REINFORCE forward is the model's eval numerics (no dropout,
+  BatchNorm on its running statistics) with gradients on, as the JAX
+  trainer differentiates ``apply(..., train=False)``: it runs inside
+  :func:`..models.layers.plain_routes`, so no kernel is entered. The
+  rollouts draw from a generator keyed on the step (stream 2 beside
+  dropout's 0 and ITM's 1), so a resumed run samples what the
+  uninterrupted one would have. With another reward than CIDEr, or
+  ``rl_on_device_reward`` off, the rollouts are decoded to text and scored
+  on the host (:meth:`_rewards`);
 * decoding (validation here, and the server after a reload) runs on
   :meth:`eval_state`: a :func:`..models.captioning_model.load_model` copy
   of the current masters, cast once and stacked for the kernels, in eval
   mode. It is built anew at each call, so it can never hold stale
-  weights.
+  weights. The SCST rollouts instead build one per pass and copy the
+  masters into it in place before each step (:meth:`rollout_model`).
 
 Not yet ported, and raising ``NotImplementedError`` naming their
-``ROADMAP.md`` item: SCST epochs (``use_rl`` from ``rl_start_epoch``), a
-curriculum sampler, CLIP reranking in validation, object-region inputs,
-and a device mesh.
+``ROADMAP.md`` item: a curriculum sampler, CLIP reranking in validation,
+object-region inputs, and a device mesh.
 """
 
 from __future__ import annotations
@@ -42,21 +58,22 @@ import torch
 from ..config import Config, EncoderType
 from ..data.coco import iterate_batches
 from ..data.pipeline import prefetch
-from ..evaluate.metrics import calculate_metrics
-from ..inference.decoding import decode
+from ..evaluate.cider_device import (build_df_table, encode_references,
+                                     per_sample_cider_device)
+from ..evaluate.metrics import (bleu, calculate_metrics, meteor_lite,
+                                metric_tokenize, per_sample_cider,
+                                per_sample_spice, rouge_l)
+from ..inference.decoding import (_map, decode, greedy_decode,
+                                  sample_decode)
 from ..models.captioning_model import (ImageCaptioningModel,
                                        build_train_model, load_model)
-from ..models.layers import dropout_generator
+from ..models.layers import dropout_generator, plain_routes
 from ..utils.amp import cast_for_compute, castable_parameters
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logging import MetricLogger, setup_logging
 from ..utils.rng import fold_in, generator
 from .losses import CombinedLoss, shifted_cross_entropy
 from .optim import create_optimizer
-
-_SCST = ("SCST fine-tuning is not yet ported to PyTorch (ROADMAP.md Queue "
-         "1 item 8: SCST and on-device CIDEr)")
-
 
 def _not_ported(what: str, items: str) -> NotImplementedError:
     word = "items" if " " in items else "item"
@@ -79,7 +96,7 @@ def _init_loss(loss_mod: CombinedLoss, seed: int) -> None:
 
 
 class CaptioningTrainer:
-    """Cross-entropy trainer on ``device`` (``"cuda"`` unless the caller
+    """CE and SCST trainer on ``device`` (``"cuda"`` unless the caller
     passes the CPU, as the tests do). ``params`` is the JAX package's
     variable tree to start from; without it the weights are drawn from
     ``config.seed`` (:func:`..params.init_flax_params`)."""
@@ -159,6 +176,12 @@ class CaptioningTrainer:
             tc, self.total_steps, self._named_params())
         self.step = 0
         self._rng_seed = config.seed + 1
+        # SCST: the train references and their CIDEr document frequencies
+        # (built at the first scst_references call) and the rollouts'
+        # decode model (built once per pass, refreshed in place before
+        # each step)
+        self._cider_refs = self._cider_df = None
+        self._rollout = None
 
     # ------------------------------------------------------------------
     # state
@@ -280,15 +303,25 @@ class CaptioningTrainer:
         self.model.train()
         self.loss_mod.train()
         drop_gen, itm_gen = self._step_generators(self.step)
-        params = self._named_params()
-        for p in params.values():
-            p.grad = None
+        self._zero_grads()
         with torch.enable_grad(), dropout_generator(drop_gen):
             losses = self._forward_loss(images, captions, caption_mask,
                                         itm_gen)
             losses["total_loss"].backward()
-        # a parameter the loss does not reach has a zero gradient, as in
-        # jax.grad: it still takes AdamW's decay
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics.update(self._apply_gradients())
+        return metrics
+
+    def _zero_grads(self) -> None:
+        for p in self._named_params().values():
+            p.grad = None
+
+    def _apply_gradients(self) -> Dict[str, torch.Tensor]:
+        """One AdamW step on the gradients the last backward left on the
+        parameters, then the step count; returns ``learning_rate`` and
+        ``grad_norm``. A parameter the loss does not reach has a zero
+        gradient, as in ``jax.grad``: it still takes AdamW's decay."""
+        params = self._named_params()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
         lr = float(self.lr_schedule(self.step))
@@ -296,10 +329,8 @@ class CaptioningTrainer:
         for p in params.values():
             p.grad = None
         self.step += 1
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["learning_rate"] = torch.tensor(lr, dtype=torch.float32)
-        metrics["grad_norm"] = norm
-        return metrics
+        return {"learning_rate": torch.tensor(lr, dtype=torch.float32),
+                "grad_norm": norm}
 
     def eval_state(self) -> ImageCaptioningModel:
         """The decode model of the current masters: a
@@ -359,9 +390,6 @@ class CaptioningTrainer:
 
     def train(self):
         tc = self.config.training
-        if any(self._needs_scst(e)
-               for e in range(self.start_epoch, tc.num_epochs)):
-            raise NotImplementedError(_SCST)
         self.logger.info("Starting training...")
         for epoch in range(self.start_epoch, tc.num_epochs):
             self.logger.info("Epoch %d/%d", epoch + 1, tc.num_epochs)
@@ -377,7 +405,7 @@ class CaptioningTrainer:
                 "epoch": epoch + 1, "train_loss": float(train_loss),
                 "val_loss": float(val_loss),
                 "val_metrics": {k: float(v) for k, v in val_metrics.items()},
-                "scst": False})
+                "scst": self._needs_scst(epoch)})
             is_best = val_metrics.get("CIDEr", 0.0) > self.best_val_score
             if is_best:
                 self.best_val_score = val_metrics.get("CIDEr", 0.0)
@@ -437,9 +465,21 @@ class CaptioningTrainer:
 
     def _train_epoch(self, epoch: int, start_batch: int = 0,
                      start_phase: str = "ce") -> float:
-        if start_phase == "scst" or self._needs_scst(epoch):
-            raise NotImplementedError(_SCST)
+        """The CE pass, then the SCST pass where the epoch needs one.
+        Returns the CE loss, or the RL loss when the epoch resumed inside
+        its SCST pass (the loss that was trained)."""
         tc = self.config.training
+        if start_phase == "scst":
+            # resumed inside the SCST pass: this epoch's CE pass already ran
+            if self._needs_scst(epoch):
+                return self._train_reinforcement_learning(
+                    epoch, start_batch=start_batch)
+            self.logger.warning(
+                "resumed a '%s'-phase checkpoint for epoch %d but the "
+                "current config has use_rl=%s rl_start_epoch=%d: no "
+                "training pass remains for this epoch", start_phase,
+                epoch + 1, tc.use_rl, tc.rl_start_epoch)
+            return 0.0
         save_steps = getattr(self.config, "save_every_steps", 0)
         meter = MetricLogger()
         epoch_batches = max(len(self.train_dataset) // tc.batch_size, 1)
@@ -479,7 +519,281 @@ class CaptioningTrainer:
         for v in (torch.stack(pending_losses).float().cpu().numpy()
                   if pending_losses else []):
             meter.update(total_loss=float(v))
+        if self._needs_scst(epoch):
+            self._train_reinforcement_learning(epoch)
         return meter.averages().get("total_loss", 0.0)
+
+    # ------------------------------------------------------------------
+    # SCST
+    # ------------------------------------------------------------------
+
+    def _rollout_generator(self, step: int) -> torch.Generator:
+        """The rollouts' sampling generator of ``step`` on the trainer's
+        device: stream 2 of the step's seed (dropout is 0, ITM 1)."""
+        return generator(fold_in(fold_in(self._rng_seed, step), 2),
+                         self.device)
+
+    def rollout_model(self) -> ImageCaptioningModel:
+        """The rollouts' decode model on the current masters: an
+        :meth:`eval_state` model built at the first call of an SCST pass,
+        and at every later call the masters (cast) and the BatchNorm
+        statistics copied into it in place. Its parameters are views of the
+        kernels' stacked operands, so the stacks follow."""
+        if self._rollout is None:
+            model = self.eval_state()
+            mine = dict(self.model.named_parameters())
+            mine.update(self.model.named_buffers())
+            theirs = list(model.named_parameters()) \
+                + list(model.named_buffers())
+            self._rollout = (model, [t for _, t in theirs],
+                             [mine[n].detach() for n, _ in theirs])
+            return model
+        model, dst, src = self._rollout
+        with torch.no_grad():
+            torch._foreach_copy_(dst, src)
+        return model
+
+    @torch.no_grad()
+    def rollout_step(self, model: ImageCaptioningModel, images,
+                     gen: torch.Generator
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """SCST rollouts on ``model`` (:meth:`rollout_model`): one sampled
+        and one greedy decode from one shared ``init_cache``: (sampled
+        tokens [B, L], the sampler's token mask [B, L], greedy tokens
+        [B, L]). Under ``no_grad``, not ``inference_mode``: the REINFORCE
+        forward saves the sampled ids for its backward."""
+        images = self._prepare_inputs(self._to_device(images))
+        mc = self.config.model
+        max_length = self.config.inference.max_length
+        B = images.shape[0]
+        state = model.init_cache(images, max_length)
+        # the decodes append to their caches in place: the sampler gets
+        # copies, the greedy decode the originals; the per-image constants
+        # are shared
+        forked = {k: v if k == "shared" else _map(torch.clone, v)
+                  for k, v in state.items()}
+        sample = sample_decode(model.step, forked, gen, B, mc.bos_token_id,
+                               mc.eos_token_id, mc.pad_token_id, max_length)
+        greedy = greedy_decode(model.step, state, B, mc.bos_token_id,
+                               max_length, eos_token_id=mc.eos_token_id,
+                               pad_token_id=mc.pad_token_id)
+        return sample.tokens, sample.mask, greedy
+
+    def _cider_specials(self) -> Tuple[int, int, int]:
+        mc = self.config.model
+        return (mc.pad_token_id, mc.bos_token_id, mc.eos_token_id)
+
+    def scst_references(self, image_ids) -> Tuple[np.ndarray, np.ndarray]:
+        """The train references of ``image_ids`` packed for
+        :meth:`scst_rewards` (:func:`..evaluate.cider_device.
+        encode_references`: token ids [B, R, L], -1 past each end, and the
+        valid mask [B, R]; an image without references gets one EOS). The
+        first call also builds the train set's CIDEr document frequencies
+        on the trainer's device."""
+        mc = self.config.model
+        ref_len = mc.decoder.max_length
+        if self._cider_df is None:
+            self._cider_refs = self._tokenized_refs_by_image_id(ref_len)
+            self._cider_df = build_df_table(
+                list(self._cider_refs.values()),
+                special_ids=self._cider_specials(), device=self.device)
+        refs = [self._cider_refs.get(int(i), [[mc.eos_token_id]])
+                for i in image_ids]
+        # the dataset's reference budget, which validation batches carry too
+        max_refs = getattr(self.train_dataset, "max_ref_captions", 5)
+        return encode_references(refs, max_refs, ref_len)
+
+    @torch.no_grad()
+    def scst_rewards(self, sampled, greedy, ref_tokens, ref_valid
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Per-sample CIDEr-D of the sampled and greedy tokens against
+        references packed by :meth:`scst_references`, on the device, and
+        the advantages ``sample - greedy``: three [B] float32 tensors."""
+        ref_tokens = self._to_device(ref_tokens)
+        ref_valid = self._to_device(ref_valid)
+        specials = self._cider_specials()
+        sample_r = per_sample_cider_device(self._to_device(sampled),
+                                           ref_tokens, ref_valid,
+                                           self._cider_df, specials)
+        greedy_r = per_sample_cider_device(self._to_device(greedy),
+                                           ref_tokens, ref_valid,
+                                           self._cider_df, specials)
+        return sample_r, greedy_r, sample_r - greedy_r
+
+    def _reinforce_loss(self, images, sampled, token_mask, advantages
+                        ) -> torch.Tensor:
+        """``rl_weight * -sum(adv * logp(sampled) * mask) / max(sum(mask),
+        1)`` over positions 1.., the sampler's mask marking the sampled
+        tokens (EOS included), on the model's eval numerics with gradients
+        on (plain routes: no kernel)."""
+        self.model.eval()
+        try:
+            with torch.enable_grad(), plain_routes():
+                out = self._apply(self.model, "model", images, sampled)
+                logp = torch.log_softmax(out["logits"].float()[:, :-1],
+                                         dim=-1)
+                tok_logp = logp.gather(-1, sampled[:, 1:, None])[..., 0]
+                mask = token_mask[:, 1:].float()
+                loss = -(advantages[:, None] * tok_logp * mask).sum() \
+                    / mask.sum().clamp_min(1.0)
+                return self.config.training.rl_weight * loss
+        finally:
+            self.model.train()
+
+    def rl_update_step(self, images, sampled, sample_mask, advantages
+                       ) -> Dict[str, torch.Tensor]:
+        """The REINFORCE update on given rollouts: sampled tokens and their
+        mask [B, L], advantages [B] (host arrays or tensors); one AdamW
+        step. Returns ``rl_loss``, ``learning_rate`` and ``grad_norm`` as
+        device scalars."""
+        images = self._prepare_inputs(self._to_device(images))
+        sampled = self._to_device(sampled).long()
+        sample_mask = self._to_device(sample_mask)
+        advantages = self._to_device(advantages).float()
+        self._zero_grads()
+        loss = self._reinforce_loss(images, sampled, sample_mask,
+                                    advantages)
+        with torch.enable_grad():
+            loss.backward()
+        metrics = {"rl_loss": loss.detach()}
+        metrics.update(self._apply_gradients())
+        return metrics
+
+    def scst_fused_step(self, images, ref_tokens, ref_valid,
+                        rollouts=None) -> Dict[str, torch.Tensor]:
+        """One SCST step on the device: the rollouts (``rollouts``, a
+        (sampled, mask, greedy) triple, stands in for them), the CIDEr
+        rewards, the update. Returns ``rl_loss``, ``reward``,
+        ``greedy_reward`` and ``adv_abs`` (the mean |advantage|: 0 iff the
+        step's gradient is identically zero), ``learning_rate`` and
+        ``grad_norm``, as device scalars."""
+        if rollouts is None:
+            rollouts = self.rollout_step(
+                self.rollout_model(), images,
+                self._rollout_generator(self.step))
+        sampled, mask, greedy = rollouts
+        sample_r, greedy_r, adv = self.scst_rewards(sampled, greedy,
+                                                    ref_tokens, ref_valid)
+        metrics = self.rl_update_step(images, sampled, mask, adv)
+        metrics.update(reward=sample_r.mean(), greedy_reward=greedy_r.mean(),
+                       adv_abs=adv.abs().mean())
+        return metrics
+
+    def _references_by_image_id(self) -> Dict[int, list]:
+        refs: Dict[int, list] = {}
+        for ex in self.train_dataset.examples:
+            refs.setdefault(ex["image_id"], []).append(ex["caption"])
+        return refs
+
+    def _tokenized_refs_by_image_id(self, max_length: int) -> Dict[int, list]:
+        """Token-id reference lists per image (the device-CIDEr path)."""
+        refs: Dict[int, list] = {}
+        for ex in self.train_dataset.examples:
+            ids, mask = self.tokenizer.encode(ex["caption"], max_length)
+            refs.setdefault(ex["image_id"], []).append(
+                ids[: int(mask.sum())].tolist())
+        return refs
+
+    def _train_reinforcement_learning(self, epoch: int,
+                                      start_batch: int = 0) -> float:
+        """The epoch's SCST pass; returns its mean RL loss."""
+        tc = self.config.training
+        try:
+            if tc.rl_reward.lower() == "cider" and tc.rl_on_device_reward:
+                return self._train_scst_on_device(epoch, start_batch)
+            return self._train_scst_host_reward(epoch, start_batch)
+        finally:
+            # validation builds its own decode model
+            self._rollout = None
+
+    def _train_scst_on_device(self, epoch: int, start_batch: int = 0
+                              ) -> float:
+        """SCST pass with CIDEr rewards on the device."""
+        self.logger.info("Running SCST (on-device CIDEr) for epoch %d",
+                         epoch + 1)
+        meter = MetricLogger()
+        save_steps = getattr(self.config, "save_every_steps", 0)
+        for i, batch in enumerate(self._train_batches(epoch, start_batch),
+                                  start=start_batch):
+            ref_tokens, ref_valid = self.scst_references(
+                batch["image_id"].tolist())
+            metrics = self.scst_fused_step(self._batch_inputs(batch),
+                                           ref_tokens, ref_valid)
+            meter.update(**{k: float(metrics[k]) for k in (
+                "rl_loss", "reward", "greedy_reward", "adv_abs")})
+            if save_steps and (i + 1) % save_steps == 0:
+                self.save_step_checkpoint(epoch, i + 1, "scst")
+            if (i + 1) % self.config.log_every == 0:
+                self.logger.info("SCST batch %d: %s", i + 1, meter)
+        return meter.averages().get("rl_loss", 0.0)
+
+    def _train_scst_host_reward(self, epoch: int, start_batch: int = 0
+                                ) -> float:
+        """SCST pass with the rollouts decoded to text and scored on the
+        host by the configured reward. Returns the mean RL loss, as the
+        on-device pass does (the JAX trainer's returns None, and its resume
+        inside this pass then fails on the epoch's loss)."""
+        self.logger.info("Running SCST for epoch %d", epoch + 1)
+        refs_by_id = self._references_by_image_id()
+        meter = MetricLogger()
+        save_steps = getattr(self.config, "save_every_steps", 0)
+        for i, batch in enumerate(self._train_batches(epoch, start_batch),
+                                  start=start_batch):
+            images = self._batch_inputs(batch)
+            sampled, sample_mask, greedy = self.rollout_step(
+                self.rollout_model(), images,
+                self._rollout_generator(self.step))
+            sample_texts = [self.tokenizer.decode(t, skip_special_tokens=True)
+                            for t in sampled.cpu().numpy()]
+            greedy_texts = [self.tokenizer.decode(t, skip_special_tokens=True)
+                            for t in greedy.cpu().numpy()]
+            gt = [refs_by_id.get(iid, [""])
+                  for iid in batch["image_id"].tolist()]
+            sample_r = self._rewards(sample_texts, gt)
+            greedy_r = self._rewards(greedy_texts, gt)
+            advantages = torch.as_tensor(
+                np.asarray(sample_r - greedy_r, dtype=np.float32))
+            metrics = self.rl_update_step(images, sampled, sample_mask,
+                                          advantages)
+            meter.update(rl_loss=float(metrics["rl_loss"]),
+                         reward=float(np.mean(sample_r)))
+            if save_steps and (i + 1) % save_steps == 0:
+                self.save_step_checkpoint(epoch, i + 1, "scst")
+            if (i + 1) % self.config.log_every == 0:
+                self.logger.info("SCST batch %d: %s", i + 1, meter)
+        return meter.averages().get("rl_loss", 0.0)
+
+    def _rewards(self, texts, refs) -> np.ndarray:
+        """Per-sample rewards of the configured metric on the host: CIDEr-D,
+        BLEU-4, METEOR (needs nltk, and raises without it), ROUGE-L, or
+        SPICE (pycocoevalcap's Java scorer; CIDEr with one warning where it
+        cannot run)."""
+        reward_type = self.config.training.rl_reward.lower()
+        if reward_type == "cider":
+            return per_sample_cider(texts, refs)
+        gen = [metric_tokenize(t) for t in texts]
+        rr = [[metric_tokenize(r) for r in rs] for rs in refs]
+        if reward_type == "bleu":
+            _, ps = bleu(gen, rr)
+            return ps[:, 3]
+        if reward_type == "meteor":
+            _, ps = meteor_lite(gen, rr)
+            return ps
+        if reward_type == "rouge":
+            _, ps = rouge_l(gen, rr)
+            return ps
+        if reward_type == "spice":
+            try:
+                return per_sample_spice(texts, refs)
+            except Exception as e:  # pycocoevalcap or Java missing
+                if not getattr(self, "_spice_warned", False):
+                    self._spice_warned = True
+                    self.logger.warning(
+                        "SPICE reward unavailable (%s: pycocoevalcap SPICE "
+                        "needs Java); falling back to per-sample CIDEr", e)
+                return per_sample_cider(texts, refs)
+        self.logger.warning("Unknown reward '%s', using CIDEr", reward_type)
+        return per_sample_cider(texts, refs)
 
     # ------------------------------------------------------------------
     # validation

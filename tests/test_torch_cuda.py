@@ -1054,3 +1054,91 @@ def test_train_step_on_the_card_matches_the_cpu(dev, tmp_path, family):
             assert float(a[key]) == pytest.approx(float(b[key]), rel=1e-5)
         assert float(a["grad_norm"]) == pytest.approx(float(b["grad_norm"]),
                                                       rel=1e-4)
+
+
+def _launches():
+    return {k.__name__: k.launches for k in _KERNELS}
+
+
+def test_scst_step_launches_kernels_in_the_rollouts_only(dev, tmp_path):
+    """An SCST step of a tiny flagship (bf16) on the card: the rollouts
+    launch #5 once and #3 once a decode step of each of their two decodes,
+    and nothing else; the rewards and the update launch no kernel; the
+    rewards are finite."""
+    from image_captioning_ml_project_tpu_torch.evaluate.cider_device import (
+        build_df_table, encode_references)
+    from image_captioning_ml_project_tpu_torch.train.trainer import (
+        CaptioningTrainer)
+
+    cfg = _train_config(tmp_path, ("clip", "gpt2"))
+    cfg.model.dtype, cfg.training.use_amp = "bfloat16", True
+    t = CaptioningTrainer(cfg, [None] * 2, [], None, device=dev)
+    g = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (2, 32, 32, 3), generator=g,
+                           dtype=torch.uint8).to(dev)
+    refs = [[torch.randint(3, 50, (6,), generator=g).tolist()]
+            for _ in range(2)]
+    t._cider_df = build_df_table(refs, device=dev)
+    ref_tokens, ref_valid = encode_references(refs, 5, 16)
+    L = cfg.inference.max_length
+    before = _launches()
+    sampled, mask, greedy = t.rollout_step(
+        t.rollout_model(), images, t._rollout_generator(t.step))
+    rolled = {k: v - before[k] for k, v in _launches().items()}
+    assert rolled["encoder_stack"] == 1
+    assert 2 <= rolled["beam_decode_stack"] <= 2 * (L - 1)
+    assert not {k: v for k, v in rolled.items()
+                if v and k not in ("encoder_stack", "beam_decode_stack")}
+    before = _launches()
+    sample_r, greedy_r, adv = t.scst_rewards(sampled, greedy, ref_tokens,
+                                             ref_valid)
+    m = t.rl_update_step(images, sampled, mask, adv)
+    assert _launches() == before
+    assert sample_r.is_cuda and torch.isfinite(sample_r).all()
+    assert math.isfinite(float(m["rl_loss"]))
+
+
+def test_lstm_reinforce_forward_and_backward_skip_the_kernels(dev, tmp_path):
+    """A tiny ResNet + LSTM with ``use_pallas`` on, soft and multi-head
+    attention: its REINFORCE update on the card enters neither #8 nor #7
+    (the eval forward under autograd takes the plain route), and matches
+    the CPU's loss within 1e-5 relative."""
+    from image_captioning_ml_project_tpu_torch.train.trainer import (
+        CaptioningTrainer)
+
+    g = torch.Generator().manual_seed(1)
+    images = torch.randint(0, 256, (2, 32, 32, 3), generator=g,
+                           dtype=torch.uint8)
+    sampled = torch.randint(3, 1000, (2, 8), generator=g)
+    mask = torch.ones(2, 8, dtype=torch.bool)
+    adv = torch.tensor([0.5, -1.0])
+    for attention in (AttentionType.SOFT, AttentionType.MULTI_HEAD):
+        cfg = _train_config(tmp_path, ("resnet", "lstm"))
+        cfg.model.attention.attention_type = attention
+        losses = []
+        for device in (dev, "cpu"):
+            t = CaptioningTrainer(cfg, [None] * 2, [], None, device=device)
+            before = _launches()
+            losses.append(float(t.rl_update_step(images, sampled, mask,
+                                                 adv)["rl_loss"]))
+            assert _launches() == before, attention
+        assert losses[0] == pytest.approx(losses[1], rel=1e-5), attention
+
+
+def test_ngram_hashes_on_the_card_equal_the_host_hash(dev):
+    """The device n-gram hash on the card, bit-equal to
+    ``ngram_hashes_np`` on every in-range window (the -1 sentinel
+    included) for n = 1..4."""
+    from image_captioning_ml_project_tpu_torch.ops.ngram import (
+        ngram_hashes, ngram_hashes_np)
+
+    g = torch.Generator().manual_seed(2)
+    toks = torch.randint(-1, 50257, (4, 50), generator=g)
+    toks[0, :5] = -1
+    for n in range(1, 5):
+        h, v = ngram_hashes(toks.to(dev), n, (toks >= 0).to(dev))
+        assert h.is_cuda
+        for row, hashes in zip(toks.numpy(), h.cpu().numpy()):
+            host = ngram_hashes_np(row.astype(np.uint32), n)
+            np.testing.assert_array_equal(
+                hashes[:len(host)].astype(np.uint32), host)

@@ -1,8 +1,8 @@
 """The port imports no JAX: in a fresh interpreter, importing every module
 of ``image_captioning_ml_project_tpu_torch`` (the trainer, its losses,
 optimizer, checkpoints, data and metrics included) and building and
-running a tiny model of each ported family, and a training step and
-checkpoint of each, leaves ``jax``, ``flax``, ``optax``, ``orbax``,
+running a tiny model of each ported family, and a training step, an SCST
+update and a checkpoint of each, leaves ``jax``, ``flax``, ``optax``, ``orbax``,
 ``triton`` and the JAX package ``image_captioning_ml_project_tpu`` out of
 ``sys.modules``; no
 source of the port names ``triton`` in an import (its kernels are CUDA C++
@@ -55,6 +55,9 @@ for make in CONFIGS.values():
     t.train_step(torch.zeros(2, 64, 64, 3, dtype=torch.uint8),
                  torch.ones(2, 5, dtype=torch.long),
                  torch.ones(2, 5, dtype=torch.long))
+    t.rl_update_step(torch.zeros(2, 64, 64, 3, dtype=torch.uint8),
+                     torch.ones(2, 5, dtype=torch.long),
+                     torch.ones(2, 5, dtype=torch.bool), torch.ones(2))
     t.save_checkpoint(0)
     t.ckpt.wait_until_finished()
 bad = sorted(m for m in sys.modules

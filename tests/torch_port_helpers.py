@@ -7,6 +7,7 @@ trainer's state. Inputs are made with numpy from a seed and fed to both."""
 
 import functools
 import json
+import math
 import os
 
 import jax
@@ -194,3 +195,99 @@ def bridge_state(jt):
     return train_state_from_flax({"params": s.params,
                                   "batch_stats": s.batch_stats,
                                   "opt_state": s.opt_state, "step": s.step})
+
+
+# the trainer tests' tolerances (tests/test_torch_trainer.py's docstring)
+LOSS_RTOL = 1e-5
+PARAM_ATOL, PARAM_RTOL = 1e-5, 1e-4
+MOMENT_ATOL, MOMENT_RTOL = 1e-7, 1e-3
+# below this |gradient| in a step, an entry's AdamW step follows rounding
+SMALL_GRADIENT = 1e-7
+B1, B2 = 0.9, 0.999
+
+
+def adam_step_bound(count):
+    """The largest |m / sqrt(v)| of bias-corrected Adam moments after
+    ``count`` gradients: by Cauchy-Schwarz, sqrt(sum_k a_k^2 / c_k) *
+    sqrt(1 - b2^count) / (1 - b1^count) with a_k = (1 - b1) b1^k and
+    c_k = (1 - b2) b2^k; 1 at count 1, 1.0014 at 2, 1.0037 at 3."""
+    s = sum(((1 - B1) * B1 ** k) ** 2 / ((1 - B2) * B2 ** k)
+            for k in range(count))
+    return math.sqrt(s) * math.sqrt(1 - B2 ** count) / (1 - B1 ** count)
+
+
+def record_gradients(trainer):
+    """[{optimizer name: |gradient|} for each step the trainer takes from
+    now on], filled as it takes them."""
+    seen = []
+    step = trainer.optimizer.step
+
+    def recording(grads):
+        seen.append({n: g.detach().abs().clone() for n, g in grads.items()})
+        return step(grads)
+
+    trainer.optimizer.step = recording
+    return seen
+
+
+def loose_entries(port_grads, jax_grads):
+    """{optimizer name: mask of the entries whose gradient on either
+    trainer lies in (0, SMALL_GRADIENT) in some step}."""
+    out = {}
+    for mine, theirs in zip(port_grads, jax_grads):
+        for n, a in mine.items():
+            top = torch.maximum(a, theirs[n].to(a.dtype))
+            small = (top > 0) & (top < SMALL_GRADIENT)
+            out[n] = small if n not in out else out[n] | small
+    return out
+
+
+def assert_state_close(port, ref, before, loose, lrs, weight_decay, what):
+    """Every leaf of the port trainer's state against a bridged JAX state
+    (flat dicts of tensors by name). The ``loose`` parameter entries
+    instead: each trainer's move from ``before`` (the state both started
+    the steps from) within the bias-corrected Adam steps at the learning
+    rates ``lrs`` plus their decay, and the two within twice the Adam
+    steps of each other."""
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out.update(flat(v, f"{prefix}{k}/"))
+            elif isinstance(v, torch.Tensor):
+                out[prefix + k] = v
+        return out
+
+    counts = range(before["opt_state"]["count"] + 1,
+                   before["opt_state"]["count"] + 1 + len(lrs))
+    adam = sum(lr * adam_step_bound(c) for lr, c in zip(lrs, counts))
+    mine, theirs, start = flat(port), flat(ref), flat(before)
+    assert set(mine) == set(theirs), sorted(set(mine) ^ set(theirs))
+    for name, want in theirs.items():
+        got, want = mine[name].float().numpy(), want.float().numpy()
+        if name.startswith("params/"):
+            group, param = name.split("/")[1:]
+            small = loose[f"{group}.{param}"].numpy()
+            p0 = start[name].float().numpy()[small]
+            # the decay of |p| <= |p0| + adam over the steps, and f32
+            # rounding of the bound's own terms
+            reach = (adam + sum(lrs) * weight_decay
+                     * (np.abs(p0) + adam)) * (1 + 1e-5) + 1e-9
+            for side, v in (("port", got), ("JAX", want)):
+                excess = np.abs(v[small] - p0) - reach
+                assert excess.size == 0 or excess.max() <= 0, (
+                    f"{what}: leaf {name}: the {side} trainer moved an "
+                    f"entry whose gradient is under {SMALL_GRADIENT} "
+                    f"{excess.max():.3e} beyond the Adam steps' bound")
+            np.testing.assert_allclose(
+                got[small], want[small], atol=2 * adam, rtol=0,
+                err_msg=f"{what}: leaf {name}, its entries whose gradient "
+                        f"lies under {SMALL_GRADIENT}")
+            got, want = got[~small], want[~small]
+        moment = name.startswith("opt_state/")
+        np.testing.assert_allclose(
+            got, want, atol=MOMENT_ATOL if moment else PARAM_ATOL,
+            rtol=MOMENT_RTOL if moment else PARAM_RTOL,
+            err_msg=f"{what}: leaf {name}")
+    assert port["opt_state"]["count"] == ref["opt_state"]["count"]
+    assert port["step"] == ref["step"]
