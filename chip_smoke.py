@@ -17,15 +17,16 @@ prints no result line:
    register and spill lines (``sdpa`` must not spill);
 3. kernels: each of the eight kernels against its plain PyTorch version
    on the card, at the served shapes of each family that runs it (the
-   beam-decode attention kernels prefix-free for the Transformer decoder
-   and behind a 10-row prefix for GPT-2; the LSE at the candidate step's
-   5, 40 and 320 rows over vocabularies of 10000, 30000 and 50257 in
+   CLIP tower at 5 and 64 images; the beam-decode attention kernels
+   prefix-free for the Transformer decoder and behind a 10-row prefix for
+   GPT-2; the LSE at the candidate step's
+   5, 25, 40 and 320 rows over vocabularies of 10000, 30000 and 50257 in
    float32, bfloat16 and float16, on a view whose rows start off 16-byte
    boundaries, and twice bit-identical; SDPA at the LSTM's 64 images x 5
    beams over 49 feature rows, unmasked, masked and with one image's keys
    all masked, bf16 on its tensor-core route and float32 on its CUDA-core
-   one, and the additive scores at 1, 8 and 64 images, masked and not, and
-   both at its teacher-forced 20 positions),
+   one, and the additive scores at 1, 5, 8 and 64 images, masked and not,
+   and both at its teacher-forced 20 positions),
    in float32 and bfloat16, with its tolerance. Timed in bf16 (CUDA
    events, median of 30 runs; the device time behind a spin kernel),
    beside the least time the card could take for the same work
@@ -35,9 +36,9 @@ prints no result line:
    decode-step kernels (#1 and #2 prefix-free and behind the prefix, #3,
    #6), the two candidate-step kernels (#4 over each vocabulary, #8) and
    the multi-head attention core (#7, with its teacher-forced shape) are
-   held against their plain versions again and timed at batch 1, 8 and
-   64, the service's buckets (:func:`sweep_decode_kernels`,
-   :func:`sweep_lse`, :func:`sweep_additive`, :func:`sweep_sdpa`;
+   held against their plain versions again and timed at batch 1, 5, 8
+   and 64, the service's buckets and the eval CLI's batch
+   (:func:`sweep_decode_kernels`, :func:`sweep_lse`, :func:`sweep_additive`, :func:`sweep_sdpa`;
    the four decode-step kernels again at the other decodes' shapes: one
    beam with no ancestry (greedy and nucleus decoding) and 6 beams (the
    diverse beam's 3 groups of 2); ``--time-tree DIR`` runs
@@ -131,10 +132,27 @@ prints no result line:
    the rewards or the update; finite rewards and a non-zero advantage; the
    refreshed rollout model's greedy decode token-identical to a fresh
    ``eval_state()``'s; last an epoch's CE and SCST passes through
-   ``_train_epoch``.
+   ``_train_epoch``;
+8. eval and demo, on phase 7's fixture and ``best_model``: the native
+   JPEG loader's build (``native_loader: available``, or the compiler's
+   reason); ``main.evaluate`` on 4 validation images of their own fixture
+   and ``main.demo`` on one, in float32 on the card and on the CPU, the
+   captions and metrics identical, the card's launches counted (#5 once a
+   batch, #3 and #4 once a decode step, nothing else); ``--mode eval``
+   through ``main.main`` in bf16 over the 64 validation images, every image captioned once in
+   ``results.json``, with the launch counters set to 0 just before and
+   read just after: #5 once a batch of 5, #3 and #4 once a decode step,
+   nothing else, the ancestry error word clear; the same with phase 4's
+   full-width CLIP scorer reranking 5 candidates (#5 once more a batch);
+   ``--mode demo`` on one image (its printed caption); one CE epoch of
+   ``main.train`` with ``use_curriculum`` at batch 64, its step count the
+   sampler's; where the native loader built, a JPEG copy of the
+   validation images evaluated with it and with PIL (pixels within 3
+   levels, differing captions' image ids printed). Each eval's pass
+   time, images/s and call time are printed with the card.
 
-The last three lines are the train phase's numbers (JSON), a JSON summary
-of the kernels and ``{"ok": true, "device": {...}}``. Each kernel's entry holds its numbers
+The last three lines are the train and eval phases' numbers (JSON), a
+JSON summary of the kernels and ``{"ok": true, "device": {...}}``. Each kernel's entry holds its numbers
 and launches for the Transformer family where that family runs it, else
 for the flagship, else for the LSTM; the other families', where they have
 their own shape (the LSE over the LSTM's vocabulary of 10000), are under
@@ -143,11 +161,13 @@ ancestry and at 6 beams under ``decode_shapes``, and each kernel's
 launches in the flagship's other decoding options' runs under
 ``decoding_options``, and their launches in the train phase (its
 steps, its validation, the service across the reload, the timed SCST
-steps) under ``training``.
+steps) under ``training``, and in phase 8's eval, reranked eval and
+demo under ``evaluation``.
 """
 
 import argparse
 import copy
+import itertools
 import json
 import math
 import os
@@ -360,8 +380,8 @@ def check_lse_once(torch, what, logits):
 
 
 def check_lse(torch, dev):
-    """#4 at the candidate step's rows of batch 1, 8 and 64 (R = 5, 40,
-    320) over the three vocabularies, in float32, bfloat16 and float16; a
+    """#4 at the candidate step's rows of batch 1, 5, 8 and 64 (R = 5, 25,
+    40, 320) over the three vocabularies, in float32, bfloat16 and float16; a
     bf16 view whose rows start at every offset from a 16-byte boundary; two
     runs bit-identical."""
     from image_captioning_ml_project_tpu_torch.ops.lse import (
@@ -397,7 +417,7 @@ def lse_bound(R, V, item):
 
 
 def sweep_lse(torch, dev, smi):
-    """#4 at batch 1, 8 and 64 (R = 5 B) over each family's vocabulary,
+    """#4 at batch 1, 5, 8 and 64 (R = 5 B) over each family's vocabulary,
     bf16: held against its plain version, then its device time, event time,
     bound and the plain version's time, with the logits L2-warm as the LM
     head leaves them. Uses only the public wrappers (``--time-tree``).
@@ -643,9 +663,11 @@ def check_encoder(torch, dev, results):
     from image_captioning_ml_project_tpu_torch.ops.encoder_stack import (
         encoder_stack, encoder_stack_plain)
 
-    L, B, T, H, NH = 12, 64, 50, 768, 12
+    L, T, H, NH = 12, 50, 768, 12
     g = torch.Generator(device=dev).manual_seed(4567)
-    for dtype in (torch.float32, torch.bfloat16):
+    # the eval CLI's batch of 5 (held only), then the served 64 (timed)
+    for B, dtype in itertools.product((EVAL_BATCH, 64),
+                                      (torch.float32, torch.bfloat16)):
         name = str(dtype)[6:]
         w = _dense_weights(torch, g, dev, dtype, L, H, 4 * H)
         x = torch.randn((B, T, H), generator=g, device=dev).to(dtype)
@@ -655,13 +677,13 @@ def check_encoder(torch, dev, results):
             torch.cuda.synchronize()
             err = check_close(f"encoder {name} [{B}, {T}, {H}]", got, want,
                               name, 1e-4, 8)
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and B == 64:
                 ms, dev_ms = time_ms(torch, lambda: encoder_stack(
                     x, w, num_heads=NH), device=True)
                 plain_ms = time_ms(torch, lambda: encoder_stack_plain(
                     x, w, num_heads=NH))
-        print(f"encoder {name}: output finite={bool(got.isfinite().all())}",
-              flush=True)
+        print(f"encoder {name} B={B}: output finite="
+              f"{bool(got.isfinite().all())}", flush=True)
         check(bool(got.isfinite().all()), "encoder output is not finite")
     print(f"encoder bf16 [{B}, {T}, {H}] x {L} layers: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms (170 MB of weights: above L2, no flush)",
@@ -709,13 +731,14 @@ def check_cross(torch, dev):
     return {"transformer": worst}
 
 
-# the batches the service's buckets give the decode-step kernels
-SWEEP_BATCHES = (1, 8, 64)
+# the batches the service's buckets give the decode-step kernels, and the
+# eval CLI's batch of 5 (inference.num_candidates: phase 8's path)
+SWEEP_BATCHES = (1, 5, 8, 64)
 
 
 def sweep_decode_kernels(torch, dev, smi, K=5, ancestry=True):
     """#1 and #2 (prefix-free and behind GPT-2's 10-row prefix), #3 and #6
-    at batch 1, 8 and 64 of ``K`` beams, through a random beam ancestry or
+    at batch 1, 5, 8 and 64 of ``K`` beams, through a random beam ancestry or
     with none (``ancestry`` False: greedy and nucleus decoding, K = 1),
     bf16, pos 19 of 20: each first held against its
     plain version on the same inputs with the tolerances of the checks
@@ -952,7 +975,7 @@ def sdpa_bound(B, K, Q):
 
 def sweep_sdpa(torch, dev, smi):
     """#7 at the LSTM's served shape (5 beams, one query, 49 keys, 8 heads
-    of 64, masked, bf16) at batch 1, 8 and 64, and at the teacher-forced
+    of 64, masked, bf16) at batch 1, 5, 8 and 64, and at the teacher-forced
     shape (64 images x 20 positions): held against its plain version, then
     the device time, event time, bound, the plain version's time and
     ``scaled_dot_product_attention``'s on the same q/k/v (timed only: SDPA
@@ -1038,7 +1061,7 @@ def check_additive_once(torch, what, qp, kp, ew, eb, mask, **kw):
 
 def check_additive(torch, dev):
     """The soft variant's additive scores at the LSTM family's served
-    shapes at batch 1, 8 and 64 and its teacher-forced shape, masked and
+    shapes at batch 1, 5, 8 and 64 and its teacher-forced shape, masked and
     unmasked, float32 and bfloat16."""
     g = torch.Generator(device=dev).manual_seed(7890)
     shapes = [("served", B, 5, 1) for B in SWEEP_BATCHES] + [
@@ -1067,7 +1090,7 @@ def additive_bound(B, K, Q, item):
 
 
 def sweep_additive(torch, dev, smi):
-    """#8 at the LSTM's served shape at batch 1, 8 and 64, masked, bf16:
+    """#8 at the LSTM's served shape at batch 1, 5, 8 and 64, masked, bf16:
     held against its plain version plus the bias, then its device time,
     event time, bound and the plain version's time, its inputs flushed
     from L2 before each run. Uses only the public wrappers
@@ -2428,39 +2451,394 @@ def scst_bf16(torch, dev, cfg, tree, tokenizer, train_ds, tmp, smi,
     return numbers
 
 
-def train_phase(torch, dev, smi, cfg, tree, seed):
-    """Phase 7 (module docstring). Returns the summary line's numbers."""
+def train_phase(torch, dev, smi, cfg, tree, seed, tmp):
+    """Phase 7 (module docstring), its files under ``tmp``. Returns the
+    summary line's numbers and, for phase 8, the fixture: the tokenizer,
+    the two datasets, the seed and the bf16 trainer's configuration, whose
+    ``checkpoint_dir`` holds ``best_model``."""
+    kernels = counters()
+    cfg = copy.deepcopy(cfg)
+    tokenizer, train_ds, val_ds = _train_fixture(torch, cfg, tmp, seed)
+    t0 = time.perf_counter()
+    worst = train_card_vs_cpu(torch, dev, cfg, tree, train_ds, tmp,
+                              kernels)
+    print(f"train f32 card vs CPU: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    trainer, bf16 = train_bf16(torch, dev, cfg, tree, train_ds, val_ds,
+                               tmp, smi, kernels)
+    validation = train_validate_and_checkpoint(
+        torch, dev, trainer, tree, tokenizer, val_ds, kernels)
+    reload = train_reload(torch, dev, trainer, tree, tokenizer, val_ds,
+                          smi, kernels)
+    fixture = {"tokenizer": tokenizer, "train_ds": train_ds,
+               "val_ds": val_ds, "seed": seed,
+               "config": copy.deepcopy(trainer.config)}
+    del trainer
+    t0 = time.perf_counter()
+    scst = scst_card_vs_cpu(torch, dev, cfg, tree, tokenizer, train_ds,
+                            tmp, kernels)
+    scst.update(scst_bf16(torch, dev, cfg, tree, tokenizer, train_ds,
+                          tmp, smi, kernels))
+    print(f"scst part of the train phase: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"f32_card_vs_cpu": worst, "bf16": bf16,
+            "validation": validation, "reload": reload,
+            "scst": scst}, fixture
+
+
+# ---------------------------------------------------------------------------
+# eval and demo (phase 8)
+# ---------------------------------------------------------------------------
+
+EVAL_F32_IMAGES = 4
+EVAL_BATCH = 5            # the eval CLI's batch: inference.num_candidates
+# the native decode against PIL on one eval dataset's batches (the JAX
+# package's tests/test_native_loader.py: at most 3 levels apart)
+NATIVE_MAX_DIFF = 3
+
+
+class DecodeCounts:
+    """Counts the encodes (``init_cache``) and the decode steps of every
+    captioning model inside the ``with`` block."""
+
+    def __enter__(self):
+        from image_captioning_ml_project_tpu_torch.models.captioning_model \
+            import ImageCaptioningModel
+
+        self.cls = ImageCaptioningModel
+        self.real = (ImageCaptioningModel.init_cache,
+                     ImageCaptioningModel.step)
+        self.encodes = self.steps = 0
+        counts = self
+
+        def init_cache(model, images, max_length):
+            counts.encodes += 1
+            return counts.real[0](model, images, max_length)
+
+        def step(model, state, tokens):
+            counts.steps += 1
+            return counts.real[1](model, state, tokens)
+
+        self.cls.init_cache, self.cls.step = init_cache, step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.init_cache, self.cls.step = self.real
+        return False
+
+
+class TimedEvalPass:
+    """Inside the ``with`` block, the seconds of each eval pass
+    (``coco_eval.evaluate_model_on_coco``: after the decode model is
+    built from the checkpoint) go to ``seconds``."""
+
+    def __enter__(self):
+        from image_captioning_ml_project_tpu_torch.evaluate import coco_eval
+
+        self.module, self.real = coco_eval, coco_eval.evaluate_model_on_coco
+        self.seconds = []
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self.real(*args, **kw)
+            finally:
+                self.seconds.append(time.perf_counter() - t0)
+
+        coco_eval.evaluate_model_on_coco = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.evaluate_model_on_coco = self.real
+        return False
+
+
+def _results(path):
+    with open(path) as f:
+        return {r["image_id"]: r["caption"] for r in json.load(f)}
+
+
+def eval_card_vs_cpu(torch, dev, base, tokenizer, tmp, seed, kernels):
+    """main.evaluate (4 validation images of their own fixture) and
+    main.demo (one of them) in float32 on the card and on the CPU from
+    phase 7's best_model: captions identical per image, metrics equal;
+    the card's run with the launch counters set to 0 just before and read
+    just after: #5 once a batch, #3 and #4 once a decode step, nothing
+    else."""
+    from image_captioning_ml_project_tpu_torch import main as port_main
+    from image_captioning_ml_project_tpu_torch.data.synthetic import (
+        make_synthetic_coco)
+
+    cfg = copy.deepcopy(base)
+    cfg.model.dtype = "float32"
+    cfg.data_root = make_synthetic_coco(
+        os.path.join(tmp, "coco4"), num_images=EVAL_F32_IMAGES,
+        captions_per_image=5, image_size=cfg.image_size, seed=seed + 1)
+    image_dir = os.path.join(cfg.data_root, cfg.val_image_dir)
+    image = os.path.join(image_dir, sorted(os.listdir(image_dir))[0])
+    out = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        c = copy.deepcopy(cfg)
+        c.output_dir = os.path.join(tmp, f"eval_f32_{name}")
+        with DecodeCounts() as counts:
+            _zero_launches(kernels)
+            t0 = time.perf_counter()
+            metrics = port_main.evaluate(c, "best_model",
+                                         tokenizer=tokenizer, device=device)
+            seconds = time.perf_counter() - t0
+            caption = port_main.demo(c, "best_model", image,
+                                     tokenizer=tokenizer, device=device)
+            launched = _launches(kernels)
+        if name == "card":
+            # one eval batch and the demo's
+            check(counts.encodes == 2, f"f32 eval and demo encoded "
+                                       f"{counts.encodes} batches")
+            expect({"launches": launched},
+                   {"beam_decode_stack": counts.steps,
+                    "lse_and_block_max": counts.steps,
+                    "encoder_stack": counts.encodes})
+            print(f"eval f32 card: launches {launched} over "
+                  f"{counts.steps} decode steps", flush=True)
+        else:
+            check(not any(launched.values()),
+                  f"the CPU run launched kernels: {launched}")
+        out[name] = (metrics, _results(os.path.join(c.output_dir,
+                                                    "results.json")),
+                     caption)
+        print(f"eval f32 {name}: {EVAL_F32_IMAGES} images in {seconds:.1f} "
+              f"s, CIDEr {metrics['CIDEr']:.4f}; demo: {caption!r}",
+              flush=True)
+    (cm, cr, cc), (pm, pr, pc) = out["card"], out["cpu"]
+    check(len(cr) == EVAL_F32_IMAGES, f"f32 eval captioned {len(cr)} images")
+    check(cr == pr, f"f32 eval captions differ: card {cr}, CPU {pr}")
+    check(cm == pm, f"f32 eval metrics differ: card {cm}, CPU {pm}")
+    check(cc == pc, f"f32 demo captions differ: card {cc!r}, CPU {pc!r}")
+    print(f"eval f32 card vs CPU: the {EVAL_F32_IMAGES} captions, the "
+          f"metrics and the demo's caption identical", flush=True)
+    return {"images": EVAL_F32_IMAGES, "cider": cm["CIDEr"]}
+
+
+def eval_run(torch, name, run, val_ds, out_dir, kernels, smi, rerank=False):
+    """``run()``, an eval of ``val_ds`` that writes
+    ``out_dir/results.json``, with the launch counters set to 0 just
+    before and read just after: every image captioned once; #5 once a
+    batch (twice with the CLIP reranker), #3 and #4 once a decode step,
+    nothing else; the ancestry error word clear. Also the device memory
+    the call allocated at its peak, above what was allocated before it.
+    Returns (its numbers, {image id: caption})."""
+    results = os.path.join(out_dir, "results.json")
+    if os.path.exists(results):
+        os.remove(results)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with DecodeCounts() as counts, TimedEvalPass() as passes:
+        _zero_launches(kernels)
+        t0 = time.perf_counter()
+        metrics = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = _launches(kernels)
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    with open(results) as f:
+        entries = json.load(f)
+    want = sorted(ex["image_id"] for ex in val_ds.examples)
+    n = len(want)
+    check(len(entries) == n and sorted(r["image_id"] for r in entries)
+          == want, f"{name}: results.json does not caption each of the {n} "
+                   f"validation images once")
+    batches = counts.encodes
+    check(batches == -(-n // EVAL_BATCH), f"{name}: {batches} batches")
+    expect({"launches": launched},
+           {"beam_decode_stack": counts.steps,
+            "lse_and_block_max": counts.steps,
+            "encoder_stack": batches * (2 if rerank else 1)})
+    check_ancestry(torch.device("cuda"), name)
+    (pass_s,) = passes.seconds
+    numbers = {"images": n, "batches": batches, "steps": counts.steps,
+               "seconds": seconds, "pass_seconds": pass_s,
+               "images_per_s": n / pass_s, "cider": metrics["CIDEr"],
+               "peak_gib": peak_gib, "launches": launched}
+    print(f"{name}: {n} images in {batches} batches of {EVAL_BATCH}, "
+          f"{counts.steps} decode steps; the pass {pass_s:.3f} s "
+          f"({n / pass_s:.1f} images/s), the call {seconds:.1f} s, "
+          f"{peak_gib:.3f} GiB at its peak; CIDEr "
+          f"{metrics['CIDEr']:.4f}; launches {launched} [{smi}]",
+          flush=True)
+    return numbers, _results(results)
+
+
+def _jpeg_copy(root, cfg, tmp):
+    """The validation split of ``root`` re-encoded as JPEG (quality 95)
+    under a new root, its annotations pointing at the copies."""
     import shutil
-    import tempfile
+
+    from PIL import Image
+
+    out = os.path.join(tmp, "coco_jpeg")
+    os.makedirs(os.path.join(out, cfg.val_image_dir), exist_ok=True)
+    os.makedirs(os.path.join(out, "annotations"), exist_ok=True)
+    shutil.copy(os.path.join(root, cfg.train_json),
+                os.path.join(out, cfg.train_json))
+    with open(os.path.join(root, cfg.val_json)) as f:
+        ann = json.load(f)
+    for img in ann["images"]:
+        src = os.path.join(root, cfg.val_image_dir, img["file_name"])
+        img["file_name"] = os.path.splitext(img["file_name"])[0] + ".jpg"
+        Image.open(src).convert("RGB").save(
+            os.path.join(out, cfg.val_image_dir, img["file_name"]),
+            "JPEG", quality=95)
+    with open(os.path.join(out, cfg.val_json), "w") as f:
+        json.dump(ann, f)
+    return out
+
+
+def eval_jpeg(torch, dev, base, tokenizer, tmp, kernels, smi):
+    """A JPEG copy of the validation images through main.evaluate with
+    the native loader and with PIL: the decoded pixels within
+    NATIVE_MAX_DIFF levels of each other (held always), the captions
+    compared, the image ids of any that differ printed."""
+    import numpy as np
+
+    from image_captioning_ml_project_tpu_torch import main as port_main
+    from image_captioning_ml_project_tpu_torch.data.coco import (
+        build_coco_datasets, iterate_batches)
+
+    root = _jpeg_copy(base.data_root, base, tmp)
+    runs, pixels = {}, {}
+    for name, native in (("native", True), ("PIL", False)):
+        c = copy.deepcopy(base)
+        c.data_root, c.native_loader = root, native
+        c.output_dir = os.path.join(tmp, f"eval_jpeg_{name}")
+        _, val_ds = build_coco_datasets(c, tokenizer)
+        pixels[name] = np.concatenate([b["image"] for b in iterate_batches(
+            val_ds, 16, shuffle=False, drop_last=False)])
+        runs[name] = eval_run(
+            torch, f"eval bf16 of the JPEG copy, {name} decode",
+            lambda c=c: port_main.evaluate(c, "best_model",
+                                           tokenizer=tokenizer, device=dev),
+            val_ds, c.output_dir, kernels, smi)
+    diff = np.abs(pixels["native"].astype(int) - pixels["PIL"].astype(int))
+    check(diff.max() <= NATIVE_MAX_DIFF,
+          f"the native decode is {diff.max()} levels from PIL's")
+    a, b = runs["native"][1], runs["PIL"][1]
+    differ = sorted(i for i in a if a[i] != b[i])
+    print(f"eval of the JPEG copy: native pixels within {diff.max()} levels "
+          f"of PIL's (mean {diff.mean():.4f}); captions differ on "
+          f"{len(differ)} of {len(a)} images{': ' if differ else ''}"
+          f"{differ if differ else ''}", flush=True)
+    return {"max_pixel_diff": int(diff.max()),
+            "mean_pixel_diff": float(diff.mean()),
+            "captions_differ": differ,
+            "native_pass_seconds": runs["native"][0]["pass_seconds"],
+            "pil_pass_seconds": runs["PIL"][0]["pass_seconds"]}
+
+
+def eval_phase(torch, dev, smi, fixture, scorer, tmp):
+    """Phase 8 (module docstring), on phase 7's fixture and best_model
+    checkpoint (``fixture``) and phase 4's CLIP ``scorer``. Returns the
+    summary line's numbers."""
+    import contextlib
+    import io
+    import shutil
+
+    from image_captioning_ml_project_tpu_torch import main as port_main
+    from image_captioning_ml_project_tpu_torch import native
+    from image_captioning_ml_project_tpu_torch.config import save_config
+    from image_captioning_ml_project_tpu_torch.inference.reranking import (
+        CLIPReranker)
+    from image_captioning_ml_project_tpu_torch.train.curriculum import (
+        create_curriculum_sampler)
 
     kernels = counters()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    try:
-        cfg = copy.deepcopy(cfg)
-        tokenizer, train_ds, val_ds = _train_fixture(torch, cfg, tmp, seed)
+    tokenizer, base = fixture["tokenizer"], fixture["config"]
+    val_ds = fixture["val_ds"]
+    t0 = time.perf_counter()
+    built = native.available()
+    print(f"native_loader: available (built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s)" if built else
+          f"native_loader: unavailable: {native.unavailable_reason()}",
+          flush=True)
+    numbers = {"native_loader": built,
+               "f32_card_vs_cpu": eval_card_vs_cpu(
+                   torch, dev, base, tokenizer, tmp, fixture["seed"],
+                   kernels)}
+
+    # bf16 through the CLI, on phase 7's best_model and validation set
+    cfg_path = os.path.join(tmp, "eval_flagship.json")
+    vocab_path = os.path.join(tmp, "eval_vocab.json")
+    save_config(base, cfg_path)
+    tokenizer.save(vocab_path)
+    out_dir = os.path.dirname(base.checkpoint_dir)
+    argv = ["--config", cfg_path, "--vocab", vocab_path, "--output_dir",
+            out_dir, "--checkpoint", "best_model"]
+    numbers["eval"], captions = eval_run(
+        torch, "eval bf16 (--mode eval)",
+        lambda: port_main.main(["--mode", "eval"] + argv), val_ds, out_dir,
+        kernels, smi)
+
+    rcfg = copy.deepcopy(base)
+    rcfg.output_dir = out_dir
+    rcfg.inference.use_clip_reranking = True
+    reranker = CLIPReranker(scorer, clip_tokenize, lambda ids:
+                            tokenizer.decode(ids, skip_special_tokens=True))
+    numbers["reranked_eval"], reranked = eval_run(
+        torch, "eval bf16 + CLIP reranking of 5 candidates",
+        lambda: port_main.evaluate(rcfg, "best_model", tokenizer=tokenizer,
+                                   reranker=reranker, device=dev),
+        val_ds, out_dir, kernels, smi, rerank=True)
+    print(f"reranked eval: the CLIP pick differs from the beam's best on "
+          f"{sum(captions[i] != reranked[i] for i in captions)} of "
+          f"{len(captions)} images", flush=True)
+
+    image = os.path.join(val_ds.image_dir, val_ds.examples[0]["filename"])
+    printed = io.StringIO()
+    with DecodeCounts() as counts, contextlib.redirect_stdout(printed):
+        _zero_launches(kernels)
         t0 = time.perf_counter()
-        worst = train_card_vs_cpu(torch, dev, cfg, tree, train_ds, tmp,
-                                  kernels)
-        print(f"train f32 card vs CPU: {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        trainer, bf16 = train_bf16(torch, dev, cfg, tree, train_ds, val_ds,
-                                   tmp, smi, kernels)
-        validation = train_validate_and_checkpoint(
-            torch, dev, trainer, tree, tokenizer, val_ds, kernels)
-        reload = train_reload(torch, dev, trainer, tree, tokenizer, val_ds,
-                              smi, kernels)
-        del trainer
-        t0 = time.perf_counter()
-        scst = scst_card_vs_cpu(torch, dev, cfg, tree, tokenizer, train_ds,
-                                tmp, kernels)
-        scst.update(scst_bf16(torch, dev, cfg, tree, tokenizer, train_ds,
-                              tmp, smi, kernels))
-        print(f"scst part of the train phase: "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        return {"f32_card_vs_cpu": worst, "bf16": bf16,
-                "validation": validation, "reload": reload, "scst": scst}
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        caption = port_main.main(["--mode", "demo", "--image_path",
+                                  image] + argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = _launches(kernels)
+    check(caption and printed.getvalue().splitlines()[-1] == caption,
+          f"demo printed {printed.getvalue()!r}, returned {caption!r}")
+    check(counts.encodes == 1, f"demo encoded {counts.encodes} batches")
+    expect({"launches": launched}, {"beam_decode_stack": counts.steps,
+                                    "lse_and_block_max": counts.steps,
+                                    "encoder_stack": 1})
+    numbers["demo"] = {"seconds": seconds, "steps": counts.steps,
+                       "caption": caption, "launches": launched}
+    print(f"demo bf16 (--mode demo): {caption!r}, {counts.steps} decode "
+          f"steps, the call {seconds:.1f} s; launches {launched} [{smi}]",
+          flush=True)
+
+    # one CE epoch of main.train in the curriculum's order at batch 64
+    ccfg = copy.deepcopy(base)
+    ccfg.training.use_curriculum, ccfg.training.num_epochs = True, 1
+    ccfg.training.use_rl = False
+    ccfg.output_dir = os.path.join(tmp, "curriculum")
+    ccfg.checkpoint_dir = os.path.join(ccfg.output_dir, "checkpoints")
+    sampler = create_curriculum_sampler(fixture["train_ds"], ccfg)
+    want = len(sampler) // ccfg.training.batch_size
+    t0 = time.perf_counter()
+    trainer = port_main.train(ccfg, tokenizer=tokenizer, device=dev)
+    seconds = time.perf_counter() - t0
+    check(trainer.step == want == trainer.total_steps,
+          f"curriculum epoch: {trainer.step} steps, the sampler's {want}, "
+          f"the schedule's {trainer.total_steps}")
+    print(f"curriculum: main.train's epoch took {trainer.step} steps of "
+          f"{ccfg.training.batch_size} over the sampler's {len(sampler)} "
+          f"examples; {seconds:.1f} s with its validation and checkpoint",
+          flush=True)
+    numbers["curriculum"] = {"steps": trainer.step, "seconds": seconds}
+    del trainer
+    shutil.rmtree(ccfg.output_dir, ignore_errors=True)
+
+    if built:
+        numbers["jpeg"] = eval_jpeg(torch, dev, base, tokenizer, tmp,
+                                    kernels, smi)
+    return numbers
 
 
 def kernel_entry(name, route, source, replaces, numbers, launches):
@@ -2521,6 +2899,11 @@ def main():
         sys.exit(f"chip_smoke: {PKG} was imported from {_build.__file__}, "
                  f"not from the checkout at {root}")
 
+    import shutil
+    import tempfile
+
+    # phase 7's fixture and checkpoints, which phase 8 reads
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase("device")
         smi = subprocess.run(
@@ -2661,9 +3044,15 @@ def main():
 
         phase("train")
         t0 = time.perf_counter()
-        training = train_phase(torch, dev, smi, *trees["flagship"],
-                               args.seed)
+        training, fixture = train_phase(torch, dev, smi, *trees["flagship"],
+                                        args.seed, tmp)
         print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+        phase("eval and demo")
+        t0 = time.perf_counter()
+        evaluation = eval_phase(torch, dev, smi, fixture, scorer, tmp)
+        print(f"eval and demo phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
         # the port stands alone: nothing of JAX or the JAX package ran
         foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -2673,6 +3062,8 @@ def main():
     except Exception:
         traceback.print_exc()
         sys.exit("chip_smoke: FAILED")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     jax_pkg = "image_captioning_ml_project_tpu/ops"
     sources = {
@@ -2712,11 +3103,17 @@ def main():
             "validation": training["validation"]["launches"][entry["name"]],
             "reload": training["reload"]["launches"][entry["name"]],
             "scst": training["scst"]["launches"][entry["name"]]}
+        entry["evaluation"] = {
+            run: evaluation[run]["launches"][entry["name"]]
+            for run in ("eval", "reranked_eval", "demo")}
     print(json.dumps({"training": {
         key: (training[key] if key == "f32_card_vs_cpu" else
               {k: v for k, v in training[key].items() if k != "launches"})
         for key in ("f32_card_vs_cpu", "bf16", "validation", "reload",
-                    "scst")}}))
+                    "scst")}, "evaluation": {
+        key: ({k: v for k, v in value.items() if k != "launches"}
+              if isinstance(value, dict) else value)
+        for key, value in evaluation.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": kind, "count": count}}))

@@ -9,9 +9,12 @@ the host, evaluation groups every caption of an image, padded to a fixed
 reference count, with a resize + center crop. Images leave the host as
 uint8 NHWC and are normalised on their device (:func:`normalize_images`).
 
-Images are read with PIL, imported where an image is opened.
-The JAX package's native JPEG loader and device-resident resize are not
-ported (ROADMAP.md Queue 1 items 7 and 9): asking for them raises.
+Images are read with PIL, imported where an image is opened, or, with
+``native_loader``, by the port's C++ JPEG pipeline (:mod:`..native`: one
+call decodes a whole batch on host threads), which falls back to PIL when
+it did not build and for each image it cannot decode. The device-resident
+resize (the JAX package's ``device_resize`` canvases) is not ported
+(ROADMAP.md Queue 1 item 9): asking for it raises.
 """
 
 from __future__ import annotations
@@ -154,12 +157,13 @@ class COCOCaptionDataset:
         seed: int = 0,
         device_resize: bool = False,
         native_loader: bool = False,
+        native_threads: int = 0,
+        native_draft: bool = False,
     ):
-        if native_loader or (device_resize and not is_training):
+        if device_resize and not is_training:
             raise NotImplementedError(
-                "the native JPEG loader and the device-resident resize are "
-                "not yet ported to PyTorch (ROADMAP.md Queue 1 items 7 and "
-                "9)")
+                "the device-resident resize is not yet ported to PyTorch "
+                "(ROADMAP.md Queue 1 item 9)")
         self.root_dir = root_dir
         self.image_dir = os.path.join(root_dir, image_dir)
         self.annotation_path = os.path.join(root_dir, annotation_file)
@@ -169,6 +173,13 @@ class COCOCaptionDataset:
         self.is_training = is_training
         self.max_ref_captions = max_ref_captions
         self.rng = np.random.RandomState(seed)
+        # the native C++ decode (native/jpeg_loader.cpp): resolved at the
+        # first image load, so building a dataset never compiles; PIL is
+        # the fallback
+        self.native_loader = native_loader
+        self.native_threads = native_threads
+        self.native_draft = native_draft
+        self._native = None  # unresolved
         with open(self.annotation_path) as f:
             self.annotations = json.load(f)
         self._process_annotations()
@@ -185,15 +196,134 @@ class COCOCaptionDataset:
     def __len__(self):
         return len(self.examples)
 
+    def _native_mod(self):
+        """The native loader module, or None (resolved once; PIL is the
+        fallback)."""
+        if self._native is None:
+            self._native = False
+            if self.native_loader:
+                try:
+                    from .. import native as _nmod
+                    if _nmod.available():
+                        self._native = _nmod
+                except Exception:
+                    pass
+        return self._native or None
+
+    def _path(self, idx: int) -> str:
+        return os.path.join(self.image_dir, self.examples[idx]["filename"])
+
+    def _load_native_one(self, path: str) -> Optional[np.ndarray]:
+        """Native decode of one image, or None for the PIL fallback
+        (the library missing, or an input it rejects)."""
+        nl = self._native_mod()
+        if nl is None:
+            return None
+        with open(path, "rb") as f:
+            buf = f.read()
+        if self.is_training:
+            wh = nl.probe(buf)
+            if wh is None:
+                return None
+            # snapshot the RNG: if the native decode fails after the box
+            # and flip draws, the PIL fallback must see the same sequence
+            rng_state = self.rng.get_state()
+            box = draw_crop_box(wh[0], wh[1], self.rng)
+            flip = bool(self.rng.rand() < 0.5)
+            if box is None:  # center-crop fallback draw, then flip
+                img, st = nl.decode_eval_batch([buf], self.image_size,
+                                               draft=False, n_threads=1)
+            else:
+                img, st = nl.decode_train_batch(
+                    [buf], np.array([box]), np.array([int(flip)]),
+                    self.image_size, n_threads=1)
+            if st[0] != 0:
+                self.rng.set_state(rng_state)
+                return None
+            image = img[0]
+            if box is None and flip:
+                image = np.ascontiguousarray(image[:, ::-1])
+            return image
+        img, st = nl.decode_eval_batch([buf], self.image_size,
+                                       draft=self.native_draft, n_threads=1)
+        return img[0] if st[0] == 0 else None
+
+    def decode_chunk(self, tasks) -> Optional[List[np.ndarray]]:
+        """Decode the images of ``tasks = [(idx, sample_seed), ...]`` in
+        one call to the native thread pool (the GIL released for the
+        batch), with the same per-sample seeding as the PIL path. Returns
+        the images aligned with ``tasks``, or None when the native library
+        is unavailable; an image the native decoder rejects is decoded by
+        PIL instead."""
+        nl = self._native_mod()
+        if nl is None:
+            return None
+        bufs = []
+        for idx, _ in tasks:
+            with open(self._path(idx), "rb") as f:
+                bufs.append(f.read())
+        nt = self.native_threads or None
+        if not self.is_training:
+            imgs, st = nl.decode_eval_batch(bufs, self.image_size,
+                                            draft=self.native_draft,
+                                            n_threads=nt)
+            return [imgs[j] if st[j] == 0 else
+                    load_image(self._path(idx), self.image_size, False)
+                    for j, (idx, _) in enumerate(tasks)]
+        # the PIL path's RNG use: reseed per sample, draw the crop box and
+        # the flip, then decode the batch. An image whose 10 box draws all
+        # fail takes center_crop_resize in the PIL path, so it goes
+        # through the eval transform here (then the flip)
+        boxes = np.zeros((len(tasks), 4), dtype=np.int32)
+        flips = np.zeros(len(tasks), dtype=np.int32)
+        box_idx, eval_idx = [], []
+        for j, ((_, sample_seed), buf) in enumerate(zip(tasks, bufs)):
+            wh = nl.probe(buf)
+            if wh is None:
+                continue  # status stays -1: PIL below
+            rng = np.random.RandomState(sample_seed)
+            box = draw_crop_box(wh[0], wh[1], rng)
+            flips[j] = int(rng.rand() < 0.5)
+            if box is None:
+                eval_idx.append(j)
+            else:
+                boxes[j] = box
+                box_idx.append(j)
+        size = self.image_size
+        imgs = np.empty((len(tasks), size, size, 3), dtype=np.uint8)
+        st = np.full(len(tasks), -1, dtype=np.int32)
+        if box_idx:
+            imgs[box_idx], st[box_idx] = nl.decode_train_batch(
+                [bufs[j] for j in box_idx], boxes[box_idx], flips[box_idx],
+                size, n_threads=nt)
+        if eval_idx:
+            out_e, st_e = nl.decode_eval_batch(
+                [bufs[j] for j in eval_idx], size, draft=False,
+                n_threads=nt)
+            for pos, j in enumerate(eval_idx):
+                imgs[j] = out_e[pos][:, ::-1] if flips[j] else out_e[pos]
+                st[j] = st_e[pos]
+        out = []
+        for j, (idx, sample_seed) in enumerate(tasks):
+            if st[j] != 0:
+                self.rng = np.random.RandomState(sample_seed)
+                out.append(load_image(self._path(idx), size, True, self.rng))
+            else:
+                out.append(imgs[j])
+        return out
+
     def __getitem__(self, idx: int) -> Dict[str, Any]:
         return self.get_sample(idx)
 
     def get_sample(self, idx: int, image=None) -> Dict[str, Any]:
-        """Assemble one sample; ``image`` may be given already decoded."""
+        """Assemble one sample; ``image`` may be given already decoded
+        (:meth:`decode_chunk`)."""
         ex = self.examples[idx]
+        if image is None and self.native_loader:
+            image = self._load_native_one(self._path(idx))
         if image is None:
-            image = load_image(os.path.join(self.image_dir, ex["filename"]),
-                               self.image_size, self.is_training, self.rng)
+            image = load_image(self._path(idx), self.image_size,
+                               self.is_training, self.rng)
         if self.is_training:
             ids, mask = self.tokenizer.encode(ex["caption"], self.max_length)
             return {
@@ -312,6 +442,12 @@ def iterate_batches(dataset, batch_size: int, shuffle: bool = False,
                 samples = list(pool.map(
                     _worker_get, tasks,
                     chunksize=max(1, len(tasks) // num_workers)))
+            elif getattr(dataset, "native_loader", False) and (
+                    decoded := dataset.decode_chunk(tasks)) is not None:
+                # the native batch decode: one call for the whole chunk,
+                # threads inside, the same per-sample seeding
+                samples = [dataset.get_sample(i, image=img)
+                           for (i, _), img in zip(tasks, decoded)]
             else:
                 # same per-sample seeding as the worker path, so batches are
                 # identical for any worker count (incl. 0); no module global
@@ -357,7 +493,11 @@ def _worker_get(task):
 def build_coco_datasets(config, tokenizer):
     """Train/val dataset pair from a Config
     (reference: build_coco_dataloaders, src/data/dataset.py:390-472)."""
-    native = dict(native_loader=getattr(config, "native_loader", False))
+    native = dict(
+        native_loader=getattr(config, "native_loader", False),
+        native_threads=getattr(config, "native_threads", 0),
+        native_draft=getattr(config, "native_draft", False),
+    )
     train = COCOCaptionDataset(
         root_dir=config.data_root,
         annotation_file=config.train_json,

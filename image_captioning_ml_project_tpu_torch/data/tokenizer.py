@@ -1,5 +1,5 @@
-"""Tokenizers: copies of ``WordVocab``, ``truncate_at_eos`` and
-``HFTokenizerAdapter`` from ``image_captioning_ml_project_tpu.data.
+"""Tokenizers: copies of ``WordVocab``, ``truncate_at_eos``,
+``HFTokenizerAdapter`` and ``load_tokenizer`` from ``image_captioning_ml_project_tpu.data.
 tokenizer`` (same ids, same JSON file, same ``encode``/``decode``), carried
 here because the port never imports the JAX package.
 
@@ -180,3 +180,21 @@ class HFTokenizerAdapter:
             ids = truncate_at_eos(ids, self.eos_token_id, self.bos_token_id,
                                   self.pad_token_id)
         return self.hf.decode(ids, skip_special_tokens=skip_special_tokens)
+
+
+def load_tokenizer(name_or_path: str, vocab_path: Optional[str] = None):
+    """Resolve a tokenizer: ``word`` with ``vocab_path``, or a vocab JSON
+    path -> :class:`WordVocab`; anything else names a HuggingFace
+    tokenizer, which must be cached locally (nothing is downloaded)."""
+    if name_or_path == "word":
+        if not vocab_path:
+            raise ValueError(
+                "the 'word' tokenizer needs vocab_path (a vocab JSON "
+                "built by setup_tokenizer)")
+        return WordVocab.load(vocab_path)
+    if name_or_path.endswith(".json"):
+        return WordVocab.load(name_or_path)
+    from transformers import AutoTokenizer
+
+    return HFTokenizerAdapter(AutoTokenizer.from_pretrained(
+        name_or_path, local_files_only=True))

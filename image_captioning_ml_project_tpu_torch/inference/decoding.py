@@ -502,3 +502,34 @@ def decode(step_fn, init_state, batch_size: int, inference_config,
                           return_all=return_all)
         return res if return_all else res.tokens
     raise ValueError(f"Unknown decoding strategy: {strategy}")
+
+
+@torch.inference_mode()
+def decode_images(model, images: torch.Tensor, config,
+                  generator: Optional[torch.Generator] = None,
+                  candidates: bool = False, step_fn=None):
+    """The captions of a batch of uint8 images on ``model``'s device (the
+    JAX CLI's ``_make_decode_batch``): one ``init_cache``, then
+    ``config.inference``'s strategy's tokens [B, L] or, with
+    ``candidates``, ``max(beam_size, num_candidates)`` beams of which the
+    first ``num_candidates`` return as [B, num_candidates, L] for the CLIP
+    reranker (the reference's candidate generator is beam search). The
+    nucleus strategy draws from ``generator``: pass one for a whole run,
+    so that each batch draws anew. ``step_fn`` stands in for
+    ``model.step`` (the server counts the steps through it). The eval and
+    demo CLIs, validation and the server all decode here."""
+    mc, ic = config.model, config.inference
+    ids = (mc.bos_token_id, mc.eos_token_id, mc.pad_token_id)
+    step_fn = step_fn or model.step
+    B = images.shape[0]
+    state = model.init_cache(images, ic.max_length)
+    if candidates:
+        res = beam_search(step_fn, state, B,
+                          max(ic.beam_size, ic.num_candidates), *ids,
+                          ic.max_length, length_penalty=ic.length_penalty,
+                          min_length=ic.min_length,
+                          num_beam_groups=ic.num_beam_groups,
+                          diversity_penalty=ic.diversity_penalty,
+                          return_all=True)
+        return res.tokens[:, :ic.num_candidates]
+    return decode(step_fn, state, B, ic, *ids, generator=generator)

@@ -52,7 +52,7 @@ from ..data.coco import center_crop_resize
 from ..main import _resolve_reranker
 from ..models.captioning_model import load_model
 from ..utils.checkpoint import CheckpointManager
-from .decoding import beam_search, decode
+from .decoding import decode_images
 
 logger = logging.getLogger(__name__)
 
@@ -178,11 +178,11 @@ class CaptionService:
     path), from ``params`` (the JAX package's variable tree), or, when
     neither is given, from ``config.seed``, and cast to
     ``config.model.dtype``. Batches decode with ``config.inference``'s
-    strategy (:func:`.decoding.decode`). With a ``reranker`` (given, or
-    built from a local CLIP checkpoint when ``use_clip_reranking`` is set)
-    they decode ``max(beam_size, num_candidates)`` beams instead, and the
-    reranker picks each image's caption among the first
-    ``num_candidates`` on the completer thread.
+    strategy (:func:`.decoding.decode_images`). With a ``reranker``
+    (given, or built from a local CLIP checkpoint when
+    ``use_clip_reranking`` is set) they decode ``max(beam_size,
+    num_candidates)`` beams instead, and the reranker picks each image's
+    caption among the first ``num_candidates`` on the completer thread.
     """
 
     def __init__(self, config, tokenizer, device, params=None,
@@ -317,11 +317,8 @@ class CaptionService:
         """The decode model of a trainer checkpoint's weights: its model
         params and BatchNorm statistics, read memory-mapped without the
         optimizer's files (``CheckpointManager.restore_partial``)."""
-        ckpt = CheckpointManager(self.config.checkpoint_dir)
-        restored, _, _ = ckpt.restore_partial(
-            name, {"params": None, "batch_stats": None})
-        state = dict(restored["params"]["model"])
-        state.update(restored.get("batch_stats", {}))
+        state = CheckpointManager(self.config.checkpoint_dir).model_weights(
+            name)
         return load_model(self.config, self.device, state_dict=state)
 
     def reload_checkpoint(self, name: str) -> dict:
@@ -430,8 +427,7 @@ class CaptionService:
     def _decode(self, images: torch.Tensor) -> torch.Tensor:
         """Captions of a device batch: tokens [B, L] with the configured
         strategy or, with a reranker, its candidates [B, num_candidates,
-        L] (the JAX CLI's ``_make_decode_batch``)."""
-        mc, ic = self.config.model, self.config.inference
+        L] (:func:`.decoding.decode_images`)."""
         model = self.model  # read once: a reload swaps it between batches
         steps = 0
 
@@ -440,22 +436,9 @@ class CaptionService:
             steps += 1
             return model.step(state, tokens)
 
-        B = images.shape[0]
-        ids = (mc.bos_token_id, mc.eos_token_id, mc.pad_token_id)
-        state = model.init_cache(images, ic.max_length)
-        if self.reranker is not None:
-            res = beam_search(step_fn, state, B,
-                              max(ic.beam_size, ic.num_candidates), *ids,
-                              ic.max_length,
-                              length_penalty=ic.length_penalty,
-                              min_length=ic.min_length,
-                              num_beam_groups=ic.num_beam_groups,
-                              diversity_penalty=ic.diversity_penalty,
-                              return_all=True)
-            tokens = res.tokens[:, :ic.num_candidates]
-        else:
-            tokens = decode(step_fn, state, B, ic, *ids,
-                            generator=self._generator)
+        tokens = decode_images(model, images, self.config, self._generator,
+                               candidates=self.reranker is not None,
+                               step_fn=step_fn)
         self.stats.record_steps(steps)
         return tokens
 

@@ -1,12 +1,19 @@
-"""CLI entry point of the PyTorch port: ``--mode train`` and
-``--mode serve``.
+"""CLI entry point of the PyTorch port: ``--mode train``, ``eval``,
+``demo`` and ``serve``.
 
-Same flags as the JAX CLI's train and serve paths
-(``python -m image_captioning_ml_project_tpu.main``), plus ``--device``
+Same flags as the JAX CLI (``python -m image_captioning_ml_project_tpu.
+main``) but for the device-resident resize, ``fold_normalize`` and
+``--use_rl`` (the config's ``use_rl`` still applies), plus ``--device``
 (``cuda`` unless asked for the CPU) and ``--seed``. Run as::
 
     python -m image_captioning_ml_project_tpu_torch.main --mode train \
         --config flagship --data_root data --output_dir runs/x
+    python -m image_captioning_ml_project_tpu_torch.main --mode eval \
+        --config flagship --data_root data --vocab runs/x/vocab.json \
+        --output_dir runs/x --checkpoint best_model
+    python -m image_captioning_ml_project_tpu_torch.main --mode demo \
+        --config flagship --vocab runs/x/vocab.json --output_dir runs/x \
+        --checkpoint best_model --image_path photo.jpg
     python -m image_captioning_ml_project_tpu_torch.main --mode serve \
         --config flagship --vocab runs/x/vocab.json \
         --output_dir runs/x --checkpoint best_model
@@ -22,10 +29,20 @@ GPT-2).
 ``train`` builds the COCO datasets under ``--data_root``, the tokenizer
 and :class:`.train.trainer.CaptioningTrainer`, resumes from
 ``--checkpoint`` when given (an epoch checkpoint, ``best_model`` or the
-rolling ``checkpoint_step``), and trains: cross-entropy every epoch,
-then with ``use_rl`` (the default) an SCST pass from ``rl_start_epoch``,
-writing checkpoints under ``output_dir/checkpoints``. Curriculum epochs
-and CLIP-reranked validation are not yet ported and raise.
+rolling ``checkpoint_step``), and trains: cross-entropy every epoch
+(in the curriculum's order with ``use_curriculum``), then with ``use_rl``
+(the default) an SCST pass from ``rl_start_epoch``, writing checkpoints
+under ``output_dir/checkpoints``; with ``use_clip_reranking`` validation
+reranks its beam candidates.
+
+``eval`` captions every validation image of ``--data_root`` with the
+``--checkpoint`` weights (or the seed's), in batches of
+``inference.num_candidates`` (the reference's quirk), writes
+``output_dir/results.json`` and logs the caption metrics. ``demo``
+captions ``--image_path``, prints the caption and, where matplotlib is
+installed, saves ``output_dir/demo.png``. Both decode with the
+``inference`` section's strategy, and with ``use_clip_reranking`` rerank
+``num_candidates`` beam candidates with CLIP.
 
 ``serve`` loads ``--checkpoint`` (its weights only) or, without one,
 draws the weights from ``--seed``, and answers ``/caption`` and
@@ -35,7 +52,9 @@ draws the weights from ``--seed``, and answers ``/caption`` and
 (``top_p``, ``temperature``), and ``use_clip_reranking``
 (``num_candidates``), which needs a locally cached HF CLIP checkpoint
 (without one the service warns and serves without reranking).
-Evaluation and the demo are not yet ported and raise.
+
+``--native_loader`` decodes JPEGs with the port's C++ loader
+(:mod:`.native`; PIL where it did not build).
 """
 
 from __future__ import annotations
@@ -46,6 +65,7 @@ import logging
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .config import (AttentionType, Config, DecoderType, EncoderType,
@@ -178,6 +198,8 @@ def build_argparser() -> argparse.ArgumentParser:
     parser.add_argument("--attention_type", type=str, default=None,
                         choices=["soft", "multi_head", "adaptive", "aoa"])
     parser.add_argument("--data_root", type=str, default=None)
+    parser.add_argument("--image_path", type=str, default=None,
+                        help="The image --mode demo captions")
     parser.add_argument("--vocab", type=str, default=None,
                         help="Word-vocab JSON path; without it a locally "
                              "cached HF tokenizer of the decoder's "
@@ -189,6 +211,11 @@ def build_argparser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of the weights drawn when no checkpoint "
                              "is given (default: the config's seed)")
+    parser.add_argument("--native_loader", action="store_true",
+                        help="Decode JPEGs with the native C++ loader "
+                             "(native/jpeg_loader.cpp, built with g++ and "
+                             "libjpeg at first use); PIL where it did not "
+                             "build")
     parser.add_argument("--save_every_steps", type=int, default=None,
                         help="Rolling mid-epoch checkpoint every N train "
                              "batches (two alternating slots)")
@@ -235,6 +262,8 @@ def _update_config_from_args(config: Config, args) -> None:
         config.data_root = args.data_root
     if args.seed is not None:
         config.seed = args.seed
+    if args.native_loader:
+        config.native_loader = True
     if args.save_every_steps is not None:
         config.save_every_steps = args.save_every_steps
     if args.step_ckpt_max_overhead is not None:
@@ -297,24 +326,24 @@ def _resolve_reranker(config: Config, tokenizer, reranker, device):
 def train(config: Config, checkpoint_path: Optional[str] = None,
           tokenizer=None, device="cuda", reranker=None):
     """Training on ``device`` (the JAX CLI's ``train``): the COCO
-    datasets, the tokenizer, the CLIP reranker of validation when
+    datasets, the tokenizer, the curriculum sampler when
+    ``use_curriculum`` is set, the CLIP reranker of validation when
     ``use_clip_reranking`` is set (``reranker``, or one built by
     :func:`_resolve_reranker`), the trainer, an optional resume from
     ``checkpoint_path``, then ``train()``: cross-entropy epochs, and SCST
     from ``rl_start_epoch`` when ``use_rl``. Returns the trainer."""
     from .data.coco import build_coco_datasets
+    from .train.curriculum import create_curriculum_sampler
     from .train.trainer import CaptioningTrainer
 
-    if config.training.use_curriculum:
-        raise NotImplementedError(
-            "curriculum sampling is not yet ported to PyTorch (ROADMAP.md "
-            "Queue 1 item 7)")
     tokenizer = tokenizer or setup_tokenizer(config)
     train_ds, val_ds = build_coco_datasets(config, tokenizer)
+    sampler = create_curriculum_sampler(train_ds, config)
     # with use_clip_reranking, validation reranks too, so the best-CIDEr
     # checkpoint is selected by the decode that ships
     reranker = _resolve_reranker(config, tokenizer, reranker, device)
     trainer = CaptioningTrainer(config, train_ds, val_ds, tokenizer,
+                                curriculum_sampler=sampler,
                                 reranker=reranker, device=device)
     if checkpoint_path:
         trainer.load_checkpoint(checkpoint_path)
@@ -322,16 +351,122 @@ def train(config: Config, checkpoint_path: Optional[str] = None,
     return trainer
 
 
+def _load_decode_model(config: Config, checkpoint_path: Optional[str],
+                       device):
+    """The decode model of eval and the demo on ``device``: the model
+    weights of ``checkpoint_path`` (read memory-mapped, the optimizer's
+    files left unread), or the seed's without one, cast as a trainer's
+    validation casts them (:func:`.train.trainer.load_decode_model`)."""
+    from .train.trainer import load_decode_model
+    from .utils.checkpoint import CheckpointManager
+
+    weights = (CheckpointManager(config.checkpoint_dir).model_weights(
+        checkpoint_path) if checkpoint_path else None)
+    return load_decode_model(config, device, weights)
+
+
+def evaluate(config: Config, checkpoint_path: Optional[str] = None,
+             tokenizer=None, reranker=None, device="cuda"):
+    """Caption the validation set on ``device`` with the configured
+    strategy (the JAX CLI's ``eval``) and return the caption metrics: the
+    ``checkpoint_path`` weights (or the seed's) in one decode model for
+    the run (:func:`_load_decode_model`), batches of
+    ``inference.num_candidates`` (the reference's quirk; one device, so no
+    rounding to a mesh), the last one padded and its padding ignored,
+    and with ``use_clip_reranking`` the reranker (``reranker``, or
+    :func:`_resolve_reranker`'s) picking among ``num_candidates`` beam
+    candidates on the batch's device images.
+    Scored by :func:`.evaluate.coco_eval.evaluate_model_on_coco`, which
+    also writes ``output_dir/results.json``."""
+    from .data.coco import build_coco_datasets
+    from .evaluate.coco_eval import evaluate_model_on_coco
+    from .inference.decoding import decode_images
+
+    enc = config.model.encoder
+    if enc.encoder_type == EncoderType.OBJECT_REGION \
+            or enc.use_object_features:
+        raise NotImplementedError(
+            "object-region evaluation is not yet ported to PyTorch "
+            "(ROADMAP.md Queue 1 item 10)")
+    tokenizer = tokenizer or setup_tokenizer(config)
+    _, val_ds = build_coco_datasets(config, tokenizer)
+    model = _load_decode_model(config, checkpoint_path, device)
+    reranker = _resolve_reranker(config, tokenizer, reranker, device)
+    generator = torch.Generator(device=device).manual_seed(config.seed)
+
+    @torch.inference_mode()
+    def decode_host_batch(batch):
+        images = torch.from_numpy(batch["image"]).to(device)
+        tokens = decode_images(model, images, config, generator,
+                               candidates=reranker is not None)
+        return reranker(images, tokens) if reranker is not None else tokens
+
+    return evaluate_model_on_coco(
+        decode_host_batch, val_ds, tokenizer,
+        batch_size=config.inference.num_candidates,
+        results_file=os.path.join(config.output_dir, "results.json"),
+        num_workers=config.num_workers)
+
+
+def demo(config: Config, checkpoint_path: Optional[str] = None,
+         image_path: Optional[str] = None, tokenizer=None, show: bool = False,
+         reranker=None, device="cuda") -> str:
+    """Caption one image on ``device`` (the JAX CLI's ``demo``) with the
+    eval transform, the configured strategy and, with
+    ``use_clip_reranking``, CLIP reranking; prints and returns the
+    caption, and saves ``output_dir/demo.png`` where matplotlib is
+    installed (a failure of the plot is ignored, one of the decode is
+    not)."""
+    from .data.coco import load_image
+    from .inference.decoding import decode_images
+
+    tokenizer = tokenizer or setup_tokenizer(config)
+    model = _load_decode_model(config, checkpoint_path, device)
+    reranker = _resolve_reranker(config, tokenizer, reranker, device)
+    img = load_image(image_path, config.image_size, train=False)
+    with torch.inference_mode():
+        images = torch.from_numpy(np.array(img[None])).to(device)
+        tokens = decode_images(
+            model, images, config,
+            torch.Generator(device=device).manual_seed(config.seed),
+            candidates=reranker is not None)
+        if reranker is not None:
+            tokens = reranker(images, tokens)
+        if isinstance(tokens, torch.Tensor):
+            tokens = tokens.cpu().numpy()
+    caption = tokenizer.decode(np.asarray(tokens)[0],
+                               skip_special_tokens=True)
+    logging.getLogger(__name__).info("Generated caption: %s", caption)
+    print(caption)
+
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        plt.figure(figsize=(8, 6))
+        plt.imshow(img)
+        plt.title(caption)
+        plt.axis("off")
+        os.makedirs(config.output_dir, exist_ok=True)
+        plt.savefig(os.path.join(config.output_dir, "demo.png"))
+        if show:
+            plt.show()
+        plt.close()
+    except Exception:
+        pass
+    return caption
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.mode not in ("train", "serve"):
-        raise NotImplementedError(
-            f"--mode {args.mode} is not yet ported to PyTorch (ROADMAP.md "
-            f"Queue 1 item 12: the eval and demo CLI modes)")
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
         raise SystemExit(f"no CUDA device is available; pass --device cpu "
                          f"to {args.mode} on the CPU")
+    if args.mode == "demo" and not args.image_path:
+        raise SystemExit("--image_path is required for demo mode")
     config = resolve_config(args.config)
     _update_config_from_args(config, args)
     if args.save_config:
@@ -341,6 +476,12 @@ def main(argv=None):
     if args.mode == "train":
         return train(config, checkpoint_path=args.checkpoint,
                      tokenizer=tokenizer, device=args.device)
+    if args.mode == "eval":
+        return evaluate(config, args.checkpoint, tokenizer=tokenizer,
+                        device=args.device)
+    if args.mode == "demo":
+        return demo(config, args.checkpoint, args.image_path,
+                    tokenizer=tokenizer, device=args.device)
 
     from .inference.server import serve
 

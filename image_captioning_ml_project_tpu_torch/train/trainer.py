@@ -39,11 +39,18 @@ mid-epoch step checkpoints, full resume):
   of the current masters, cast once and stacked for the kernels, in eval
   mode. It is built anew at each call, so it can never hold stale
   weights. The SCST rollouts instead build one per pass and copy the
-  masters into it in place before each step (:meth:`rollout_model`).
+  masters into it in place before each step (:meth:`rollout_model`);
+* a curriculum sampler (:mod:`.curriculum`) orders each epoch's
+  training batches in place of the shuffle, in both passes of an SCST
+  epoch, and its per-epoch length sets the schedule's horizon;
+* with a CLIP ``reranker``, validation decodes beam candidates as the
+  eval CLI and the server do (:func:`..inference.decoding.decode_images`)
+  and the reranker picks each image's caption, so the best-CIDEr
+  checkpoint is chosen by the decode that ships.
 
 Not yet ported, and raising ``NotImplementedError`` naming their
-``ROADMAP.md`` item: a curriculum sampler, CLIP reranking in validation,
-object-region inputs, and a device mesh.
+``ROADMAP.md`` item: object-region inputs, device-resize canvases, and a
+device mesh.
 """
 
 from __future__ import annotations
@@ -63,7 +70,7 @@ from ..evaluate.cider_device import (build_df_table, encode_references,
 from ..evaluate.metrics import (bleu, calculate_metrics, meteor_lite,
                                 metric_tokenize, per_sample_cider,
                                 per_sample_spice, rouge_l)
-from ..inference.decoding import (_map, decode, greedy_decode,
+from ..inference.decoding import (_map, decode_images, greedy_decode,
                                   sample_decode)
 from ..models.captioning_model import (ImageCaptioningModel,
                                        build_train_model, load_model)
@@ -74,6 +81,28 @@ from ..utils.logging import MetricLogger, setup_logging
 from ..utils.rng import fold_in, generator
 from .losses import CombinedLoss, shifted_cross_entropy
 from .optim import create_optimizer
+
+def compute_dtype(config: Config) -> torch.dtype:
+    """A trainer's compute dtype: bf16 under ``use_amp`` unless the model
+    is configured ``float32``; the masters stay f32 either way."""
+    if config.training.use_amp and config.model.dtype != "float32":
+        return torch.bfloat16
+    return torch.float32
+
+
+def load_decode_model(config: Config, device, state_dict=None
+                      ) -> ImageCaptioningModel:
+    """The decode model of a trainer's weights (``state_dict``, or the
+    seed's without one): a :func:`..models.captioning_model.load_model`
+    cast once to :func:`compute_dtype` (norms f32), stacked for the
+    kernels, in eval mode. Validation, the SCST rollouts and the eval and
+    demo CLIs decode on it."""
+    cfg = copy.copy(config)
+    cfg.model = copy.copy(config.model)
+    cfg.model.dtype = ("bfloat16" if compute_dtype(config) == torch.bfloat16
+                       else "float32")
+    return load_model(cfg, device, state_dict=state_dict)
+
 
 def _not_ported(what: str, items: str) -> NotImplementedError:
     word = "items" if " " in items else "item"
@@ -97,19 +126,17 @@ def _init_loss(loss_mod: CombinedLoss, seed: int) -> None:
 
 class CaptioningTrainer:
     """CE and SCST trainer on ``device`` (``"cuda"`` unless the caller
-    passes the CPU, as the tests do). ``params`` is the JAX package's
-    variable tree to start from; without it the weights are drawn from
-    ``config.seed`` (:func:`..params.init_flax_params`)."""
+    passes the CPU, as the tests do). The model starts from ``params``,
+    the JAX package's variable tree, or ``state_dict``, this package's
+    (a checkpoint's model weights); with neither the weights are drawn
+    from ``config.seed`` (:func:`..params.init_flax_params`)."""
 
     def __init__(self, config: Config, train_dataset, val_dataset,
                  tokenizer, mesh=None, curriculum_sampler=None,
-                 reranker=None, device="cuda", params=None):
+                 reranker=None, device="cuda", params=None,
+                 state_dict=None):
         if mesh is not None:
             raise _not_ported("training over a device mesh", "13")
-        if curriculum_sampler is not None:
-            raise _not_ported("curriculum sampling", "7")
-        if reranker is not None:
-            raise _not_ported("CLIP reranking in validation", "12")
         enc = config.model.encoder
         if (enc.encoder_type == EncoderType.OBJECT_REGION
                 or enc.use_object_features):
@@ -122,14 +149,13 @@ class CaptioningTrainer:
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
         self.tokenizer = tokenizer
+        self.curriculum_sampler = curriculum_sampler
+        self.reranker = reranker
         self.logger = setup_logging(config.output_dir, __name__)
 
-        # bf16 compute when use_amp, f32 masters either way
-        dtype = torch.bfloat16 if config.training.use_amp else torch.float32
-        if config.model.dtype == "float32":
-            dtype = torch.float32
-        self.dtype = dtype
-        self.model = build_train_model(config, self.device, params=params)
+        self.dtype = compute_dtype(config)
+        self.model = build_train_model(config, self.device, params=params,
+                                       state_dict=state_dict)
 
         tc = config.training
         mc = config.model
@@ -155,8 +181,20 @@ class CaptioningTrainer:
         def _passes(e: int) -> int:
             return 2 if (tc.use_rl and e >= tc.rl_start_epoch) else 1
 
-        self.total_steps = self.steps_per_epoch * sum(
-            _passes(e) for e in range(tc.num_epochs))
+        if curriculum_sampler is not None:
+            # curriculum pacing shrinks the early epochs: the horizon
+            # probes the sampler's length per epoch (set_epoch only stores
+            # the index; train() sets it again each epoch)
+            total = 0
+            for e in range(tc.num_epochs):
+                curriculum_sampler.set_epoch(e)
+                total += _passes(e) * max(
+                    len(curriculum_sampler) // tc.batch_size, 1)
+            curriculum_sampler.set_epoch(0)
+            self.total_steps = max(total, 1)
+        else:
+            self.total_steps = self.steps_per_epoch * sum(
+                _passes(e) for e in range(tc.num_epochs))
 
         # async: the epoch-N save's disk write overlaps epoch N+1 compute;
         # train() drains in-flight saves before returning
@@ -333,18 +371,12 @@ class CaptioningTrainer:
                 "grad_norm": norm}
 
     def eval_state(self) -> ImageCaptioningModel:
-        """The decode model of the current masters: a
-        :func:`..models.captioning_model.load_model` copy, cast once to
-        the trainer's compute dtype (bf16 under ``use_amp``, norms f32) and
-        stacked for the kernels, in eval mode. Built anew at every call:
-        its stacked operands are copies, so a kept one would decode with
-        old weights."""
-        cfg = copy.copy(self.config)
-        cfg.model = copy.copy(self.config.model)
-        cfg.model.dtype = ("bfloat16" if self.dtype == torch.bfloat16
-                           else "float32")
+        """The decode model of the current masters
+        (:func:`load_decode_model`). Built anew at every call: its stacked
+        operands are copies, so a kept one would decode with old
+        weights."""
         state = {n: t.detach() for n, t in self.model.state_dict().items()}
-        return load_model(cfg, self.device, state_dict=state)
+        return load_decode_model(self.config, self.device, state)
 
     @torch.inference_mode()
     def eval_loss_step(self, model, images, captions, caption_mask,
@@ -364,21 +396,17 @@ class CaptioningTrainer:
                                    target_mask=caption_mask)
         return ce, caption_mask[:, 1:].float().sum()
 
-    @torch.inference_mode()
     def val_decode_step(self, model, images,
-                        gen: Optional[torch.Generator] = None
-                        ) -> torch.Tensor:
+                        gen: Optional[torch.Generator] = None,
+                        candidates: bool = False) -> torch.Tensor:
         """Decode with the configured ``InferenceConfig`` strategy on an
-        :meth:`eval_state` model, so best-CIDEr checkpoint selection runs
-        the decode that ships."""
+        :meth:`eval_state` model, or with ``candidates`` the CLIP
+        reranker's beam candidates, as the eval CLI and the server do
+        (:func:`..inference.decoding.decode_images`), so best-CIDEr
+        checkpoint selection runs the decode that ships."""
         images = self._prepare_inputs(self._to_device(images))
-        mc = self.config.model
-        max_length = self.config.inference.max_length
-        state = model.init_cache(images, max_length)
-        return decode(model.step, state, images.shape[0],
-                      self.config.inference, mc.bos_token_id,
-                      mc.eos_token_id, mc.pad_token_id, generator=gen,
-                      max_length=max_length)
+        return decode_images(model, images, self.config, gen,
+                             candidates=candidates)
 
     # ------------------------------------------------------------------
     # epoch loops
@@ -393,6 +421,10 @@ class CaptioningTrainer:
         self.logger.info("Starting training...")
         for epoch in range(self.start_epoch, tc.num_epochs):
             self.logger.info("Epoch %d/%d", epoch + 1, tc.num_epochs)
+            if self.curriculum_sampler is not None:
+                self.curriculum_sampler.set_epoch(epoch)
+                self.logger.info("Curriculum: %d samples",
+                                 len(self.curriculum_sampler))
             resumed = epoch == self.start_epoch
             train_loss = self._train_epoch(
                 epoch, start_batch=self.start_batch if resumed else 0,
@@ -417,10 +449,14 @@ class CaptioningTrainer:
 
     def _train_batches(self, epoch: int = 0,
                        skip_batches: int = 0) -> Iterator[Dict[str, Any]]:
+        sampler = self.curriculum_sampler
         it = iterate_batches(
             self.train_dataset, self.config.training.batch_size,
-            shuffle=True,
-            # fresh shuffle every epoch (torch DataLoader(shuffle=True))
+            shuffle=sampler is None,
+            # the curriculum's order (its generator advances at each
+            # pass), else a fresh shuffle every epoch (torch
+            # DataLoader(shuffle=True)); a resume skips in that order
+            sampler=iter(sampler) if sampler is not None else None,
             seed=self.config.seed + epoch,
             num_workers=self.config.num_workers,
             skip_batches=skip_batches)
@@ -482,7 +518,11 @@ class CaptioningTrainer:
             return 0.0
         save_steps = getattr(self.config, "save_every_steps", 0)
         meter = MetricLogger()
-        epoch_batches = max(len(self.train_dataset) // tc.batch_size, 1)
+        # curriculum pacing shrinks early epochs: the real denominator
+        epoch_batches = max(
+            (len(self.curriculum_sampler)
+             if self.curriculum_sampler is not None
+             else len(self.train_dataset)) // tc.batch_size, 1)
         # Off the logging cadence, losses stay device scalars and are read
         # at epoch end: a per-batch read would make the host wait for each
         # step before preparing the next.
@@ -823,7 +863,16 @@ class CaptioningTrainer:
             loss_b, ntok_b = self.eval_loss_step(model, inputs, first_ref,
                                                  first_mask, valid)
             losses.append((float(loss_b), float(ntok_b)))
-            tokens = self.val_decode_step(model, inputs, gen).cpu().numpy()
+            if self.reranker is not None:
+                # the reranker reads the batch's device images: no second
+                # host round trip
+                tokens = self.reranker(inputs, self.val_decode_step(
+                    model, inputs, candidates=True))
+            else:
+                tokens = self.val_decode_step(model, inputs, gen)
+            if isinstance(tokens, torch.Tensor):
+                tokens = tokens.cpu().numpy()
+            tokens = np.asarray(tokens)
             valid = valid.cpu().numpy()
             ids = batch["image_id"].cpu().numpy()
             for j in range(len(tokens)):

@@ -230,6 +230,16 @@ class CheckpointManager:
         state = self._load(path, keys, mmap=True)
         return (state, *self._sidecar(path))
 
+    def model_weights(self, name: str) -> Dict[str, Any]:
+        """The model's weights in checkpoint ``name`` as one state dict:
+        its params and BatchNorm statistics, memory-mapped, without the
+        optimizer's files (:meth:`restore_partial`)."""
+        restored, _, _ = self.restore_partial(
+            name, {"params": None, "batch_stats": None})
+        state = dict(restored["params"]["model"])
+        state.update(restored.get("batch_stats", {}))
+        return state
+
     def exists(self, name: str) -> bool:
         self.wait_until_finished()
         return os.path.exists(self._path(self._resolve(name)))

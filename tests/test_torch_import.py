@@ -2,7 +2,9 @@
 of ``image_captioning_ml_project_tpu_torch`` (the trainer, its losses,
 optimizer, checkpoints, data and metrics included) and building and
 running a tiny model of each ported family, and a training step, an SCST
-update and a checkpoint of each, leaves ``jax``, ``flax``, ``optax``, ``orbax``,
+update and a checkpoint of each, then the eval path's host modules (the
+BPE tokenizer, the curriculum sampler, the native JPEG loader,
+``coco_eval`` through ``main.evaluate``, and ``main.demo``), leaves ``jax``, ``flax``, ``optax``, ``orbax``,
 ``triton`` and the JAX package ``image_captioning_ml_project_tpu`` out of
 ``sys.modules``; no
 source of the port names ``triton`` in an import (its kernels are CUDA C++
@@ -22,7 +24,7 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
-import pkgutil, sys, importlib
+import pkgutil, sys, importlib, os
 import torch
 import image_captioning_ml_project_tpu_torch as port
 for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
@@ -60,6 +62,43 @@ for make in CONFIGS.values():
                      torch.ones(2, 5, dtype=torch.bool), torch.ones(2))
     t.save_checkpoint(0)
     t.ckpt.wait_until_finished()
+# the eval path's host modules: the BPE tokenizer, the curriculum sampler,
+# the native JPEG loader under the dataset, and main.evaluate and
+# main.demo (coco_eval's results.json) on the last configuration
+import json
+from image_captioning_ml_project_tpu_torch import main as port_main
+from image_captioning_ml_project_tpu_torch.data import GPT2BPETokenizer
+from image_captioning_ml_project_tpu_torch.data.bpe import bytes_to_unicode
+from image_captioning_ml_project_tpu_torch.data.synthetic import (
+    make_synthetic_coco)
+from image_captioning_ml_project_tpu_torch.data.tokenizer import WordVocab
+from image_captioning_ml_project_tpu_torch.train.curriculum import (
+    CurriculumSampler)
+d = tempfile.mkdtemp()
+units = [bytes_to_unicode()[b] for b in range(256)] + ["<|endoftext|>"]
+with open(d + "/vocab.json", "w") as f:
+    json.dump({u: i for i, u in enumerate(units)}, f)
+with open(d + "/merges.txt", "w") as f:
+    f.write("#version: 0.2\\n")
+bpe = GPT2BPETokenizer(d + "/vocab.json", d + "/merges.txt")
+assert bpe.decode(bpe.encode("a cat", 8)[0]) == "a cat"
+root = make_synthetic_coco(d + "/coco", num_images=3, captions_per_image=2,
+                           image_size=64, image_format="jpg")
+with open(root + "/annotations/captions_train2014.json") as f:
+    vocab = WordVocab.build([a["caption"] for a in json.load(f)[
+        "annotations"]], threshold=1)
+c.data_root, c.native_loader, c.training.use_curriculum = root, True, True
+c.model.vocab_size = len(vocab)
+c.model.pad_token_id, c.model.bos_token_id, c.model.eos_token_id = (
+    vocab.pad_token_id, vocab.bos_token_id, vocab.eos_token_id)
+c.inference.max_length = 4
+port_main.evaluate(c, tokenizer=vocab, device="cpu")
+with open(c.output_dir + "/results.json") as f:
+    assert len(json.load(f)) == 3
+port_main.demo(c, image_path=root + "/val2014/" + sorted(
+    os.listdir(root + "/val2014"))[0], tokenizer=vocab, device="cpu")
+assert sorted(CurriculumSampler(list(range(10)), warmup_epochs=0)) == list(
+    range(10))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                     "triton",

@@ -464,17 +464,14 @@ def test_stats_percentiles_are_nearest_rank():
 
 
 def test_cli_serves_only_and_needs_a_device():
-    """Serving and training are the CLI's ported modes; evaluation and the
-    demo are not yet; either ported mode runs on the card unless asked for
-    the CPU."""
-    for mode in ("eval", "demo"):
-        with pytest.raises(NotImplementedError, match="not yet ported.*"
-                                                      "item 12"):
-            port_main.main(["--mode", mode])
+    """Every mode of the CLI (serve, train, eval, demo) runs on the card
+    unless asked for the CPU; the demo needs ``--image_path``."""
     if not torch.cuda.is_available():
-        for mode in ("serve", "train"):
+        for mode in ("serve", "train", "eval", "demo"):
             with pytest.raises(SystemExit, match="--device cpu"):
-                port_main.main(["--mode", mode])
+                port_main.main(["--mode", mode, "--image_path", "x.jpg"])
+    with pytest.raises(SystemExit, match="--image_path is required"):
+        port_main.main(["--mode", "demo", "--device", "cpu"])
 
 
 def test_cli_tokenizer_and_flagship_config(tmp_path):
