@@ -149,10 +149,40 @@ prints no result line:
    sampler's; where the native loader built, a JPEG copy of the
    validation images evaluated with it and with PIL (pixels within 3
    levels, differing captions' image ids printed). Each eval's pass
-   time, images/s and call time are printed with the card.
+   time, images/s and call time are printed with the card;
+9. the other families and the device-resident resize: #6 against its
+   plain version (f32 within 1e-5, bf16 within 2 ulps) and timed beside
+   SDPA at the new families' memory lengths, 64 images x 5 beams, 12
+   heads, width 768: the Q-Former's 32, BUTD's 36 with each image's tail
+   past 20 to 36 valid regions masked, Swin-B's 49 (the CUDA-core route
+   in bf16) and 48 (the tensor-core route, for comparison). Then each of
+   ``--config qformer`` (ViT-B/16 + a 32-query Q-Former), ``--config
+   butd`` (36 detector regions of 2048) and ``--config transformer
+   --encoder_type swin`` (Swin-B), seeded weights drawn once: the f32
+   decode of 4 inputs (Swin: 2) on the card and on the CPU, tokens
+   identical and scores within 1e-4; the bf16 decode of 64 after a
+   warm-up, its encode timed, with the launches checked (#2 and #6 once
+   a layer a step, #4 once a step, nothing else); for the Q-Former and
+   Swin a served round of 64 after the service's warm-up round, the same
+   launches; for BUTD the bf16 tokens unchanged when the masked
+   regions' features and boxes are replaced by noise, and ``--mode
+   eval`` over detector features of phase 7's 64 validation images
+   (20-36 valid regions, a vocabulary of 30000); for the Q-Former and
+   BUTD two bf16 CE steps of 32 (ms, images/s, peak memory; no kernel).
+   Last the flagship's device-resident resize on phase 7's
+   ``best_model``, over JPEGs of 300 +- 120 pixels: the card's
+   ``resize_normalize`` of 16 canvases within 1e-4 of the CPU's;
+   ``main.evaluate`` with ``device_resize`` in f32 on 4 images, captions
+   identical on the card and the CPU; ``--mode eval --device_resize`` in
+   bf16 over 16 images, then with the CLIP reranker scoring the resized
+   pixels, then ``--mode eval --fold_normalize`` (uint8 pixels to the
+   patch embed's fold; under ``device_resize`` the model is handed
+   normalised floats and nothing folds, as in the JAX package), each
+   with phase 8's launch checks.
 
-The last three lines are the train and eval phases' numbers (JSON), a
-JSON summary of the kernels and ``{"ok": true, "device": {...}}``. Each kernel's entry holds its numbers
+The last four lines are the train and eval phases' numbers (JSON), phase
+9's (JSON), a JSON summary of the kernels and ``{"ok": true, "device":
+{...}}``. Each kernel's entry holds its numbers
 and launches for the Transformer family where that family runs it, else
 for the flagship, else for the LSTM; the other families', where they have
 their own shape (the LSE over the LSTM's vocabulary of 10000), are under
@@ -161,8 +191,9 @@ ancestry and at 6 beams under ``decode_shapes``, and each kernel's
 launches in the flagship's other decoding options' runs under
 ``decoding_options``, and their launches in the train phase (its
 steps, its validation, the service across the reload, the timed SCST
-steps) under ``training``, and in phase 8's eval, reranked eval and
-demo under ``evaluation``.
+steps) under ``training``, in phase 8's eval, reranked eval and
+demo under ``evaluation``, and in phase 9's runs under ``families``;
+#6's numbers at phase 9's memory lengths are under ``family_shapes``.
 """
 
 import argparse
@@ -1141,13 +1172,15 @@ def set_switches(values):
 
 
 def decode(torch, model, cfg, images):
+    """Beam search over ``images`` (or a region dict) on ``model``."""
     from image_captioning_ml_project_tpu_torch.inference.decoding import (
-        beam_search)
+        batch_size_of, beam_search)
 
     mc, ic = cfg.model, cfg.inference
     with torch.inference_mode():
         state = model.init_cache(images, ic.max_length)
-        return beam_search(model.step, state, images.shape[0], ic.beam_size,
+        return beam_search(model.step, state, batch_size_of(images),
+                           ic.beam_size,
                            mc.bos_token_id, mc.eos_token_id, mc.pad_token_id,
                            ic.max_length, length_penalty=ic.length_penalty,
                            min_length=ic.min_length)
@@ -2841,6 +2874,432 @@ def eval_phase(torch, dev, smi, fixture, scorer, tmp):
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# the other families and the device-resident resize (phase 9)
+# ---------------------------------------------------------------------------
+
+# #6 at the new families' memory lengths, 64 images x 5 beams, 12 heads,
+# width 768: (name, Sm, masked); Sm = 49 takes the CUDA-core route in
+# bf16 (not a multiple of 4), 48 the tensor-core one, timed beside it
+FAMILY_SHAPES = (("qformer", 32, False), ("butd", 36, True),
+                 ("swin", 49, False), ("tensor-core route", 48, False))
+# images of the f32 card-vs-CPU decodes, and the bf16 batches
+FAMILY_F32_IMAGES = {"qformer": 4, "butd": 4, "swin": 2}
+FAMILY_DECODE_BATCH = 64
+FAMILY_TRAIN_BATCH = 32
+# the device-resize fixture: JPEGs of 300 +- 120 pixels, so that squares
+# are upscaled, downscaled and (above the 336-pixel canvas) shrunk on the
+# host first
+RESIZE_IMAGES, RESIZE_F32_IMAGES = 16, 4
+
+
+def check_cross_families(torch, dev, smi):
+    """#6 against its plain version at :data:`FAMILY_SHAPES` (BUTD's
+    memory masked past each image's 20 to 36 valid regions), float32
+    within 1e-5 relative and bf16 within 2 ulps, then timed in bf16
+    beside its plain version and SDPA; the bound counts the valid rows.
+    Returns {name: shape_entry}."""
+    from image_captioning_ml_project_tpu_torch.ops.cross_attention import (
+        cross_attention, cross_attention_plain)
+
+    B, K, NH, H = FAMILY_DECODE_BATCH, 5, 12, 768
+    Bk, hd = B * K, H // NH
+    kw = dict(num_heads=NH, beam_size=K, scale=1.0 / hd ** 0.5)
+    g = torch.Generator(device=dev).manual_seed(4321)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    out = {}
+    for name, Sm, masked in FAMILY_SHAPES:
+        mask = None
+        if masked:
+            counts = torch.randint(20, Sm + 1, (B, 1), generator=g,
+                                   device=dev)
+            mask = torch.arange(Sm, device=dev)[None] >= counts
+        valid = B * Sm if mask is None else int((~mask).sum())
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((Bk, H), generator=g, device=dev).to(dtype)
+            mkt = torch.randn((B, H, Sm), generator=g, device=dev).to(dtype)
+            mv = torch.randn((B, Sm, H), generator=g, device=dev).to(dtype)
+            got = cross_attention(q, mkt, mv, mask, **kw)
+            want = cross_attention_plain(q, mkt, mv, mask, **kw)
+            torch.cuda.synchronize()
+            dname = str(dtype)[6:]
+            err = check_close(f"cross_attention {name} Sm={Sm} {dname}", got,
+                              want, dname, 1e-5, 2)
+        q4 = q.view(B, K, NH, hd).transpose(1, 2)
+        k4 = mkt.view(B, NH, hd, Sm).transpose(2, 3)
+        v4 = mv.view(B, Sm, NH, hd).transpose(1, 2)
+        attend = None if mask is None else ~mask[:, None, None, :]
+        ms, dev_ms = time_ms(
+            torch, lambda: cross_attention(q, mkt, mv, mask, **kw),
+            flush=flush, device=True)
+        plain_ms = time_ms(
+            torch, lambda: cross_attention_plain(q, mkt, mv, mask, **kw),
+            flush=flush)
+        lib_ms = time_ms(
+            torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=attend, scale=kw["scale"]), flush=flush)
+        bnd = bound((2 * Bk * H + 2 * valid * H) * 2
+                    + (0 if mask is None else B * Sm),
+                    {"f32": 4 * K * valid * H})
+        out[name] = shape_entry(
+            f"B={B} K={K} H={H} Sm={Sm}{' masked' if masked else ''} bf16",
+            err, ms, plain_ms, bnd, lib_ms, dev_ms)
+        print(f"cross_attention {name} Sm={Sm} bf16: device {dev_ms:.4f} ms, "
+              f"event {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}), plain {plain_ms:.4f} ms, SDPA "
+              f"{lib_ms:.4f} ms [{smi}]", flush=True)
+    return out
+
+
+def family_inputs(torch, cfg, n, seed):
+    """``n`` random inputs of ``cfg`` on the CPU: uint8 images, or BUTD's
+    regions with 20 to 36 of them valid an image."""
+    from image_captioning_ml_project_tpu_torch.profile_slice import (
+        model_inputs)
+
+    return model_inputs(cfg, n, torch.Generator().manual_seed(seed))
+
+
+def family_decode(torch, cfg, model, inputs):
+    """:func:`decode`'s host tokens and float scores."""
+    res = decode(torch, model, cfg, inputs)
+    return res.tokens.cpu(), res.scores.float().cpu()
+
+
+def family_card_vs_cpu(torch, dev, name, cfg, tree, kernels):
+    """The f32 decode of :data:`FAMILY_F32_IMAGES` inputs on the card
+    (through #2, #6 and #4) and on the CPU (plain versions) from the same
+    weights: tokens identical, scores within 1e-4."""
+    from image_captioning_ml_project_tpu_torch.models.captioning_model import (
+        load_model)
+    from image_captioning_ml_project_tpu_torch.profile_slice import (
+        move_inputs)
+
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.model.dtype = "float32"
+    n = FAMILY_F32_IMAGES[name]
+    x = family_inputs(torch, cfg32, n, cfg.seed + 3)
+    out = {}
+    t0 = time.perf_counter()
+    for where in (dev, torch.device("cpu")):
+        model = load_model(cfg32, where, params=tree)
+        out[where.type] = family_decode(torch, cfg32, model,
+                                        move_inputs(x, where))
+        del model
+    (tok_g, sc_g), (tok_c, sc_c) = out["cuda"], out["cpu"]
+    err = float((sc_g - sc_c).abs().max())
+    print(f"{name} f32 card vs CPU ({n} images): tokens gpu="
+          f"{tok_g.tolist()} cpu={tok_c.tolist()}, scores max_abs_err "
+          f"{err:.3e}; {time.perf_counter() - t0:.1f} s", flush=True)
+    check(torch.isfinite(sc_g).all(), f"{name}: non-finite scores")
+    check(torch.equal(tok_g, tok_c),
+          f"{name}: card and CPU decode different tokens")
+    check(err <= 1e-4, f"{name}: scores differ by {err} > 1e-4")
+    return {"images": n, "score_err": err}
+
+
+def family_launches(cfg, steps):
+    """What a Transformer-decoder decode of ``steps`` steps launches: #2
+    and #6 once a layer a step, #4 once a step, nothing else."""
+    layers = cfg.model.decoder.num_layers
+    return {"beam_decode_attention_qkv": steps * layers,
+            "cross_attention": steps * layers, "lse_and_block_max": steps}
+
+
+def family_bf16_decode(torch, dev, name, cfg, model, kernels, smi):
+    """The direct bf16 decode of 64 inputs after a warm-up, its encode
+    timed apart, with the launch counters set to 0 just before and read
+    just after. Returns its numbers and the device inputs."""
+    from image_captioning_ml_project_tpu_torch.profile_slice import (
+        move_inputs)
+
+    x = move_inputs(family_inputs(torch, cfg, FAMILY_DECODE_BATCH,
+                                  cfg.seed + 4), dev)
+    family_decode(torch, cfg, model, x)
+    with torch.inference_mode():
+        encode_ms = time_ms(torch, lambda: model.encode(x), runs=5)
+    torch.cuda.synchronize()
+    with DecodeCounts() as counts:
+        _zero_launches(kernels)
+        t0 = time.perf_counter()
+        tokens, scores = family_decode(torch, cfg, model, x)
+        seconds = time.perf_counter() - t0
+        launched = _launches(kernels)
+    check(torch.isfinite(scores).all(), f"{name}: non-finite bf16 scores")
+    expect({"launches": launched}, family_launches(cfg, counts.steps))
+    B = FAMILY_DECODE_BATCH
+    print(f"{name} bf16 decode of {B}: encode {encode_ms:.2f} ms, the decode "
+          f"{seconds * 1e3:.1f} ms ({B / seconds:.1f} images/s, "
+          f"{counts.steps} steps); launches {launched} [{smi}]", flush=True)
+    return {"batch": B, "encode_ms": encode_ms, "decode_ms": seconds * 1e3,
+            "images_per_s": B / seconds, "steps": counts.steps,
+            "launches": launched}, x, tokens
+
+
+def family_train(torch, dev, name, cfg, tree, kernels, smi, tmp):
+    """Two bf16 CE steps of :data:`FAMILY_TRAIN_BATCH` random inputs and
+    captions through ``CaptioningTrainer``: finite losses, no kernel
+    launched, each step's time, images/s and peak memory."""
+    from image_captioning_ml_project_tpu_torch.profile_slice import (
+        move_inputs)
+    from image_captioning_ml_project_tpu_torch.train.trainer import (
+        CaptioningTrainer)
+
+    B = FAMILY_TRAIN_BATCH
+    tcfg = copy.deepcopy(cfg)
+    tcfg.training.use_amp, tcfg.training.batch_size = True, B
+    tcfg.training.use_rl = False
+    tcfg.output_dir = tcfg.checkpoint_dir = os.path.join(tmp, f"{name}_train")
+    trainer = CaptioningTrainer(tcfg, [None] * B, [], None, device=dev,
+                                params=tree)
+    g = torch.Generator().manual_seed(cfg.seed + 5)
+    x = move_inputs(family_inputs(torch, cfg, B, cfg.seed + 5), dev)
+    T = cfg.model.decoder.max_length
+    caps = torch.randint(4, cfg.model.vocab_size, (B, T), generator=g).to(dev)
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _zero_launches(kernels)
+    step_ms, losses = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(x, caps, mask)["total_loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launched = _launches(kernels)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    del trainer
+    check(all(math.isfinite(v) for v in losses), f"{name}: losses {losses}")
+    check(not any(launched.values()),
+          f"{name}: a training step launched kernels: {launched}")
+    print(f"{name} bf16 CE steps of {B}: losses {losses}, "
+          f"{[round(t, 1) for t in step_ms]} ms ({B / step_ms[-1] * 1e3:.1f} "
+          f"images/s in the second), {peak:.2f} GiB at the peak [{smi}]",
+          flush=True)
+    return {"batch": B, "step_ms": step_ms, "losses": losses,
+            "images_per_s": B / step_ms[-1] * 1e3, "peak_gib": peak}
+
+
+def family_serve(torch, dev, name, cfg, tree, smi):
+    """One served round of 64 through ``CaptionService`` after its warm-up
+    round, the launches checked."""
+    runs = serve(torch, dev, cfg, tree, smi,
+                 [(f"{name} served", CONFIGS[0][1], 1, 0)])
+    run = runs[f"{name} served"]
+    expect(run, family_launches(cfg, run["steps"]))
+    return {k: run[k] for k in ("steps", "batches", "launches")}
+
+
+def butd_eval(torch, dev, cfg, fixture, tmp, kernels, smi):
+    """``--mode eval`` of the BUTD configuration over detector features of
+    phase 7's 64 validation images (36 regions of 2048, 20 to 36 valid),
+    seeded weights, a word vocabulary of 30000: every image captioned
+    once, #2 and #6 once a layer a step, #4 once a step, nothing else."""
+    from image_captioning_ml_project_tpu_torch import main as port_main
+    from image_captioning_ml_project_tpu_torch.config import save_config
+    from image_captioning_ml_project_tpu_torch.data.synthetic import (
+        make_synthetic_object_features)
+    from image_captioning_ml_project_tpu_torch.data.tokenizer import WordVocab
+
+    root = fixture["config"].data_root
+    make_synthetic_object_features(
+        os.path.join(root, cfg.features_dir),
+        os.path.join(root, cfg.val_json), max_objects=36, feature_dim=2048,
+        seed=fixture["seed"], min_objects=20)
+    vocab = WordVocab({w: i for w, i in fixture["tokenizer"].word2idx.items()
+                       if i < cfg.model.vocab_size})
+    ecfg = copy.deepcopy(cfg)
+    ecfg.data_root = root
+    out_dir = os.path.join(tmp, "butd_eval")
+    cfg_path, vocab_path = (os.path.join(tmp, f"butd.{x}")
+                            for x in ("json", "vocab.json"))
+    save_config(ecfg, cfg_path)
+    vocab.save(vocab_path)
+    n = len(fixture["val_ds"])
+    with DecodeCounts() as counts:
+        _zero_launches(kernels)
+        t0 = time.perf_counter()
+        metrics = port_main.main(["--mode", "eval", "--config", cfg_path,
+                                  "--vocab", vocab_path, "--output_dir",
+                                  out_dir])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = _launches(kernels)
+    results = _results(os.path.join(out_dir, "results.json"))
+    check(len(results) == n, f"butd eval captioned {len(results)} of {n}")
+    check(counts.encodes == -(-n // EVAL_BATCH),
+          f"butd eval: {counts.encodes} batches")
+    expect({"launches": launched}, family_launches(cfg, counts.steps))
+    print(f"butd --mode eval: {n} images in {counts.encodes} batches, "
+          f"{counts.steps} decode steps, the call {seconds:.1f} s; CIDEr "
+          f"{metrics['CIDEr']:.4f}; launches {launched} [{smi}]", flush=True)
+    return {"images": n, "steps": counts.steps, "seconds": seconds,
+            "cider": metrics["CIDEr"], "launches": launched}
+
+
+def butd_leak(torch, model, cfg, x, tokens):
+    """Masked regions cannot leak into the decode: the bf16 tokens with
+    every masked region's features and boxes replaced by large noise are
+    those of the original inputs."""
+    mask = x["region_mask"]
+    g = torch.Generator(device=mask.device).manual_seed(cfg.seed + 6)
+    noisy = dict(x)
+    for key in ("region_features", "region_boxes"):
+        noise = 100 * torch.randn(x[key].shape, generator=g,
+                                  device=mask.device)
+        noisy[key] = torch.where(mask[..., None], x[key], noise)
+    got, _ = family_decode(torch, cfg, model, noisy)
+    check(torch.equal(got, tokens),
+          "butd: the features of masked regions changed the tokens")
+    print(f"butd: masked regions ({int((~mask).sum())} of {mask.numel()}) "
+          f"replaced by noise, the tokens unchanged", flush=True)
+
+
+def resize_phase(torch, dev, fixture, scorer, tmp, kernels, smi):
+    """The flagship's device-resident resize on phase 7's ``best_model``:
+    the card's ``resize_normalize`` of a batch of canvases against the
+    CPU's (1e-4); ``main.evaluate`` with ``device_resize`` in f32 on the
+    card and the CPU, captions identical; ``--mode eval --device_resize``
+    in bf16, then with the CLIP reranker on the resized pixels, then
+    ``--mode eval --fold_normalize`` (uint8 to the patch embed's fold),
+    each with its launches checked."""
+    from image_captioning_ml_project_tpu_torch import main as port_main
+    from image_captioning_ml_project_tpu_torch.config import save_config
+    from image_captioning_ml_project_tpu_torch.data.coco import (
+        build_coco_datasets, iterate_batches)
+    from image_captioning_ml_project_tpu_torch.data.synthetic import (
+        make_synthetic_coco)
+    from image_captioning_ml_project_tpu_torch.inference.reranking import (
+        CLIPReranker)
+    from image_captioning_ml_project_tpu_torch.ops.resize import (
+        resize_normalize)
+
+    tokenizer, seed = fixture["tokenizer"], fixture["seed"]
+    base = copy.deepcopy(fixture["config"])
+    base.device_resize = True
+    roots = {n: make_synthetic_coco(
+        os.path.join(tmp, f"resize{n}"), num_images=n, captions_per_image=5,
+        image_size=300, seed=seed + 7, image_format="jpg", size_jitter=120)
+        for n in (RESIZE_F32_IMAGES, RESIZE_IMAGES)}
+    base.data_root = roots[RESIZE_IMAGES]
+    _, val_ds = build_coco_datasets(base, tokenizer)
+    batch = next(iterate_batches(val_ds, RESIZE_IMAGES, shuffle=False))
+    canvas, sides = (torch.from_numpy(batch[k]) for k in ("image",
+                                                          "image_size"))
+    got = resize_normalize(canvas.to(dev), sides.to(dev), base.image_size)
+    want = resize_normalize(canvas, sides, base.image_size)
+    err = float((got.cpu() - want).abs().max())
+    print(f"resize_normalize card vs CPU: {RESIZE_IMAGES} canvases of "
+          f"{canvas.shape[1]}, sides {sides.tolist()}: max_abs_err "
+          f"{err:.3e}", flush=True)
+    check(err <= 1e-4, f"resize_normalize: card and CPU differ by {err}")
+    numbers = {"canvas_err": err, "sides": sides.tolist()}
+
+    out = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        c = copy.deepcopy(base)
+        c.model.dtype = "float32"
+        c.data_root = roots[RESIZE_F32_IMAGES]
+        c.output_dir = os.path.join(tmp, f"resize_f32_{where}")
+        port_main.evaluate(c, "best_model", tokenizer=tokenizer,
+                           device=device)
+        out[where] = _results(os.path.join(c.output_dir, "results.json"))
+    check(out["card"] == out["cpu"] and len(out["card"]) == RESIZE_F32_IMAGES,
+          f"device-resize f32 eval captions differ: {out}")
+    print(f"device-resize f32 eval card vs CPU: the {RESIZE_F32_IMAGES} "
+          f"captions identical", flush=True)
+
+    out_dir = os.path.dirname(base.checkpoint_dir)
+    cfg_path = os.path.join(tmp, "resize_flagship.json")
+    vocab_path = os.path.join(tmp, "resize_vocab.json")
+    plain = copy.deepcopy(base)
+    plain.device_resize = False
+    save_config(plain, cfg_path)
+    tokenizer.save(vocab_path)
+    argv = ["--config", cfg_path, "--vocab", vocab_path, "--output_dir",
+            out_dir, "--checkpoint", "best_model"]
+    numbers["eval"], captions = eval_run(
+        torch, "eval bf16 --device_resize",
+        lambda: port_main.main(["--mode", "eval", "--device_resize"]
+                               + argv), val_ds, out_dir, kernels, smi)
+    rcfg = copy.deepcopy(base)
+    rcfg.output_dir = out_dir
+    rcfg.inference.use_clip_reranking = True
+    reranker = CLIPReranker(scorer, clip_tokenize, lambda ids:
+                            tokenizer.decode(ids, skip_special_tokens=True))
+    numbers["reranked_eval"], _ = eval_run(
+        torch, "eval bf16 --device_resize + CLIP reranking",
+        lambda: port_main.evaluate(rcfg, "best_model", tokenizer=tokenizer,
+                                   reranker=reranker, device=dev),
+        val_ds, out_dir, kernels, smi, rerank=True)
+    numbers["fold_eval"], folded = eval_run(
+        torch, "eval bf16 --fold_normalize",
+        lambda: port_main.main(["--mode", "eval", "--fold_normalize"]
+                               + argv), val_ds, out_dir, kernels, smi)
+    print(f"--fold_normalize (host resize) against --device_resize: "
+          f"{sum(captions[i] != folded[i] for i in captions)} of "
+          f"{len(captions)} captions differ", flush=True)
+    return numbers
+
+
+def families_phase(torch, dev, smi, fixture, scorer, tmp):
+    """Phase 9 (module docstring). Returns the summary line's numbers and
+    #6's entries at the new memory lengths."""
+    from image_captioning_ml_project_tpu_torch.main import (
+        butd_config, qformer_config, transformer_config)
+    from image_captioning_ml_project_tpu_torch.config import EncoderType
+    from image_captioning_ml_project_tpu_torch.models.captioning_model import (
+        load_model)
+    from image_captioning_ml_project_tpu_torch.params import init_flax_params
+
+    kernels = counters()
+    t0 = time.perf_counter()
+    cross = check_cross_families(torch, dev, smi)
+    print(f"#6 at the families' shapes: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def swin_config():
+        c = transformer_config()
+        c.model.encoder.encoder_type = EncoderType.SWIN
+        return c
+
+    numbers = {}
+    for name, make in (("qformer", qformer_config), ("butd", butd_config),
+                       ("swin", swin_config)):
+        t0 = time.perf_counter()
+        cfg = make()
+        cfg.seed = fixture["seed"]
+        tree = init_flax_params(cfg, cfg.seed)
+        print(f"{name}: weights drawn from seed {cfg.seed}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        fam = {"f32_card_vs_cpu": family_card_vs_cpu(torch, dev, name, cfg,
+                                                     tree, kernels)}
+        model = load_model(cfg, dev, params=tree)
+        fam["decode"], x, tokens = family_bf16_decode(torch, dev, name, cfg,
+                                                      model, kernels, smi)
+        if name == "butd":
+            butd_leak(torch, model, cfg, x, tokens)
+        del model, x
+        if name == "butd":
+            fam["eval"] = butd_eval(torch, dev, cfg, fixture, tmp, kernels,
+                                    smi)
+        else:
+            fam["served"] = family_serve(torch, dev, name, cfg, tree, smi)
+        if name != "swin":
+            fam["train"] = family_train(torch, dev, name, cfg, tree, kernels,
+                                        smi, tmp)
+        del tree
+        torch.cuda.empty_cache()
+        check_ancestry(dev, name)
+        print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        numbers[name] = fam
+    t0 = time.perf_counter()
+    numbers["device_resize"] = resize_phase(torch, dev, fixture, scorer, tmp,
+                                            kernels, smi)
+    print(f"device resize: {time.perf_counter() - t0:.1f} s", flush=True)
+    return numbers, cross
+
+
 def kernel_entry(name, route, source, replaces, numbers, launches):
     """The summary line's entry for one kernel: the numbers at the shape
     of the first family that runs it of the Transformer, the flagship and
@@ -2902,7 +3361,7 @@ def main():
     import shutil
     import tempfile
 
-    # phase 7's fixture and checkpoints, which phase 8 reads
+    # phase 7's fixture and checkpoints, which phases 8 and 9 read
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase("device")
@@ -3054,6 +3513,13 @@ def main():
         print(f"eval and demo phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
 
+        phase("other families and the device-resident resize")
+        t0 = time.perf_counter()
+        families, cross_shapes = families_phase(torch, dev, smi, fixture,
+                                                scorer, tmp)
+        print(f"families phase: {time.perf_counter() - t0:.1f} s [{smi}]",
+              flush=True)
+
         # the port stands alone: nothing of JAX or the JAX package ran
         foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
             "jax", "jaxlib", "flax", "image_captioning_ml_project_tpu"))
@@ -3106,6 +3572,13 @@ def main():
         entry["evaluation"] = {
             run: evaluation[run]["launches"][entry["name"]]
             for run in ("eval", "reranked_eval", "demo")}
+        entry["families"] = {
+            f"{family} {run}": numbers["launches"][entry["name"]]
+            for family, runs in families.items() for run, numbers in
+            runs.items() if isinstance(numbers, dict)
+            and "launches" in numbers and numbers["launches"][entry["name"]]}
+        if entry["name"] == "cross_attention":
+            entry["family_shapes"] = cross_shapes
     print(json.dumps({"training": {
         key: (training[key] if key == "f32_card_vs_cpu" else
               {k: v for k, v in training[key].items() if k != "launches"})
@@ -3114,6 +3587,11 @@ def main():
         key: ({k: v for k, v in value.items() if k != "launches"}
               if isinstance(value, dict) else value)
         for key, value in evaluation.items()}}))
+    print(json.dumps({"families": {
+        family: {run: {k: v for k, v in numbers.items() if k != "launches"}
+                 if isinstance(numbers, dict) else numbers
+                 for run, numbers in runs.items()}
+        for family, runs in families.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": kind, "count": count}}))

@@ -4,9 +4,8 @@ A copy of ``image_captioning_ml_project_tpu.config``: the same fields, the
 same defaults and the same JSON form, so a config saved by either package
 loads in the other (``tests/test_torch_params.py`` holds the two equal).
 The port carries its own copy because it never imports the JAX package.
-Fields of parts not yet ported (training, the mesh, the other encoders and
-decoders) are kept for that round trip; the port reads only what its slice
-runs. Enums are string-valued, so a member equals its value and the same
+Fields of parts not yet ported (the mesh, the legacy stack) are kept for
+that round trip; the port reads only what it runs. Enums are string-valued, so a member equals its value and the same
 member of the JAX package's enum.
 """
 
@@ -190,6 +189,14 @@ class Config:
     native_threads: int = 0
     native_draft: bool = False
     fold_normalize: bool = False
+
+
+def reads_regions(encoder: EncoderConfig) -> bool:
+    """The object-region mode: the model reads detector regions instead of
+    images (the ``object_region`` encoder, or ``use_object_features`` with
+    any encoder type, as the JAX package decides it)."""
+    return (encoder.encoder_type == EncoderType.OBJECT_REGION
+            or encoder.use_object_features)
 
 
 def get_default_config() -> Config:

@@ -1,20 +1,24 @@
-"""COCO caption data in the port: image preprocessing, the caption
-dataset, fixed-shape batching.
+"""COCO caption data in the port: image preprocessing, the caption and
+detector-feature datasets, fixed-shape batching.
 
-A copy of the caption half of ``image_captioning_ml_project_tpu.data.
-coco``, held equal to it by the tests (same examples, same batches in the
-same order from the same seed): training yields one example per
-(image, caption) annotation with RandomResizedCrop + horizontal flip on
-the host, evaluation groups every caption of an image, padded to a fixed
-reference count, with a resize + center crop. Images leave the host as
-uint8 NHWC and are normalised on their device (:func:`normalize_images`).
+A copy of ``image_captioning_ml_project_tpu.data.coco``, held equal to it
+by the tests (same examples, same batches in the same order from the same
+seed): training yields one example per (image, caption) annotation with
+RandomResizedCrop + horizontal flip on the host, evaluation groups every
+caption of an image, padded to a fixed reference count, with a resize +
+center crop. Images leave the host as uint8 NHWC and are normalised on
+their device (:func:`normalize_images`). With ``device_resize`` (eval
+only) the host just decodes each image's centre square onto a fixed
+canvas of about 1.5 x the image size (:func:`load_image_square`) and the
+batch carries each square's side under ``image_size``; the card resizes
+and normalises (:func:`..ops.resize.resize_normalize`).
+:class:`ObjectDetectionFeaturesDataset` reads pre-extracted detector
+regions (``.npz`` per image) instead of images.
 
 Images are read with PIL, imported where an image is opened, or, with
 ``native_loader``, by the port's C++ JPEG pipeline (:mod:`..native`: one
 call decodes a whole batch on host threads), which falls back to PIL when
-it did not build and for each image it cannot decode. The device-resident
-resize (the JAX package's ``device_resize`` canvases) is not ported
-(ROADMAP.md Queue 1 item 9): asking for it raises.
+it did not build and for each image it cannot decode.
 """
 
 from __future__ import annotations
@@ -107,6 +111,33 @@ def load_image(path: str, size: int, train: bool,
     return np.asarray(img, dtype=np.uint8)
 
 
+def load_image_square(path: str, target: int, canvas: int):
+    """The decode-only host path of the device-resident resize: libjpeg
+    decodes at a reduced DCT scale (PIL's ``draft``: the shorter side stays
+    >= ``target`` where the original's is), the centred square (all that
+    the eval transform's resize + centre crop keeps) is cut out and placed
+    top-left on a ``[canvas, canvas, 3]`` uint8 canvas. A square larger
+    than the canvas (not a JPEG, or a very large one) is downscaled to it
+    on the host first. Returns (canvas image, side)."""
+    from PIL import Image
+
+    img = Image.open(path)
+    img.draft("RGB", (target, target))
+    arr = np.asarray(img.convert("RGB"), dtype=np.uint8)
+    h, w = arr.shape[:2]
+    side = min(h, w)
+    top, left = (h - side) // 2, (w - side) // 2
+    sq = arr[top:top + side, left:left + side]
+    if side > canvas:
+        sq = np.asarray(Image.fromarray(sq).resize((canvas, canvas),
+                                                   Image.BILINEAR),
+                        dtype=np.uint8)
+        side = canvas
+    out = np.zeros((canvas, canvas, 3), dtype=np.uint8)
+    out[:side, :side] = sq
+    return out, np.int32(side)
+
+
 # ---------------------------------------------------------------------------
 # Dataset
 # ---------------------------------------------------------------------------
@@ -160,10 +191,6 @@ class COCOCaptionDataset:
         native_threads: int = 0,
         native_draft: bool = False,
     ):
-        if device_resize and not is_training:
-            raise NotImplementedError(
-                "the device-resident resize is not yet ported to PyTorch "
-                "(ROADMAP.md Queue 1 item 9)")
         self.root_dir = root_dir
         self.image_dir = os.path.join(root_dir, image_dir)
         self.annotation_path = os.path.join(root_dir, annotation_file)
@@ -173,6 +200,12 @@ class COCOCaptionDataset:
         self.is_training = is_training
         self.max_ref_captions = max_ref_captions
         self.rng = np.random.RandomState(seed)
+        # the device-resident preprocessing, eval only (training's crops
+        # need full-resolution pixels): a canvas of 1.5 x the image size,
+        # a multiple of 16, holds the draft decode's centre square of any
+        # original up to 3 x the image size
+        self.device_resize = device_resize and not is_training
+        self.canvas_size = -(-3 * image_size // 2 // 16) * 16
         # the native C++ decode (native/jpeg_loader.cpp): resolved at the
         # first image load, so building a dataset never compiles; PIL is
         # the fallback
@@ -213,14 +246,19 @@ class COCOCaptionDataset:
     def _path(self, idx: int) -> str:
         return os.path.join(self.image_dir, self.examples[idx]["filename"])
 
-    def _load_native_one(self, path: str) -> Optional[np.ndarray]:
-        """Native decode of one image, or None for the PIL fallback
-        (the library missing, or an input it rejects)."""
+    def _load_native_one(self, path: str):
+        """Native decode of one image (with ``device_resize``, its
+        (canvas, side)), or None for the PIL fallback (the library
+        missing, or an input it rejects)."""
         nl = self._native_mod()
         if nl is None:
             return None
         with open(path, "rb") as f:
             buf = f.read()
+        if self.device_resize:
+            canv, sides = nl.decode_square_batch(
+                [buf], self.image_size, self.canvas_size, n_threads=1)
+            return None if sides[0] < 0 else (canv[0], np.int32(sides[0]))
         if self.is_training:
             wh = nl.probe(buf)
             if wh is None:
@@ -252,9 +290,10 @@ class COCOCaptionDataset:
         """Decode the images of ``tasks = [(idx, sample_seed), ...]`` in
         one call to the native thread pool (the GIL released for the
         batch), with the same per-sample seeding as the PIL path. Returns
-        the images aligned with ``tasks``, or None when the native library
-        is unavailable; an image the native decoder rejects is decoded by
-        PIL instead."""
+        the images aligned with ``tasks`` (with ``device_resize``, their
+        (canvas, side) pairs), or None when the native library is
+        unavailable; an image the native decoder rejects is decoded by PIL
+        instead."""
         nl = self._native_mod()
         if nl is None:
             return None
@@ -263,6 +302,13 @@ class COCOCaptionDataset:
             with open(self._path(idx), "rb") as f:
                 bufs.append(f.read())
         nt = self.native_threads or None
+        if self.device_resize:
+            canv, sides = nl.decode_square_batch(
+                bufs, self.image_size, self.canvas_size, n_threads=nt)
+            return [(canv[j], np.int32(sides[j])) if sides[j] >= 0 else
+                    load_image_square(self._path(idx), self.image_size,
+                                      self.canvas_size)
+                    for j, (idx, _) in enumerate(tasks)]
         if not self.is_training:
             imgs, st = nl.decode_eval_batch(bufs, self.image_size,
                                             draft=self.native_draft,
@@ -317,13 +363,19 @@ class COCOCaptionDataset:
 
     def get_sample(self, idx: int, image=None) -> Dict[str, Any]:
         """Assemble one sample; ``image`` may be given already decoded
-        (:meth:`decode_chunk`)."""
+        (:meth:`decode_chunk`), with ``device_resize`` as (canvas, side)."""
         ex = self.examples[idx]
         if image is None and self.native_loader:
             image = self._load_native_one(self._path(idx))
         if image is None:
-            image = load_image(self._path(idx), self.image_size,
-                               self.is_training, self.rng)
+            image = (load_image_square(self._path(idx), self.image_size,
+                                       self.canvas_size)
+                     if self.device_resize else
+                     load_image(self._path(idx), self.image_size,
+                                self.is_training, self.rng))
+        side = None
+        if isinstance(image, tuple):
+            image, side = image
         if self.is_training:
             ids, mask = self.tokenizer.encode(ex["caption"], self.max_length)
             return {
@@ -350,6 +402,8 @@ class COCOCaptionDataset:
             "captions": ex["captions"],
             "image_id": ex["image_id"],
         }
+        if side is not None:
+            sample["image_size"] = side
         return sample
 
     def caption_lengths(self) -> np.ndarray:
@@ -357,6 +411,91 @@ class COCOCaptionDataset:
         reference: src/train/curriculum.py:82-98). Training mode only."""
         return np.array(
             [len(ex["caption"].split()) for ex in self.examples], dtype=np.int32)
+
+
+class ObjectDetectionFeaturesDataset:
+    """Pre-extracted detector features (an ``.npz`` of ``features`` and
+    ``boxes`` per image id), padded or truncated to ``max_objects`` with
+    the valid regions in ``region_mask``; a file that fails to load gives
+    zeros and an all-False mask (the reference's behaviour)."""
+
+    def __init__(self, features_dir: str, annotation_file: str, tokenizer,
+                 max_objects: int = 36, max_length: int = 50,
+                 is_training: bool = True, feature_dim: int = 2048,
+                 max_ref_captions: int = 5):
+        self.features_dir = features_dir
+        self.tokenizer = tokenizer
+        self.max_objects = max_objects
+        self.max_length = max_length
+        self.is_training = is_training
+        self.feature_dim = feature_dim
+        self.max_ref_captions = max_ref_captions
+        with open(annotation_file) as f:
+            self.annotations = json.load(f)
+        self.image_id_to_filename = {
+            img["id"]: f"{img['id']}.npz" for img in self.annotations["images"]
+        }
+        self.examples = build_caption_examples(
+            self.annotations["annotations"], self.image_id_to_filename,
+            is_training)
+
+    def __len__(self):
+        return len(self.examples)
+
+    def _load_features(self, filename: str):
+        N, D = self.max_objects, self.feature_dim
+        feats = np.zeros((N, D), dtype=np.float32)
+        boxes = np.zeros((N, 4), dtype=np.float32)
+        mask = np.zeros(N, dtype=bool)
+        try:
+            data = np.load(os.path.join(self.features_dir, filename),
+                           allow_pickle=True)
+            f, b = data["features"], data["boxes"]
+            n = min(f.shape[0], N)
+            feats[:n] = f[:n]
+            boxes[:n] = b[:n]
+            mask[:n] = True
+        except Exception as e:  # zero-fill
+            print(f"Error loading features for {filename}: {e}")
+        return feats, boxes, mask
+
+    def num_objects(self) -> np.ndarray:
+        """The detected-object count of each example, from its region mask
+        (the curriculum's ``num_objects`` difficulty); each file read
+        once."""
+        counts: Dict[str, int] = {}
+        for ex in self.examples:
+            fn = ex["filename"]
+            if fn not in counts:
+                counts[fn] = int(self._load_features(fn)[2].sum())
+        return np.array([counts[ex["filename"]] for ex in self.examples],
+                        dtype=np.int32)
+
+    def caption_lengths(self) -> np.ndarray:
+        """Word counts per training caption (the curriculum's
+        difficulty)."""
+        return np.array(
+            [len(ex["caption"].split()) for ex in self.examples
+             if "caption" in ex] or [0], dtype=np.int32)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        ex = self.examples[idx]
+        feats, boxes, mask = self._load_features(ex["filename"])
+        base = {"region_features": feats, "region_boxes": boxes,
+                "region_mask": mask, "image_id": ex["image_id"]}
+        if self.is_training:
+            ids, amask = self.tokenizer.encode(ex["caption"], self.max_length)
+            return dict(base, caption_tokens=ids, attention_mask=amask,
+                        caption=ex["caption"])
+        R = self.max_ref_captions
+        ids = np.zeros((R, self.max_length), dtype=np.int32)
+        amask = np.zeros((R, self.max_length), dtype=np.int32)
+        ref_mask = np.zeros(R, dtype=np.int32)
+        for i, cap in enumerate(ex["captions"][:R]):
+            ids[i], amask[i] = self.tokenizer.encode(cap, self.max_length)
+            ref_mask[i] = 1
+        return dict(base, caption_tokens=ids, attention_mask=amask,
+                    ref_mask=ref_mask, captions=ex["captions"])
 
 
 # ---------------------------------------------------------------------------
@@ -521,4 +660,21 @@ def build_coco_datasets(config, tokenizer):
         device_resize=getattr(config, "device_resize", False),
         **native,
     )
+    return train, val
+
+
+def build_object_datasets(config, tokenizer):
+    """Train/val pair over pre-extracted detector features under
+    ``data_root/features_dir`` (the object-region path)."""
+    feats = os.path.join(config.data_root, config.features_dir)
+    common = dict(features_dir=feats, tokenizer=tokenizer,
+                  max_objects=config.model.encoder.max_objects,
+                  max_length=config.model.decoder.max_length,
+                  feature_dim=config.model.encoder.region_feature_dim)
+    train = ObjectDetectionFeaturesDataset(
+        annotation_file=os.path.join(config.data_root, config.train_json),
+        is_training=True, **common)
+    val = ObjectDetectionFeaturesDataset(
+        annotation_file=os.path.join(config.data_root, config.val_json),
+        is_training=False, **common)
     return train, val

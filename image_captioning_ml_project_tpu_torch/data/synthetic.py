@@ -78,16 +78,18 @@ def make_synthetic_object_features(
     max_objects: int = 12,
     feature_dim: int = 64,
     seed: int = 0,
+    min_objects: int = 3,
 ) -> str:
     """Write ``{image_id}.npz`` detector-feature files (features/boxes) for
     every image in ``annotation_file`` (reference feature layout:
-    src/data/dataset.py:280-306)."""
+    src/data/dataset.py:280-306), with ``min_objects`` to ``max_objects``
+    regions each (the JAX package's copy draws from 3)."""
     rng = np.random.RandomState(seed)
     os.makedirs(root, exist_ok=True)
     with open(annotation_file) as f:
         ann = json.load(f)
     for img in ann["images"]:
-        n = rng.randint(3, max_objects + 1)
+        n = rng.randint(min_objects, max_objects + 1)
         np.savez(
             os.path.join(root, f"{img['id']}.npz"),
             features=rng.randn(n, feature_dim).astype(np.float32),

@@ -504,12 +504,21 @@ def decode(step_fn, init_state, batch_size: int, inference_config,
     raise ValueError(f"Unknown decoding strategy: {strategy}")
 
 
+def batch_size_of(images) -> int:
+    """The batch size of model inputs: an NHWC batch's first dimension, or
+    a region-feature dict's ``region_mask`` rows."""
+    if isinstance(images, dict):
+        return images["region_mask"].shape[0]
+    return images.shape[0]
+
+
 @torch.inference_mode()
-def decode_images(model, images: torch.Tensor, config,
+def decode_images(model, images, config,
                   generator: Optional[torch.Generator] = None,
                   candidates: bool = False, step_fn=None):
-    """The captions of a batch of uint8 images on ``model``'s device (the
-    JAX CLI's ``_make_decode_batch``): one ``init_cache``, then
+    """The captions of a batch of uint8 images (or normalised float ones,
+    or a region-feature dict) on ``model``'s device (the JAX CLI's
+    ``_make_decode_batch``): one ``init_cache``, then
     ``config.inference``'s strategy's tokens [B, L] or, with
     ``candidates``, ``max(beam_size, num_candidates)`` beams of which the
     first ``num_candidates`` return as [B, num_candidates, L] for the CLIP
@@ -521,7 +530,7 @@ def decode_images(model, images: torch.Tensor, config,
     mc, ic = config.model, config.inference
     ids = (mc.bos_token_id, mc.eos_token_id, mc.pad_token_id)
     step_fn = step_fn or model.step
-    B = images.shape[0]
+    B = batch_size_of(images)
     state = model.init_cache(images, ic.max_length)
     if candidates:
         res = beam_search(step_fn, state, B,

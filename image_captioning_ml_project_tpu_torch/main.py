@@ -1,10 +1,9 @@
 """CLI entry point of the PyTorch port: ``--mode train``, ``eval``,
 ``demo`` and ``serve``.
 
-Same flags as the JAX CLI (``python -m image_captioning_ml_project_tpu.
-main``) but for the device-resident resize, ``fold_normalize`` and
-``--use_rl`` (the config's ``use_rl`` still applies), plus ``--device``
-(``cuda`` unless asked for the CPU) and ``--seed``. Run as::
+The JAX CLI's flags (``python -m image_captioning_ml_project_tpu.main``),
+applied to the config as it applies them, plus ``--device`` (``cuda``
+unless asked for the CPU) and ``--seed``. Run as::
 
     python -m image_captioning_ml_project_tpu_torch.main --mode train \
         --config flagship --data_root data --output_dir runs/x
@@ -20,11 +19,18 @@ main``) but for the device-resident resize, ``fold_normalize`` and
 
 ``--config`` takes a JSON file, or the name of a built-in configuration:
 ``flagship`` (:func:`flagship_config`, CLIP + GPT-2), ``transformer``
-(:func:`transformer_config`, ViT + Transformer decoder) or ``lstm``
-(:func:`lstm_config`, ResNet-101 + LSTM with soft attention;
-``--attention_type multi_head|adaptive|aoa`` picks another variant);
+(:func:`transformer_config`, ViT + Transformer decoder; ``--encoder_type
+swin`` puts Swin-B in the ViT's place), ``lstm`` (:func:`lstm_config`,
+ResNet-101 + LSTM with soft attention; ``--attention_type
+multi_head|adaptive|aoa`` picks another variant), ``qformer``
+(:func:`qformer_config`, ViT + Q-Former + Transformer decoder) or
+``butd`` (:func:`butd_config`, detector regions + Transformer decoder);
 without it the JAX package's default configuration (ViT-B/16 + 6-layer
-GPT-2).
+GPT-2). In the object-region mode (``butd``, or any configuration with
+``use_object_features``) train and eval read detector features under
+``data_root/features_dir`` (:func:`.data.coco.build_object_datasets`),
+and CLIP reranking is skipped with a warning: there are no pixels to
+score.
 
 ``train`` builds the COCO datasets under ``--data_root``, the tokenizer
 and :class:`.train.trainer.CaptioningTrainer`, resumes from
@@ -54,7 +60,13 @@ draws the weights from ``--seed``, and answers ``/caption`` and
 (without one the service warns and serves without reranking).
 
 ``--native_loader`` decodes JPEGs with the port's C++ loader
-(:mod:`.native`; PIL where it did not build).
+(:mod:`.native`; PIL where it did not build). ``--device_resize`` moves
+eval's resize and normalisation to the device: the host decodes each
+image's centre square onto a canvas (:func:`.data.coco.
+load_image_square`) and :func:`.ops.resize.resize_normalize` does the
+rest. ``--fold_normalize`` hands uint8 pixels to a ViT or CLIP patch
+embed, which folds the ImageNet normalisation into its matrix product
+(:class:`.models.encoders.PatchEmbed`).
 """
 
 from __future__ import annotations
@@ -69,7 +81,8 @@ import numpy as np
 import torch
 
 from .config import (AttentionType, Config, DecoderType, EncoderType,
-                     get_default_config, load_config, save_config)
+                     get_default_config, load_config, reads_regions,
+                     save_config)
 from .data.tokenizer import HFTokenizerAdapter, WordVocab
 
 
@@ -163,8 +176,60 @@ def lstm_config() -> Config:
     return c
 
 
+def qformer_config() -> Config:
+    """The Q-Former family at the widths of the JAX package's
+    ``scripts/bench_families.py`` (its ``on_tpu`` branch): ViT-B/16 (the
+    default encoder: 12 layers, width 768, 224x224 input) -> a Q-Former of
+    32 learned queries, 2 self-attention + 2 cross-attention layers of
+    width 768 with 8 heads -> 6-layer Transformer decoder (width 768, 12
+    heads, learned positions for 24 tokens) over vocab 30000, beam 5, max
+    length 20; bf16 weights."""
+    c = _bench_families_config()
+    c.model.encoder.encoder_type = EncoderType.VIT
+    c.model.use_q_former = True
+    c.model.projection_dim = c.model.decoder.hidden_dim
+    c.model.q_former_num_queries = 32
+    c.model.q_former_num_layers = 2
+    c.model.q_former_num_heads = 8
+    return c
+
+
+def butd_config() -> Config:
+    """The bottom-up top-down family at the widths of the JAX package's
+    ``scripts/bench_families.py``: the object-region encoder over 36
+    detector regions of 2048-d features and their boxes, projected to 768
+    -> the same 6-layer Transformer decoder as :func:`qformer_config`."""
+    c = _bench_families_config()
+    c.model.encoder.encoder_type = EncoderType.OBJECT_REGION
+    c.model.encoder.max_objects = 36
+    c.model.encoder.region_feature_dim = 2048
+    c.model.encoder.feature_dim = c.model.decoder.hidden_dim
+    c.model.projection_dim = c.model.decoder.hidden_dim
+    return c
+
+
+def _bench_families_config() -> Config:
+    """What ``bench_families.build_config`` sets for both families: the
+    Transformer decoder (width 768, 6 layers, 12 heads, 24 positions),
+    multi-head attention, vocab 30000, beam 5, max length 20; bf16."""
+    c = get_default_config()
+    c.model.decoder.decoder_type = DecoderType.TRANSFORMER
+    c.model.attention.attention_type = AttentionType.MULTI_HEAD
+    c.model.decoder.hidden_dim = 768
+    c.model.decoder.num_layers = 6
+    c.model.decoder.num_heads = 12
+    c.model.decoder.max_length = 24
+    c.model.vocab_size = 30_000
+    c.model.dtype = "bfloat16"
+    c.inference.max_length = 20
+    c.inference.beam_size = 5
+    return c
+
+
 CONFIGS = {"flagship": flagship_config, "transformer": transformer_config,
-           "lstm": lstm_config}
+           "lstm": lstm_config, "qformer": qformer_config,
+           "butd": butd_config}
+
 
 
 def resolve_config(name: Optional[str]) -> Config:
@@ -197,6 +262,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         choices=["lstm", "transformer", "gpt2"])
     parser.add_argument("--attention_type", type=str, default=None,
                         choices=["soft", "multi_head", "adaptive", "aoa"])
+    parser.add_argument("--use_rl", action="store_true",
+                        help="SCST fine-tuning from rl_start_epoch")
     parser.add_argument("--data_root", type=str, default=None)
     parser.add_argument("--image_path", type=str, default=None,
                         help="The image --mode demo captions")
@@ -216,6 +283,20 @@ def build_argparser() -> argparse.ArgumentParser:
                              "(native/jpeg_loader.cpp, built with g++ and "
                              "libjpeg at first use); PIL where it did not "
                              "build")
+    parser.add_argument("--native_threads", type=int, default=None,
+                        help="Native decode threads (0 = one per host CPU)")
+    parser.add_argument("--native_draft", action="store_true",
+                        help="DCT-scaled native eval decode (the fastest; "
+                             "device_resize-grade resampling instead of "
+                             "PIL's)")
+    parser.add_argument("--device_resize", action="store_true",
+                        help="Device-resident eval preprocessing: the host "
+                             "decodes only; resize and normalisation run "
+                             "on the device (ops/resize.py)")
+    parser.add_argument("--fold_normalize", action="store_true",
+                        help="Fold the ImageNet normalisation into the "
+                             "ViT/CLIP patch-embed matmul: the model takes "
+                             "raw uint8 pixels (models/encoders.PatchEmbed)")
     parser.add_argument("--save_every_steps", type=int, default=None,
                         help="Rolling mid-epoch checkpoint every N train "
                              "batches (two alternating slots)")
@@ -258,12 +339,22 @@ def _update_config_from_args(config: Config, args) -> None:
     if args.attention_type:
         config.model.attention.attention_type = AttentionType(
             args.attention_type)
+    if args.use_rl:
+        config.training.use_rl = True
     if args.data_root:
         config.data_root = args.data_root
     if args.seed is not None:
         config.seed = args.seed
+    if args.device_resize:
+        config.device_resize = True
     if args.native_loader:
         config.native_loader = True
+    if args.native_threads is not None:
+        config.native_threads = args.native_threads
+    if args.native_draft:
+        config.native_draft = True
+    if args.fold_normalize:
+        config.fold_normalize = True
     if args.save_every_steps is not None:
         config.save_every_steps = args.save_every_steps
     if args.step_ckpt_max_overhead is not None:
@@ -323,6 +414,16 @@ def _resolve_reranker(config: Config, tokenizer, reranker, device):
         lambda ids: tokenizer.decode(ids, skip_special_tokens=True), device)
 
 
+def _datasets(config: Config, tokenizer):
+    """The train/val pair: detector features in the object-region mode,
+    else COCO images."""
+    from .data.coco import build_coco_datasets, build_object_datasets
+
+    if reads_regions(config.model.encoder):
+        return build_object_datasets(config, tokenizer)
+    return build_coco_datasets(config, tokenizer)
+
+
 def train(config: Config, checkpoint_path: Optional[str] = None,
           tokenizer=None, device="cuda", reranker=None):
     """Training on ``device`` (the JAX CLI's ``train``): the COCO
@@ -332,16 +433,17 @@ def train(config: Config, checkpoint_path: Optional[str] = None,
     :func:`_resolve_reranker`), the trainer, an optional resume from
     ``checkpoint_path``, then ``train()``: cross-entropy epochs, and SCST
     from ``rl_start_epoch`` when ``use_rl``. Returns the trainer."""
-    from .data.coco import build_coco_datasets
     from .train.curriculum import create_curriculum_sampler
     from .train.trainer import CaptioningTrainer
 
     tokenizer = tokenizer or setup_tokenizer(config)
-    train_ds, val_ds = build_coco_datasets(config, tokenizer)
+    train_ds, val_ds = _datasets(config, tokenizer)
     sampler = create_curriculum_sampler(train_ds, config)
     # with use_clip_reranking, validation reranks too, so the best-CIDEr
-    # checkpoint is selected by the decode that ships
-    reranker = _resolve_reranker(config, tokenizer, reranker, device)
+    # checkpoint is selected by the decode that ships (not in the
+    # object-region mode: no pixels)
+    if not reads_regions(config.model.encoder):
+        reranker = _resolve_reranker(config, tokenizer, reranker, device)
     trainer = CaptioningTrainer(config, train_ds, val_ds, tokenizer,
                                 curriculum_sampler=sampler,
                                 reranker=reranker, device=device)
@@ -375,31 +477,39 @@ def evaluate(config: Config, checkpoint_path: Optional[str] = None,
     rounding to a mesh), the last one padded and its padding ignored,
     and with ``use_clip_reranking`` the reranker (``reranker``, or
     :func:`_resolve_reranker`'s) picking among ``num_candidates`` beam
-    candidates on the batch's device images.
-    Scored by :func:`.evaluate.coco_eval.evaluate_model_on_coco`, which
-    also writes ``output_dir/results.json``."""
-    from .data.coco import build_coco_datasets
+    candidates on the batch's device images (from ``device_resize``
+    canvases, the resized pixels the captioner saw; skipped with a warning
+    in the object-region mode). Scored by
+    :func:`.evaluate.coco_eval.evaluate_model_on_coco`, which also writes
+    ``output_dir/results.json``."""
     from .evaluate.coco_eval import evaluate_model_on_coco
     from .inference.decoding import decode_images
+    from .train.trainer import (batch_inputs, prepare_inputs, rerank_pixels,
+                                to_device)
 
-    enc = config.model.encoder
-    if enc.encoder_type == EncoderType.OBJECT_REGION \
-            or enc.use_object_features:
-        raise NotImplementedError(
-            "object-region evaluation is not yet ported to PyTorch "
-            "(ROADMAP.md Queue 1 item 10)")
     tokenizer = tokenizer or setup_tokenizer(config)
-    _, val_ds = build_coco_datasets(config, tokenizer)
+    _, val_ds = _datasets(config, tokenizer)
     model = _load_decode_model(config, checkpoint_path, device)
-    reranker = _resolve_reranker(config, tokenizer, reranker, device)
+    regions = reads_regions(config.model.encoder)
+    if regions and config.inference.use_clip_reranking:
+        logging.getLogger(__name__).warning(
+            "CLIP reranking needs raw images; the object-region pipeline "
+            "carries detector features only: skipping it")
+        reranker = None
+    else:
+        reranker = _resolve_reranker(config, tokenizer, reranker, device)
     generator = torch.Generator(device=device).manual_seed(config.seed)
 
     @torch.inference_mode()
     def decode_host_batch(batch):
-        images = torch.from_numpy(batch["image"]).to(device)
-        tokens = decode_images(model, images, config, generator,
+        inputs = to_device(batch_inputs(batch, regions), device)
+        tokens = decode_images(model, prepare_inputs(inputs,
+                                                     config.image_size),
+                               config, generator,
                                candidates=reranker is not None)
-        return reranker(images, tokens) if reranker is not None else tokens
+        if reranker is None:
+            return tokens
+        return reranker(rerank_pixels(inputs, config.image_size), tokens)
 
     return evaluate_model_on_coco(
         decode_host_batch, val_ds, tokenizer,

@@ -335,7 +335,7 @@ class LSTMDecoder(nn.Module):
 
     def __init__(self, config, attention_config, vocab_size: int,
                  pad_token_id: int, bos_token_id: int, eos_token_id: int,
-                 feature_dim: int):
+                 feature_dim: int, memory_dim: Optional[int] = None):
         super().__init__()
         H, L = config.hidden_dim, config.num_layers
         self.config = config
@@ -344,7 +344,7 @@ class LSTMDecoder(nn.Module):
         self.eos_token_id = eos_token_id
         self.embedding = nn.Embedding(vocab_size, H)
         self.attention = build_attention(attention_config, query_dim=H,
-                                         memory_dim=feature_dim)
+                                         memory_dim=memory_dim or feature_dim)
         # the LSTM input is [embedding; previous context]; the JAX decoder
         # starts the context as H zeros, so the two widths must agree
         if self.attention.context_dim != H:
@@ -465,20 +465,24 @@ class LSTMDecoder(nn.Module):
 
 def build_decoder(config, vocab_size: int, pad_token_id: int,
                   bos_token_id: int, eos_token_id: int, feature_dim: int,
-                  attention_config=None) -> nn.Module:
-    """The decoder of ``config`` (a ``DecoderConfig``) over encoder
-    features of width ``feature_dim``; the LSTM's cross-attention is
-    ``attention_config`` (an ``AttentionConfig``), which the other
-    decoders do not read, as in the JAX package."""
+                  attention_config=None,
+                  memory_dim: Optional[int] = None) -> nn.Module:
+    """The decoder of ``config`` (a ``DecoderConfig``) over pooled
+    features of width ``feature_dim`` and attended features of width
+    ``memory_dim`` (the Q-Former's queries' where it runs; by default
+    ``feature_dim``); the LSTM's cross-attention is ``attention_config``
+    (an ``AttentionConfig``), which the other decoders do not read, as in
+    the JAX package."""
     ids = dict(vocab_size=vocab_size, pad_token_id=pad_token_id,
-               bos_token_id=bos_token_id, eos_token_id=eos_token_id,
-               feature_dim=feature_dim)
+               bos_token_id=bos_token_id, eos_token_id=eos_token_id)
+    memory_dim = memory_dim or feature_dim
     if config.decoder_type == DecoderType.GPT2:
-        return GPT2Decoder(config, **ids)
+        return GPT2Decoder(config, feature_dim=feature_dim, **ids)
     if config.decoder_type == DecoderType.TRANSFORMER:
-        return TransformerDecoder(config, **ids)
+        return TransformerDecoder(config, feature_dim=memory_dim, **ids)
     if config.decoder_type == DecoderType.LSTM:
         if attention_config is None:
             raise ValueError("the LSTM decoder needs an attention config")
-        return LSTMDecoder(config, attention_config, **ids)
+        return LSTMDecoder(config, attention_config, feature_dim=feature_dim,
+                           memory_dim=memory_dim, **ids)
     raise ValueError(f"Unsupported decoder type: {config.decoder_type}")

@@ -1,9 +1,9 @@
 """Vision encoders in PyTorch: the CLIP vision tower (HF
-``CLIPVisionModel``-compatible), ViT (HF ``ViTModel``-compatible) and
-ResNet (HF ``ResNetModel``-compatible, bottleneck or basic layers).
+``CLIPVisionModel``-compatible), ViT (HF ``ViTModel``-compatible), ResNet
+(HF ``ResNetModel``-compatible, bottleneck or basic layers), the
+object-region encoder over detector features, and Swin (:mod:`.swin`).
 
-Counterpart of the CLIP and ViT parts of ``image_captioning_ml_project_tpu.
-models.encoders``. For CLIP, as there, ``ICT_ENCODER_FOLD`` (default on;
+Counterpart of ``image_captioning_ml_project_tpu.models.encoders``. For CLIP, as there, ``ICT_ENCODER_FOLD`` (default on;
 ``0`` off; ``force`` means on) chooses, once per forward, between the
 whole-stack encoder kernel (:func:`..ops.encoder_stack.encoder_stack`,
 inference only: it is skipped in training mode and inside
@@ -14,12 +14,13 @@ the JAX package, go to cuDNN, in the ``channels_last`` memory format so
 that the NHWC images need no transpose). Images are NHWC, as in the JAX
 package. A ``uint8`` batch
 is normalised on its device with the ImageNet constants (the JAX trainer's
-``normalize_images`` before ``model.encode``); a float batch is taken as
-already normalised. Every encoder returns the uniform dict
+``normalize_images`` before ``model.encode``), except that under the
+config's ``fold_normalize`` a ViT or CLIP encoder hands it to its patch
+embed, which folds the affine into its matrix product (:class:`PatchEmbed`,
+as the JAX trainer hands those two encoders raw pixels); a float batch is
+taken as already normalised. Every encoder returns the uniform dict
 ``{"features": [B, S, D], "pooled_features": [B, D], "attention_mask":
-[B, S]}``. :func:`build_encoder` picks the encoder from the config; the
-other encoder families raise ``NotImplementedError`` naming their ROADMAP
-item.
+[B, S]}``. :func:`build_encoder` picks the encoder from the config.
 
 In training mode (``model.train()``), as the JAX encoders under
 ``train=True``: the ResNet's BatchNorm normalises with the batch's
@@ -41,8 +42,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from ..config import EncoderType
-from ..data.coco import normalize_images
+from ..config import EncoderType, reads_regions
+from ..data.coco import IMAGENET_MEAN, IMAGENET_STD, normalize_images
 from ..ops.encoder_stack import encoder_stack
 from .layers import LayerNorm, kernels_on
 
@@ -117,10 +118,18 @@ class CLIPLayer(nn.Module):
 
 class PatchEmbed(nn.Module):
     """Stride-P patch embedding as space-to-depth plus one matmul, with a
-    bias for ViT and none for CLIP (whose patch conv has none). The patch
-    vector is flattened in (kh, kw, c) order, matching the flax conv kernel
-    ``[P, P, C, H]`` reshaped to ``[P*P*C, H]``; ``weight`` holds its
-    transpose."""
+    bias for ViT and Swin and none for CLIP (whose patch conv has none).
+    The patch vector is flattened in (kh, kw, c) order, matching the flax
+    conv kernel ``[P, P, C, H]`` reshaped to ``[P*P*C, H]``; ``weight``
+    holds its transpose.
+
+    Given integer (uint8) pixels it folds the ImageNet affine
+    ``(x / 255 - mean) / std`` into the product, as the JAX ``PatchEmbed``
+    does: each input channel's columns of the weight are scaled by
+    ``1 / (255 * std_c)`` in f32 and then cast, and the constant
+    ``sum_pc (-mean_c / std_c) * W[p, c, :]`` (f32, then cast) is added to
+    every token before the bias, present for the bias-free CLIP embed too.
+    Valid because the patch conv is stride == kernel with no padding."""
 
     def __init__(self, hidden_size: int, patch_size: int, channels: int = 3,
                  use_bias: bool = False):
@@ -137,7 +146,18 @@ class PatchEmbed(nn.Module):
         gh, gw = Hi // P, Wi // P
         x = images[:, :gh * P, :gw * P]  # conv-VALID drops the remainder
         x = x.reshape(B, gh, P, gw, P, C).permute(0, 1, 3, 2, 4, 5)
-        x = x.reshape(B, gh, gw, P * P * C).to(self.weight.dtype)
+        dtype = self.weight.dtype
+        x = x.reshape(B, gh, gw, P * P * C).to(dtype)
+        if not images.dtype.is_floating_point:
+            std = torch.tensor(IMAGENET_STD, device=x.device)
+            mean = torch.tensor(IMAGENET_MEAN, device=x.device)
+            # the column of (kh, kw, c) belongs to channel c
+            scale = (1.0 / (255.0 * std)).repeat(P * P)
+            shift = (-(mean / std)).repeat(P * P)
+            w = self.weight.float()
+            y = F.linear(x, (w * scale).to(dtype)) \
+                + torch.matmul(w, shift).to(dtype)
+            return y if self.bias is None else y + self.bias
         return F.linear(x, self.weight, self.bias)
 
 
@@ -243,15 +263,18 @@ class ProjectedEncoder(nn.Module):
     pooled CLS vector; both projected to ``feature_dim`` when it differs
     from the backbone's width."""
 
-    def __init__(self, backbone: nn.Module, config):
+    def __init__(self, backbone: nn.Module, config,
+                 fold_normalize: bool = False):
         super().__init__()
         self.backbone = backbone
         self.freeze = config.freeze
+        self.fold_normalize = fold_normalize
         self.proj = (nn.Linear(config.hidden_size, config.feature_dim)
                      if config.hidden_size != config.feature_dim else None)
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        if images.dtype == torch.uint8:
+        # under fold_normalize uint8 pixels go to the patch embed's fold
+        if images.dtype == torch.uint8 and not self.fold_normalize:
             images = normalize_images(images)
         # freeze: no gradient reaches the backbone (its parameters get
         # zero gradients from the trainer, as jax.lax.stop_gradient gives)
@@ -271,24 +294,26 @@ class CLIPEncoder(ProjectedEncoder):
     """features = patch tokens of the last hidden state (not
     post-layernormed), pooled = post-layernormed CLS."""
 
-    def __init__(self, config, image_size: int):
+    def __init__(self, config, image_size: int,
+                 fold_normalize: bool = False):
         super().__init__(CLIPVisionBackbone(
             hidden_size=config.hidden_size, num_layers=config.num_layers,
             num_heads=config.num_heads, mlp_ratio=config.mlp_ratio,
             patch_size=config.patch_size, image_size=image_size,
-            remat=config.remat), config)
+            remat=config.remat), config, fold_normalize)
 
 
 class ViTEncoder(ProjectedEncoder):
     """features = patch tokens after the final LayerNorm, pooled = the tanh
     pooler's CLS vector."""
 
-    def __init__(self, config, image_size: int):
+    def __init__(self, config, image_size: int,
+                 fold_normalize: bool = False):
         super().__init__(ViTBackbone(
             hidden_size=config.hidden_size, num_layers=config.num_layers,
             num_heads=config.num_heads, mlp_ratio=config.mlp_ratio,
             patch_size=config.patch_size, image_size=image_size,
-            remat=config.remat), config)
+            remat=config.remat), config, fold_normalize)
 
 
 class BatchNorm(nn.Module):
@@ -478,21 +503,57 @@ class ResNetEncoder(nn.Module):
         return self
 
 
-def build_encoder(config, image_size: int) -> nn.Module:
+class ObjectRegionEncoder(nn.Module):
+    """Pre-extracted detector regions: ``region_features`` [B, N, in]
+    projected to ``feature_dim`` (where the widths differ), a geometry MLP
+    over ``region_boxes`` [B, N, 4] (64 wide, ReLU) joined to them by
+    ``combine``, and the mean over the valid regions of ``region_mask``
+    [B, N] (True = valid), divided by ``count + 1e-10``. The features are
+    cast to the weights' dtype first, as flax's ``Dense`` casts its
+    input."""
+
+    def __init__(self, config):
+        super().__init__()
+        D = config.feature_dim
+        self.proj = (nn.Linear(config.region_feature_dim, D)
+                     if config.region_feature_dim != D else None)
+        self.geo_proj_0 = nn.Linear(4, 64)
+        self.geo_proj_1 = nn.Linear(64, D)
+        self.combine = nn.Linear(2 * D, D)
+
+    def forward(self, inputs: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        dtype = self.combine.weight.dtype
+        features = inputs["region_features"].to(dtype)
+        boxes = inputs.get("region_boxes")
+        mask = inputs["region_mask"].bool()
+        if self.proj is not None:
+            features = self.proj(features)
+        if boxes is not None:
+            geo = self.geo_proj_1(F.relu(self.geo_proj_0(boxes.to(dtype))))
+            features = self.combine(torch.cat([features, geo], dim=-1))
+        m = mask.to(features.dtype)[..., None]
+        pooled = (features * m).sum(1) / (m.sum(1) + 1e-10)
+        return {"features": features, "pooled_features": pooled,
+                "attention_mask": mask}
+
+
+def build_encoder(config, image_size: int,
+                  fold_normalize: bool = False) -> nn.Module:
     """The encoder of ``config`` (an ``EncoderConfig``) for square images
     of ``image_size``, checked in the JAX package's order: object-region
-    features first, whatever the encoder type."""
-    if (config.use_object_features
-            or config.encoder_type == EncoderType.OBJECT_REGION):
-        raise NotImplementedError(
-            "object-region features are not yet ported to PyTorch "
-            "(ROADMAP.md Queue 1 item 10: other encoders)")
+    features first, whatever the encoder type. ``fold_normalize`` (the
+    top-level config's) reaches the ViT and CLIP encoders only."""
+    from .swin import SwinEncoder  # swin.py imports this module
+
+    if reads_regions(config):
+        return ObjectRegionEncoder(config)
     if config.encoder_type == EncoderType.CLIP:
-        return CLIPEncoder(config, image_size)
+        return CLIPEncoder(config, image_size, fold_normalize)
     if config.encoder_type == EncoderType.VIT:
-        return ViTEncoder(config, image_size)
+        return ViTEncoder(config, image_size, fold_normalize)
     if config.encoder_type == EncoderType.RESNET:
         return ResNetEncoder(config)
-    raise NotImplementedError(
-        f"encoder {config.encoder_type.value!r} is not yet ported to "
-        f"PyTorch (ROADMAP.md Queue 1 item 10: other encoders)")
+    if config.encoder_type == EncoderType.SWIN:
+        return SwinEncoder(config, image_size)
+    raise ValueError(f"Unsupported encoder type: {config.encoder_type}")

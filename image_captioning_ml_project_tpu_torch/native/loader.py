@@ -15,9 +15,9 @@ the JAX package's build. When ``g++`` or libjpeg is missing,
 dataset (``data/coco.py``) keeps PIL. This is host decoding: no device
 kernel is involved.
 
-Ported: the eval transform (resize + center crop) and the train transform
-(a crop box drawn in Python, resize, flip). The decode-only square canvas
-of the device-resident resize is not (ROADMAP.md Queue 1 item 9).
+Three transforms: the eval transform (resize + center crop), the train
+transform (a crop box drawn in Python, resize, flip) and the decode-only
+square canvas of the device-resident resize (:func:`decode_square_batch`).
 """
 
 from __future__ import annotations
@@ -98,6 +98,10 @@ def _build() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(u8p), ctypes.POINTER(ctypes.c_size_t), ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
         ctypes.c_int, u8p, ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    lib.icl_square_batch.argtypes = [
+        ctypes.POINTER(u8p), ctypes.POINTER(ctypes.c_size_t), ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, u8p, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int]
     return lib
 
 
@@ -207,3 +211,20 @@ def decode_train_batch(bufs: Sequence[bytes], boxes: np.ndarray,
                         size, _out_ptr(out), _int_ptr(status),
                         n_threads or default_threads())
     return out, status
+
+
+def decode_square_batch(bufs: Sequence[bytes], target: int, canvas: int, *,
+                        n_threads: Optional[int] = None
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """The device-resize host path (``data/coco.load_image_square``'s
+    native twin): a DCT-scaled decode of each image's centre square onto
+    a fixed canvas. Returns (canvases [n, canvas, canvas, 3] uint8, sides
+    [n] int32, negative where the decode failed)."""
+    lib = _lib_or_raise()
+    n = len(bufs)
+    out = np.empty((n, canvas, canvas, 3), dtype=np.uint8)
+    sides = np.zeros(n, dtype=np.int32)
+    arr, lens = _ptrs(bufs)
+    lib.icl_square_batch(arr, lens, n, target, canvas, _out_ptr(out),
+                         _int_ptr(sides), n_threads or default_threads())
+    return out, sides

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .config import AttentionType, DecoderType, EncoderType
+from .config import AttentionType, DecoderType, EncoderType, reads_regions
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -190,12 +190,66 @@ def _transformer_decoder(br: _Bridge) -> None:
     for i in br.indices("decoder", "layer"):
         src, dst = f"decoder/layer_{i}", f"decoder.layers.{i}"
         for att in ("self_attn", "cross_attn"):
-            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
-                br.dense(f"{src}/{att}/{proj}", f"{dst}.{att}.{proj}")
+            _mha(br, f"{src}/{att}", f"{dst}.{att}")
         br.dense(f"{src}/linear1", f"{dst}.linear1")
         br.dense(f"{src}/linear2", f"{dst}.linear2")
         for n in ("norm1", "norm2", "norm3"):
             br.norm(f"{src}/{n}", f"{dst}.{n}")
+
+
+def _swin_encoder(br: _Bridge) -> None:
+    enc, out = "encoder/backbone", "encoder.backbone"
+    _patch_embed(br, f"{enc}/patch_embed", f"{out}.patch_embed")
+    br.put(f"{out}.patch_embed.bias", br.take(f"{enc}/patch_embed/bias"))
+    br.norm(f"{enc}/embed_norm", f"{out}.embed_norm")
+    br.norm(f"{enc}/layernorm", f"{out}.layernorm")
+    pat = re.compile(rf"^{enc}/stage_(\d+)_block_(\d+)/")
+    blocks = sorted({(int(m.group(1)), int(m.group(2)))
+                     for m in map(pat.match, br.flat) if m})
+    for stage, i in blocks:
+        src = f"{enc}/stage_{stage}_block_{i}"
+        dst = f"{out}.stages.{stage}.{i}"
+        for n in ("query", "key", "value", "out"):
+            br.dense(f"{src}/attention/{n}", f"{dst}.attention.{n}")
+        br.put(f"{dst}.attention.relative_position_bias_table",
+               br.take(f"{src}/attention/relative_position_bias_table"))
+        br.norm(f"{src}/layernorm_before", f"{dst}.layernorm_before")
+        br.norm(f"{src}/layernorm_after", f"{dst}.layernorm_after")
+        br.dense(f"{src}/intermediate", f"{dst}.intermediate")
+        br.dense(f"{src}/output", f"{dst}.output")
+    for stage in sorted({s for s, _ in blocks})[:-1]:
+        src = f"{enc}/stage_{stage}_downsample"
+        dst = f"{out}.downsamples.{stage}"
+        br.norm(f"{src}/norm", f"{dst}.norm")
+        br.put(f"{dst}.reduction.weight",
+               br.take(f"{src}/reduction/kernel").T)
+
+
+def _object_region_encoder(br: _Bridge) -> None:
+    for n in ("geo_proj_0", "geo_proj_1", "combine"):
+        br.dense(f"encoder/{n}", f"encoder.{n}")
+
+
+def _mha(br: _Bridge, src: str, dst: str) -> None:
+    for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        br.dense(f"{src}/{proj}", f"{dst}.{proj}")
+
+
+def _q_former(br: _Bridge) -> None:
+    br.put("q_former.query_tokens", br.take("q_former/query_tokens"))
+    if "q_former/vision_proj/kernel" in br.flat:
+        br.dense("q_former/vision_proj", "q_former.vision_proj")
+    for stack, norms in (("encoder", ("norm1", "norm2")),
+                         ("decoder", ("norm1", "norm2", "norm3"))):
+        for i in br.indices("q_former", stack):
+            src, dst = f"q_former/{stack}_{i}", f"q_former.{stack}.{i}"
+            _mha(br, f"{src}/self_attn", f"{dst}.self_attn")
+            if stack == "decoder":
+                _mha(br, f"{src}/cross_attn", f"{dst}.cross_attn")
+            for n in norms:
+                br.norm(f"{src}/{n}", f"{dst}.{n}")
+            br.dense(f"{src}/linear1", f"{dst}.linear1")
+            br.dense(f"{src}/linear2", f"{dst}.linear2")
 
 
 def _resnet_encoder(br: _Bridge) -> None:
@@ -252,9 +306,10 @@ def _lstm_decoder(br: _Bridge) -> None:
 
 
 def from_flax(tree: Mapping, stats: bool = True) -> Dict[str, torch.Tensor]:
-    """Map the JAX ``ImageCaptioningModel`` variables (CLIP, ViT or ResNet
-    encoder, GPT-2, Transformer or LSTM decoder, told apart by their
-    leaves; nested dict of arrays, either the collections ``"params"`` and,
+    """Map the JAX ``ImageCaptioningModel`` variables (CLIP, ViT, ResNet,
+    Swin or object-region encoder, GPT-2, Transformer or LSTM decoder, the
+    Q-Former where there is one, told apart by their leaves; nested dict
+    of arrays, either the collections ``"params"`` and,
     for the ResNet, ``"batch_stats"``, or the params alone) to an f32 state
     dict of :class:`..models.captioning_model.ImageCaptioningModel`. With
     ``stats=False`` the tree is parameter-shaped leaves alone (an optimizer
@@ -273,11 +328,17 @@ def from_flax(tree: Mapping, stats: bool = True) -> Dict[str, torch.Tensor]:
         _vit_encoder(br)
     elif "encoder/backbone/embedder/convolution/kernel" in br.flat:
         _resnet_encoder(br)
+    elif "encoder/backbone/embed_norm/scale" in br.flat:
+        _swin_encoder(br)
+    elif "encoder/combine/kernel" in br.flat:
+        _object_region_encoder(br)
     else:
-        raise ValueError("the flax tree holds no CLIP, ViT or ResNet "
-                         "encoder (the encoders ported so far)")
+        raise ValueError("the flax tree holds no CLIP, ViT, ResNet, Swin or "
+                         "object-region encoder")
     if "encoder/proj/kernel" in br.flat:
         br.dense("encoder/proj", "encoder.proj")
+    if "q_former/query_tokens" in br.flat:
+        _q_former(br)
     if "decoder/backbone/wte/embedding" in br.flat:
         _gpt2_decoder(br)
     elif "decoder/lstm/cell_0/gates/kernel" in br.flat:
@@ -478,12 +539,14 @@ def load_scorer(scorer: nn.Module, state_dict: Mapping[str, torch.Tensor],
 
 def init_flax_params(config, seed: int) -> Dict[str, Any]:
     """Seeded weights in the flax layout of the JAX ``ImageCaptioningModel``
-    (CLIP, ViT or ResNet encoder, GPT-2, Transformer or LSTM decoder),
-    drawn from ``numpy.random.RandomState(seed)``, encoder first: dense
-    kernels, embeddings and position embeddings N(0, 0.02²) (GPT-2's
-    initialiser), the CLIP class embedding and the ViT CLS token
-    N(0, 1/width), the GPT-2 learned image prefix N(0, 1) as flax draws it,
-    conv kernels at flax's ``lecun_normal`` scale (std
+    (CLIP, ViT, ResNet, Swin or object-region encoder, GPT-2, Transformer
+    or LSTM decoder, the Q-Former where configured), drawn from
+    ``numpy.random.RandomState(seed)``, encoder first, then the decoder,
+    then the Q-Former: dense kernels, embeddings, position embeddings,
+    Swin's relative position bias tables and the Q-Former's queries
+    N(0, 0.02²) (GPT-2's initialiser), the CLIP class embedding and the
+    ViT CLS token N(0, 1/width), the GPT-2 learned image prefix N(0, 1) as
+    flax draws it, conv kernels at flax's ``lecun_normal`` scale (std
     ``1/sqrt(kh*kw*in)``), biases 0, norm scales 1; a ResNet's BatchNorm
     running means 0 and variances 1, in the ``batch_stats`` collection."""
     rs = np.random.RandomState(seed)
@@ -502,10 +565,18 @@ def init_flax_params(config, seed: int) -> Dict[str, Any]:
                 "bias": np.zeros(n, np.float32)}
 
     variables = {"params": {}}
-    if ec.encoder_type == EncoderType.RESNET:
+    if reads_regions(ec):
+        D = ec.feature_dim
+        encoder = {"geo_proj_0": dense(4, 64), "geo_proj_1": dense(64, D),
+                   "combine": dense(2 * D, D)}
+        width = ec.region_feature_dim
+    elif ec.encoder_type == EncoderType.RESNET:
         encoder, stats = _draw_resnet(ec, normal, norm)
         variables[_STATS] = {"encoder": stats}
         width = ec.resnet_hidden_sizes[-1]
+    elif ec.encoder_type == EncoderType.SWIN:
+        encoder = _draw_swin(ec, normal, dense, norm)
+        width = ec.swin_embed_dim * 2 ** (len(ec.swin_depths) - 1)
     else:
         encoder = _draw_transformer_encoder(ec, config.image_size, normal,
                                             dense, norm)
@@ -514,7 +585,61 @@ def init_flax_params(config, seed: int) -> Dict[str, Any]:
         encoder["proj"] = dense(width, ec.feature_dim)
     variables["params"]["encoder"] = encoder
     variables["params"]["decoder"] = _draw_decoder(mc, normal, dense, norm)
+    if mc.use_q_former:
+        variables["params"]["q_former"] = _draw_q_former(mc, normal, dense,
+                                                         norm)
     return variables
+
+
+def _draw_swin(ec, normal, dense, norm):
+    E, p = ec.swin_embed_dim, 4
+    w = ec.swin_window_size
+    backbone = {"patch_embed": {"kernel": normal(p, p, 3, E),
+                                "bias": np.zeros(E, np.float32)},
+                "embed_norm": norm(E)}
+    dim = E
+    for stage, (depth, nh) in enumerate(zip(ec.swin_depths,
+                                            ec.swin_num_heads)):
+        f = dim * ec.mlp_ratio
+        for i in range(depth):
+            attention = {n: dense(dim, dim)
+                         for n in ("query", "key", "value", "out")}
+            attention["relative_position_bias_table"] = normal(
+                (2 * w - 1) ** 2, nh)
+            backbone[f"stage_{stage}_block_{i}"] = {
+                "attention": attention, "layernorm_before": norm(dim),
+                "layernorm_after": norm(dim), "intermediate": dense(dim, f),
+                "output": dense(f, dim)}
+        if stage < len(ec.swin_depths) - 1:
+            backbone[f"stage_{stage}_downsample"] = {
+                "norm": norm(4 * dim),
+                "reduction": {"kernel": normal(4 * dim, 2 * dim)}}
+            dim *= 2
+    backbone["layernorm"] = norm(dim)
+    return {"backbone": backbone}
+
+
+def _draw_q_former(mc, normal, dense, norm):
+    Q = mc.projection_dim
+
+    def mha():
+        return {n: dense(Q, Q) for n in ("q_proj", "k_proj", "v_proj",
+                                         "out_proj")}
+
+    def ffn():
+        return {"linear1": dense(Q, 4 * Q), "linear2": dense(4 * Q, Q)}
+
+    q = {"query_tokens": normal(1, mc.q_former_num_queries, Q)}
+    if mc.encoder.feature_dim != Q:
+        q["vision_proj"] = dense(mc.encoder.feature_dim, Q)
+    for i in range(mc.q_former_num_layers):
+        q[f"encoder_{i}"] = {"self_attn": mha(), "norm1": norm(Q),
+                             "norm2": norm(Q), **ffn()}
+    for i in range(mc.q_former_num_layers):
+        q[f"decoder_{i}"] = {"self_attn": mha(), "cross_attn": mha(),
+                             "norm1": norm(Q), "norm2": norm(Q),
+                             "norm3": norm(Q), **ffn()}
+    return q
 
 
 def _draw_transformer_encoder(ec, image_size, normal, dense, norm):
@@ -616,7 +741,10 @@ def _draw_attention(ac, query_dim, memory_dim, dense):
 
 
 def _draw_decoder(mc, normal, dense, norm):
+    # D: the pooled features' width; M: the attended features' (the
+    # Q-Former's queries' where it runs)
     dc, D = mc.decoder, mc.encoder.feature_dim
+    M = mc.projection_dim if mc.use_q_former else D
     H, V = dc.hidden_dim, mc.vocab_size
     if dc.decoder_type == DecoderType.LSTM:
         L = dc.num_layers
@@ -624,7 +752,7 @@ def _draw_decoder(mc, normal, dense, norm):
                 "lstm": {f"cell_{i}": {"gates": dense((2 * H if i == 0
                                                        else H) + H, 4 * H)}
                          for i in range(L)},
-                "attention": _draw_attention(mc.attention, H, D, dense),
+                "attention": _draw_attention(mc.attention, H, M, dense),
                 "output_layer": dense(H, V),
                 "init_h": dense(D, H * L), "init_c": dense(D, H * L)}
     if dc.decoder_type == DecoderType.TRANSFORMER:
@@ -639,7 +767,7 @@ def _draw_decoder(mc, normal, dense, norm):
                 "linear1": dense(H, 4 * H), "linear2": dense(4 * H, H),
                 "norm1": norm(H), "norm2": norm(H), "norm3": norm(H)}
         decoder["output_layer"] = dense(H, V)
-        decoder["visual_projection"] = dense(D, H)
+        decoder["visual_projection"] = dense(M, H)
         return decoder
 
     P = dc.prefix_length
@@ -709,7 +837,8 @@ def stack_layer_weights(model) -> None:
     from .models.encoders import CLIPVisionBackbone
     from .models.gpt2 import GPT2Decoder
 
-    dec, backbone = model.decoder, model.encoder.backbone
+    dec = model.decoder
+    backbone = getattr(model.encoder, "backbone", None)
     if isinstance(dec, GPT2Decoder):
         dec.stack = _stack(
             dec.backbone.blocks,

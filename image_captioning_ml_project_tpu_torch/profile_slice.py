@@ -3,7 +3,8 @@
 Run from the repository root on a machine with a CUDA GPU::
 
     python -m image_captioning_ml_project_tpu_torch.profile_slice \\
-        [--config flagship|transformer|lstm] [--attention_type TYPE]
+        [--config flagship|transformer|lstm|qformer|butd]
+        [--encoder_type resnet|vit|swin|clip] [--attention_type TYPE]
         [--seed N] [--trace PATH] [--train [--scst]]
 
 It decodes synthetic uint8 images through a served model, bf16 weights
@@ -13,7 +14,12 @@ vocab 50257), ``transformer`` (:func:`.main.transformer_config`: ViT-B/16
 + 6-layer Transformer decoder, width 768, vocab 30000) or ``lstm``
 (:func:`.main.lstm_config`: ResNet-101 + 6-layer LSTM, width 512, vocab
 10000, soft attention through its kernel, or the ``--attention_type``
-variant), beam 5, max length 20, directly through
+variant), ``qformer`` (:func:`.main.qformer_config`: ViT-B/16 + a
+32-query Q-Former + the 6-layer Transformer decoder) or ``butd``
+(:func:`.main.butd_config`: 36 random detector regions of 2048-d features,
+20 to 36 of them valid an image, + the same decoder); ``--encoder_type``
+replaces the configuration's encoder (``--config transformer
+--encoder_type swin``: Swin-B), beam 5, max length 20, directly through
 ``encode``/``init_cache``/``beam_search``, without the server, on the
 configuration the JAX package's switches select. For the flagship these
 are ``ICT_DECODE_STACK``, ``ICT_DECODE_FOLD`` and ``ICT_ENCODER_FOLD`` (by
@@ -66,13 +72,44 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from .config import AttentionType, DecoderType
-from .inference.decoding import _tile_state, beam_search
+from .config import AttentionType, DecoderType, EncoderType, reads_regions
+from .inference.decoding import _tile_state, batch_size_of, beam_search
 from .main import CONFIGS
 from .models.captioning_model import load_model
 from .models.gpt2 import decode_fold_enabled
 from .models.encoders import encoder_fold_enabled
 from .models.gpt2 import decode_path
+
+
+def model_inputs(cfg, batch: int, generator: torch.Generator):
+    """Random inputs of ``batch`` images on the CPU: uint8 NHWC pixels, or
+    in the object-region mode detector regions (20 to ``max_objects`` of
+    them valid an image, as the JAX package's ``bench_families.py``
+    draws them)."""
+    if reads_regions(cfg.model.encoder):
+        e = cfg.model.encoder
+        n = e.max_objects
+        counts = torch.randint(20, n + 1, (batch, 1), generator=generator)
+        return {"region_features": torch.randn(
+                    batch, n, e.region_feature_dim, generator=generator),
+                "region_boxes": torch.rand(batch, n, 4, generator=generator),
+                "region_mask": torch.arange(n)[None] < counts}
+    return torch.randint(0, 256, (batch, cfg.image_size, cfg.image_size, 3),
+                         generator=generator, dtype=torch.uint8)
+
+
+def move_inputs(inputs, dev):
+    """Model inputs (a tensor or a region dict) on ``dev``."""
+    if isinstance(inputs, dict):
+        return {k: v.to(dev) for k, v in inputs.items()}
+    return inputs.to(dev)
+
+
+def first_inputs(inputs, B: int):
+    """The first ``B`` images of model inputs."""
+    if isinstance(inputs, dict):
+        return {k: v[:B] for k, v in inputs.items()}
+    return inputs[:B]
 
 
 def _card() -> str:
@@ -101,7 +138,7 @@ def _decode(model, cfg, images):
         state = model.decoder.init_cache(features, ic.max_length)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        beam_search(step_fn, state, images.shape[0], ic.beam_size,
+        beam_search(step_fn, state, batch_size_of(images), ic.beam_size,
                     mc.bos_token_id, mc.eos_token_id, mc.pad_token_id,
                     ic.max_length, length_penalty=ic.length_penalty,
                     min_length=ic.min_length).tokens.cpu()
@@ -112,8 +149,9 @@ def _decode(model, cfg, images):
 def time_batches(model, cfg, images, sizes=(1, 8, 64), runs=7):
     for B in sizes:
         for _ in range(2):
-            _decode(model, cfg, images[:B])
-        rs = [_decode(model, cfg, images[:B]) for _ in range(runs)]
+            _decode(model, cfg, first_inputs(images, B))
+        rs = [_decode(model, cfg, first_inputs(images, B))
+              for _ in range(runs)]
         enc, pre, loop = (statistics.median(r[i] for r in rs)
                           for i in range(3))
         totals = [sum(r[:3]) for r in rs]
@@ -131,23 +169,25 @@ def _step_state(model, cfg, images, pos):
     """A tiled decode state at suffix position ``pos`` under an identity
     ancestry, and the step's tokens."""
     ic = cfg.inference
-    Bk = images.shape[0] * ic.beam_size
+    Bk = batch_size_of(images) * ic.beam_size
+    dev = model.decoder.output_layer.weight.device
     state = _tile_state(model.init_cache(images, ic.max_length),
                         ic.beam_size)
     if "lazy" in state:  # the LSTM's state has neither
         state["lazy"]["ancestry"] = torch.arange(
-            Bk, device=images.device, dtype=torch.int32)[:, None].repeat(
+            Bk, device=dev, dtype=torch.int32)[:, None].repeat(
                 1, ic.max_length)
         state["pos"] = pos
     tokens = torch.full((Bk,), cfg.model.bos_token_id, dtype=torch.long,
-                        device=images.device)
+                        device=dev)
     return state, tokens
 
 
 def time_step(model, cfg, images, pos=5, runs=20):
     """One decode step at suffix position ``pos`` over all beam rows, under
     an identity ancestry; the step re-appends at ``pos`` each run."""
-    Bk = images.shape[0] * cfg.inference.beam_size
+    B = batch_size_of(images)
+    Bk = B * cfg.inference.beam_size
     with torch.inference_mode():
         state, tokens = _step_state(model, cfg, images, pos)
         times = []
@@ -160,7 +200,7 @@ def time_step(model, cfg, images, pos=5, runs=20):
             times.append((t1 - t0, time.perf_counter() - t0))
     enqueue = statistics.median(t[0] for t in times[3:])
     synced = statistics.median(t[1] for t in times[3:])
-    print(f"model.step B={images.shape[0]} ({Bk} rows) pos={pos}: host "
+    print(f"model.step B={B} ({Bk} rows) pos={pos}: host "
           f"enqueue median {enqueue * 1e3:.3f} ms, with sync "
           f"{synced * 1e3:.3f} ms", flush=True)
 
@@ -179,11 +219,17 @@ def configuration(cfg) -> str:
                 f"per step")
     if cfg.model.decoder.decoder_type == DecoderType.TRANSFORMER:
         fold = decode_fold_enabled()
+        enc = cfg.model.encoder
+        encoder = ("object-region encoder" if reads_regions(enc)
+                   else f"{enc.encoder_type.value} encoder")
+        if cfg.model.use_q_former:
+            encoder += (f" + Q-Former of {cfg.model.q_former_num_queries} "
+                        f"queries")
         return (f"configuration: ICT_DECODE_FOLD="
                 f"{os.environ.get('ICT_DECODE_FOLD', '1')} -> Transformer "
                 f"decoder, self-attention "
                 f"{'fold' if fold else 'split'} + cross-attention kernel "
-                f"per layer; ViT encoder (PyTorch modules, no fold)")
+                f"per layer; {encoder} (PyTorch modules, no fold)")
     switches = " ".join(f"{k}={os.environ.get(k, '1')}" for k in (
         "ICT_DECODE_STACK", "ICT_DECODE_FOLD", "ICT_ENCODER_FOLD"))
     encoder = ("whole-stack encoder kernel" if encoder_fold_enabled()
@@ -212,7 +258,7 @@ def profile_batch(model, cfg, images, trace=None):
             torch.cuda.synchronize()
     per_step = sum(e.count for e in step_prof.key_averages()
                    if e.self_device_time_total > 0)
-    print(f"profiled B={images.shape[0]}: wall {wall * 1e3:.1f} ms "
+    print(f"profiled B={batch_size_of(images)}: wall {wall * 1e3:.1f} ms "
           f"(profiler on); device busy {busy * 1e3:.2f} ms "
           f"({100 * busy / wall:.1f}% of that wall); kernel launches "
           f"{launches} over {steps} decode steps ({launches / steps:.0f} "
@@ -248,9 +294,7 @@ def profile_train(cfg, dev, seed, batch=64, trace=None):
     trainer = CaptioningTrainer(cfg, [None] * batch, [], None, device=dev)
     g = torch.Generator().manual_seed(seed)
     T = cfg.model.decoder.max_length
-    images = torch.randint(0, 256, (batch, cfg.image_size, cfg.image_size,
-                                    3), generator=g,
-                           dtype=torch.uint8).to(dev)
+    images = move_inputs(model_inputs(cfg, batch, g), dev)
     caps = torch.randint(4, cfg.model.vocab_size, (batch, T), generator=g,
                          dtype=torch.int32).to(dev)
     mask = torch.ones((batch, T), dtype=torch.int32, device=dev)
@@ -337,9 +381,7 @@ def profile_scst(cfg, dev, seed, batch=64, trace=None):
     trainer = CaptioningTrainer(cfg, [None] * batch, [], None, device=dev)
     g = torch.Generator().manual_seed(seed)
     mc = cfg.model
-    images = torch.randint(0, 256, (batch, cfg.image_size, cfg.image_size,
-                                    3), generator=g,
-                           dtype=torch.uint8).to(dev)
+    images = move_inputs(model_inputs(cfg, batch, g), dev)
     # 5 references of 8-16 random words an image, their document
     # frequencies over the batch
     refs = [[torch.randint(4, mc.vocab_size, (int(n),), generator=g).tolist()
@@ -396,6 +438,10 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", choices=sorted(CONFIGS),
                         default="flagship")
+    parser.add_argument("--encoder_type", default=None,
+                        choices=["resnet", "vit", "swin", "clip"],
+                        help="replace the configuration's encoder (as the "
+                             "CLI's --encoder_type does)")
     parser.add_argument("--attention_type", default=None,
                         choices=["soft", "multi_head", "adaptive", "aoa"],
                         help="the LSTM's attention variant (default: the "
@@ -415,6 +461,8 @@ def main(argv=None):
     card = _card()
     print(card, flush=True)
     cfg = CONFIGS[args.config]()
+    if args.encoder_type:
+        cfg.model.encoder.encoder_type = EncoderType(args.encoder_type)
     if args.attention_type:
         cfg.model.attention.attention_type = AttentionType(
             args.attention_type)
@@ -430,11 +478,10 @@ def main(argv=None):
         return
     model = load_model(cfg, dev)
     g = torch.Generator().manual_seed(args.seed)
-    images = torch.randint(0, 256, (64, cfg.image_size, cfg.image_size, 3),
-                           generator=g, dtype=torch.uint8).to(dev)
+    images = move_inputs(model_inputs(cfg, 64, g), dev)
     time_batches(model, cfg, images)
     for B in (1, 8, 64):
-        time_step(model, cfg, images[:B])
+        time_step(model, cfg, first_inputs(images, B))
     profile_batch(model, cfg, images, args.trace)
     print(card, flush=True)
 

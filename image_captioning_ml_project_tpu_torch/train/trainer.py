@@ -46,11 +46,18 @@ mid-epoch step checkpoints, full resume):
 * with a CLIP ``reranker``, validation decodes beam candidates as the
   eval CLI and the server do (:func:`..inference.decoding.decode_images`)
   and the reranker picks each image's caption, so the best-CIDEr
-  checkpoint is chosen by the decode that ships.
+  checkpoint is chosen by the decode that ships (on the resized pixels
+  where validation batches carry ``device_resize`` canvases; never in the
+  object-region mode, whose batches hold no pixels);
+* the model's inputs (:meth:`_prepare_inputs`): uint8 images as they are
+  (the encoder normalises them, or under ``fold_normalize`` a ViT or CLIP
+  patch embed folds the normalisation), ``device_resize`` canvases resized
+  and normalised on the device (:func:`..ops.resize.resize_normalize`),
+  and in the object-region mode (``object_region`` encoder or
+  ``use_object_features``) the detector regions' dict.
 
-Not yet ported, and raising ``NotImplementedError`` naming their
-``ROADMAP.md`` item: object-region inputs, device-resize canvases, and a
-device mesh.
+Not yet ported, and raising ``NotImplementedError`` naming its
+``ROADMAP.md`` item: a device mesh.
 """
 
 from __future__ import annotations
@@ -62,7 +69,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import Config, EncoderType
+from ..config import Config, reads_regions
 from ..data.coco import iterate_batches
 from ..data.pipeline import prefetch
 from ..evaluate.cider_device import (build_df_table, encode_references,
@@ -70,11 +77,12 @@ from ..evaluate.cider_device import (build_df_table, encode_references,
 from ..evaluate.metrics import (bleu, calculate_metrics, meteor_lite,
                                 metric_tokenize, per_sample_cider,
                                 per_sample_spice, rouge_l)
-from ..inference.decoding import (_map, decode_images, greedy_decode,
-                                  sample_decode)
+from ..inference.decoding import (_map, batch_size_of, decode_images,
+                                  greedy_decode, sample_decode)
 from ..models.captioning_model import (ImageCaptioningModel,
                                        build_train_model, load_model)
 from ..models.layers import dropout_generator, plain_routes
+from ..ops.resize import resize_normalize, resize_square
 from ..utils.amp import cast_for_compute, castable_parameters
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logging import MetricLogger, setup_logging
@@ -104,10 +112,52 @@ def load_decode_model(config: Config, device, state_dict=None
     return load_model(cfg, device, state_dict=state_dict)
 
 
-def _not_ported(what: str, items: str) -> NotImplementedError:
-    word = "items" if " " in items else "item"
-    return NotImplementedError(f"{what} is not yet ported to PyTorch "
-                               f"(ROADMAP.md Queue 1 {word} {items})")
+REGION_KEYS = ("region_features", "region_boxes", "region_mask")
+
+
+def batch_inputs(batch, regions: bool):
+    """The model-input arrays of a data batch: in the object-region mode
+    (``regions``) the detector regions' dict, from ``device_resize``
+    canvases a dict of the canvases and their sides (``image_size``), else
+    the images."""
+    if regions:
+        return {k: batch[k] for k in REGION_KEYS}
+    if "image_size" in batch:
+        return {"image": batch["image"], "image_size": batch["image_size"]}
+    return batch["image"]
+
+
+def to_device(inputs, device):
+    """:func:`batch_inputs`' arrays (numpy or torch) on ``device``."""
+    if isinstance(inputs, dict):
+        return {k: to_device(v, device) for k, v in inputs.items()}
+    if isinstance(inputs, np.ndarray):
+        inputs = torch.from_numpy(inputs)
+    return inputs.to(device)
+
+
+def prepare_inputs(inputs, image_size: int):
+    """What the model takes of :func:`batch_inputs` on the device: canvases
+    resized to ``image_size`` and normalised there
+    (:func:`..ops.resize.resize_normalize`); uint8 images and region dicts
+    as they are (the encoder normalises uint8 images, or under
+    ``fold_normalize`` a ViT or CLIP patch embed folds the same affine, as
+    the JAX trainer hands those two raw pixels)."""
+    if isinstance(inputs, dict) and "image_size" in inputs:
+        return resize_normalize(inputs["image"], inputs["image_size"],
+                                image_size)
+    return inputs
+
+
+def rerank_pixels(inputs, image_size: int):
+    """The pixels a CLIP reranker scores for :func:`batch_inputs` on the
+    device: of canvases, the resized ones the captioner saw (floats on
+    the 0-255 scale, :func:`..ops.resize.resize_square`), else the
+    images."""
+    if isinstance(inputs, dict):
+        return resize_square(inputs["image"], inputs["image_size"],
+                             image_size)
+    return inputs
 
 
 def _init_loss(loss_mod: CombinedLoss, seed: int) -> None:
@@ -136,11 +186,11 @@ class CaptioningTrainer:
                  reranker=None, device="cuda", params=None,
                  state_dict=None):
         if mesh is not None:
-            raise _not_ported("training over a device mesh", "13")
+            raise NotImplementedError(
+                "training over a device mesh is not yet ported to PyTorch "
+                "(ROADMAP.md Queue 1 item 13)")
         enc = config.model.encoder
-        if (enc.encoder_type == EncoderType.OBJECT_REGION
-                or enc.use_object_features):
-            raise _not_ported("object-region training", "10")
+        self._object_mode = reads_regions(enc)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass "
@@ -279,26 +329,13 @@ class CaptioningTrainer:
     # ------------------------------------------------------------------
 
     def _prepare_inputs(self, inputs):
-        """Model inputs of a device batch: uint8 NHWC images pass as they
-        are (the encoder normalises them on the device, the JAX trainer's
-        ``normalize_images``; under ``fold_normalize`` the JAX patch embed
-        folds the same affine). Device-resize canvases and region
-        features are not ported."""
-        if isinstance(inputs, dict):
-            raise _not_ported("device-resize canvases and region features",
-                              "9 and 10")
-        return inputs
+        return prepare_inputs(inputs, self.config.image_size)
 
     def _batch_inputs(self, batch):
-        """Host: select the model-input arrays from a data batch."""
-        if "image_size" in batch:
-            raise _not_ported("device-resize canvases", "9")
-        return batch["image"]
+        return batch_inputs(batch, self._object_mode)
 
     def _to_device(self, x):
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
-        return x.to(self.device)
+        return to_device(x, self.device)
 
     # ------------------------------------------------------------------
     # steps
@@ -605,7 +642,7 @@ class CaptioningTrainer:
         images = self._prepare_inputs(self._to_device(images))
         mc = self.config.model
         max_length = self.config.inference.max_length
-        B = images.shape[0]
+        B = batch_size_of(images)
         state = model.init_cache(images, max_length)
         # the decodes append to their caches in place: the sampler gets
         # copies, the greedy decode the originals; the per-image constants
@@ -852,6 +889,8 @@ class CaptioningTrainer:
                              drop_last=False, pad_last=True,
                              num_workers=self.config.num_workers)
         model = self.eval_state()
+        # the reranker scores pixels: the object-region mode has none
+        reranker = None if self._object_mode else self.reranker
         for batch in prefetch(it, self.device):
             first_ref = batch["caption_tokens"][:, 0, :]
             first_mask = batch["attention_mask"][:, 0, :]
@@ -863,11 +902,12 @@ class CaptioningTrainer:
             loss_b, ntok_b = self.eval_loss_step(model, inputs, first_ref,
                                                  first_mask, valid)
             losses.append((float(loss_b), float(ntok_b)))
-            if self.reranker is not None:
+            if reranker is not None:
                 # the reranker reads the batch's device images: no second
                 # host round trip
-                tokens = self.reranker(inputs, self.val_decode_step(
-                    model, inputs, candidates=True))
+                tokens = reranker(
+                    rerank_pixels(inputs, self.config.image_size),
+                    self.val_decode_step(model, inputs, candidates=True))
             else:
                 tokens = self.val_decode_step(model, inputs, gen)
             if isinstance(tokens, torch.Tensor):

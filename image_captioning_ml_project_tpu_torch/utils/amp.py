@@ -11,7 +11,10 @@ the layer norm computes its statistics and affine in f32 from them
 (:class:`..models.layers.LayerNorm`, as flax's ``_normalize`` does); so do
 a BatchNorm's scale and bias (:class:`..models.encoders.BatchNorm`), and
 its running statistics, buffers, are never cast: the JAX policy keeps the
-norm dicts and the ``batch_stats`` collection f32 alike.
+norm dicts and the ``batch_stats`` collection f32 alike. So do the
+parameters the JAX policy keeps as raw f32 leaves (``_RAW_F32_LEAVES``):
+Swin's ``relative_position_bias_table``, gathered and added to f32 scores,
+and CLIP's ``logit_scale``.
 """
 
 from __future__ import annotations
@@ -24,16 +27,20 @@ from torch import nn
 from ..models.encoders import BatchNorm
 from ..models.layers import LayerNorm
 
+# parameters consumed at f32 whatever the compute dtype, by their name
+_RAW_F32_LEAVES = frozenset({"logit_scale", "relative_position_bias_table"})
+
 
 def castable_parameters(model: nn.Module) -> List[str]:
     """Names of ``model``'s float32 parameters outside :class:`LayerNorm`
-    and :class:`BatchNorm` modules: the ones a bf16 compute casts."""
+    and :class:`BatchNorm` modules and the raw f32 leaves: the ones a bf16
+    compute casts."""
     names = []
     for prefix, module in model.named_modules():
         if isinstance(module, (LayerNorm, BatchNorm)):
             continue
         for name, p in module.named_parameters(recurse=False):
-            if p.dtype == torch.float32:
+            if p.dtype == torch.float32 and name not in _RAW_F32_LEAVES:
                 names.append(f"{prefix}.{name}" if prefix else name)
     return names
 
@@ -41,7 +48,8 @@ def castable_parameters(model: nn.Module) -> List[str]:
 def cast_float_params(model: nn.Module,
                       dtype: torch.dtype = torch.bfloat16) -> nn.Module:
     """Cast every float32 parameter of ``model`` to ``dtype`` in place,
-    except those of :class:`LayerNorm` and :class:`BatchNorm` modules.
+    except those of :class:`LayerNorm` and :class:`BatchNorm` modules and
+    the raw f32 leaves.
     Returns ``model``."""
     for name in castable_parameters(model):
         p = model.get_parameter(name)

@@ -1,8 +1,11 @@
 """The port's copies of the JAX package's host code (port: config.py,
 data/tokenizer.py, data/coco.py) against their originals: the same config
 fields, defaults and JSON in both directions, the same word ids and
-captions, and the same host-side crop (the on-device normalisation is
-held against JAX in test_torch_clip.py)."""
+captions, the same host-side crop (the on-device normalisation is held
+against JAX in test_torch_clip.py), the same device-resize canvases
+(``load_image_square``: a square smaller than, equal to and larger than
+the canvas, from a PNG and a JPEG) and the same detector-feature samples
+(``ObjectDetectionFeaturesDataset``, padded and truncated)."""
 
 import dataclasses
 
@@ -96,3 +99,54 @@ def test_center_crop_resize_matches_jax(size):
     want = np.asarray(jax_coco.center_crop_resize(img, 24))
     assert got.shape == (24, 24, 3)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fmt", ["png", "jpg"])
+@pytest.mark.parametrize("size", [(50, 31), (64, 80), (120, 90)])
+def test_load_image_square_matches_jax(tmp_path, fmt, size):
+    from PIL import Image
+
+    arr = np.random.RandomState(2).randint(0, 256, size + (3,)).astype(
+        np.uint8)
+    path = str(tmp_path / f"image.{fmt}")
+    Image.fromarray(arr).save(path)
+    got = port_coco.load_image_square(path, 32, 64)
+    want = jax_coco.load_image_square(path, 32, 64)
+    assert got[0].shape == (64, 64, 3) and got[1] == want[1]
+    np.testing.assert_array_equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("is_training", [True, False])
+def test_object_features_dataset_matches_jax(tmp_path, is_training):
+    import json
+
+    ann = {"images": [{"id": i, "file_name": f"{i}.jpg"} for i in (3, 7)],
+           "annotations": [{"id": k, "image_id": i, "caption": c}
+                           for k, (i, c) in enumerate(
+                               [(3, "a dog"), (7, "two cats sit"),
+                                (3, "a dog on grass")])]}
+    path = str(tmp_path / "ann.json")
+    with open(path, "w") as f:
+        json.dump(ann, f)
+    rs = np.random.RandomState(4)
+    for i, n in ((3, 2), (7, 9)):   # padded, and truncated to 5
+        np.savez(str(tmp_path / f"{i}.npz"),
+                 features=rs.randn(n, 8).astype(np.float32),
+                 boxes=rs.rand(n, 4).astype(np.float32))
+    corpus = ["a dog", "two cats sit", "a dog on grass"]
+    kw = dict(max_objects=5, max_length=6, is_training=is_training,
+              feature_dim=8)
+    want = jax_coco.ObjectDetectionFeaturesDataset(
+        str(tmp_path), path, jax_tokenizer.WordVocab.build(corpus, 1), **kw)
+    got = port_coco.ObjectDetectionFeaturesDataset(
+        str(tmp_path), path, port_tokenizer.WordVocab.build(corpus, 1), **kw)
+    assert got.examples == want.examples and len(got) == len(want)
+    for i in range(len(got)):
+        a, b = got[i], want[i]
+        assert set(a) == set(b)
+        for k in a:
+            if isinstance(a[k], np.ndarray):
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+            else:
+                assert a[k] == b[k], k
+    np.testing.assert_array_equal(got.num_objects(), want.num_objects())

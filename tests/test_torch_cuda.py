@@ -2,7 +2,8 @@
 versions: beam-decode attention, folded-QKV attention, the whole-stack
 GPT-2 decode step, the whole-stack CLIP encoder, the Dense GEMM they share
 by itself, the Transformer decoder's
-cross-attention step, the attention variants' SDPA and additive scores,
+cross-attention step (at the Q-Former's, BUTD's and Swin's memory lengths
+too), the attention variants' SDPA and additive scores,
 and LSE/block-max (all CUDA C++); then a tiny model's decode on the
 card against the same decode on the CPU, on each decode configuration of
 CLIP + GPT-2 and of ViT + Transformer, and for ResNet + LSTM with each
@@ -622,6 +623,37 @@ def test_cross_attention_kernel_matches_plain(dev, dtype, B, K, NH, H, Sm,
     torch.cuda.synchronize()
     assert ca.cross_attention.launches == before + 1
     want = ca.cross_attention_plain(q, mkt, mv, mask, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert float((got.float() - want.float()).abs().max()) <= \
+            2 * _bf16_ulp(want.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sm,masked", [(32, False), (36, True), (49, False),
+                                       (48, False)],
+                         ids=["qformer", "butd", "swin", "tensor-core-48"])
+def test_cross_attention_kernel_at_the_families_memory_lengths(dev, dtype,
+                                                               Sm, masked):
+    """The Q-Former's 32 queries, BUTD's 36 regions with each image's
+    tail past 20 to 36 valid ones masked, Swin-B's 49 final tokens (the
+    CUDA-core route in bf16: not a multiple of 4) and 48 (the tensor-core
+    route), at 64 images x 5 beams, 12 heads, width 768: f32 within 1e-5,
+    bf16 within 2 ulps of the output's largest magnitude."""
+    B, K, NH, H = 64, 5, 12, 768
+    g = torch.Generator().manual_seed(Sm)
+    q = torch.randn((B * K, H), generator=g).to(dev, dtype)
+    mkt = torch.randn((B, H, Sm), generator=g).to(dev, dtype)
+    mv = torch.randn((B, Sm, H), generator=g).to(dev, dtype)
+    mask = None
+    if masked:
+        counts = torch.randint(20, Sm + 1, (B, 1), generator=g)
+        mask = (torch.arange(Sm)[None] >= counts).to(dev)
+    kw = dict(num_heads=NH, beam_size=K, scale=(H // NH) ** -0.5)
+    got = ca.cross_attention(q, mkt, mv, mask, **kw)
+    want = ca.cross_attention_plain(q, mkt, mv, mask, **kw)
+    torch.cuda.synchronize()
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     else:

@@ -1,7 +1,8 @@
 """The port imports no JAX: in a fresh interpreter, importing every module
 of ``image_captioning_ml_project_tpu_torch`` (the trainer, its losses,
-optimizer, checkpoints, data and metrics included) and building and
-running a tiny model of each ported family, and a training step, an SCST
+optimizer, checkpoints, data and metrics, and ``models/swin.py``
+included) and building and running a tiny model of each built-in
+configuration and of Swin, and a training step, an SCST
 update and a checkpoint of each, then the eval path's host modules (the
 BPE tokenizer, the curriculum sampler, the native JPEG loader,
 ``coco_eval`` through ``main.evaluate``, and ``main.demo``), leaves ``jax``, ``flax``, ``optax``, ``orbax``,
@@ -32,20 +33,37 @@ for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
 from image_captioning_ml_project_tpu_torch.main import CONFIGS
 from image_captioning_ml_project_tpu_torch.models.captioning_model import (
     load_model)
-for make in CONFIGS.values():
+def swin_config():
+    c = CONFIGS["transformer"]()
+    c.model.encoder.encoder_type = EncoderType.SWIN
+    return c
+
+
+def inputs(c, n):
+    if c.model.encoder.encoder_type != EncoderType.OBJECT_REGION:
+        return torch.zeros(n, 64, 64, 3, dtype=torch.uint8)
+    return {"region_features": torch.zeros(n, 36, 16),
+            "region_boxes": torch.zeros(n, 36, 4),
+            "region_mask": torch.ones(n, 36, dtype=torch.bool)}
+
+
+from image_captioning_ml_project_tpu_torch.config import EncoderType
+# an image configuration last: the eval path below runs it
+for make in [CONFIGS[k] for k in sorted(CONFIGS)] + [swin_config]:
     c = make()
     e, d = c.model.encoder, c.model.decoder
     e.hidden_size = e.feature_dim = d.hidden_dim = 32
-    c.model.attention.hidden_dim = 32
+    c.model.attention.hidden_dim = c.model.projection_dim = 32
     e.resnet_depths, e.resnet_hidden_sizes = (1,), (32,)
     e.resnet_embedding_size = 8
+    e.swin_embed_dim, e.swin_depths, e.swin_num_heads = 8, (1, 1), (1, 2)
+    e.region_feature_dim = 16
     e.num_layers = d.num_layers = 1
-    e.num_heads = d.num_heads = 2
+    e.num_heads = d.num_heads = c.model.q_former_num_heads = 2
     c.image_size, c.model.vocab_size, c.model.dtype = 64, 100, "float32"
     model = load_model(c, "cpu")
     with torch.inference_mode():
-        state = model.init_cache(torch.zeros(1, 64, 64, 3,
-                                             dtype=torch.uint8), 4)
+        state = model.init_cache(inputs(c, 1), 4)
         model.step(state, torch.ones(1, dtype=torch.long))
     # and one training step of each, checkpointed
     import tempfile
@@ -54,10 +72,10 @@ for make in CONFIGS.values():
     c.training.use_rl, c.training.batch_size = False, 2
     c.output_dir = c.checkpoint_dir = tempfile.mkdtemp()
     t = CaptioningTrainer(c, [None] * 2, [], None, device="cpu")
-    t.train_step(torch.zeros(2, 64, 64, 3, dtype=torch.uint8),
+    t.train_step(inputs(c, 2),
                  torch.ones(2, 5, dtype=torch.long),
                  torch.ones(2, 5, dtype=torch.long))
-    t.rl_update_step(torch.zeros(2, 64, 64, 3, dtype=torch.uint8),
+    t.rl_update_step(inputs(c, 2),
                      torch.ones(2, 5, dtype=torch.long),
                      torch.ones(2, 5, dtype=torch.bool), torch.ones(2))
     t.save_checkpoint(0)

@@ -13,7 +13,10 @@ exactly. The stub sees [B, num_candidates, L] candidates on both sides,
 and the port's eval writes ``results.json`` with every image once. The
 demo's caption of a fixture image is JAX's. Reranked validation: the
 validation loss within 1e-5 relative (the trainer tests' tolerance) and
-the metrics equal."""
+the metrics equal. The same holds with ``device_resize`` (the validation
+set's canvases resized and normalised on the device; the stub reranker of
+``evaluate`` and of validation handed the resized float pixels) and with
+``fold_normalize`` (uint8 pixels to the patch embed's fold)."""
 
 import json
 import os
@@ -53,10 +56,12 @@ class LastCandidate:
 
     def __init__(self):
         self.shapes = []
+        self.pixels = []
 
     def __call__(self, images, candidates):
         cands = np.asarray(candidates)
         self.shapes.append(cands.shape)
+        self.pixels.append((tuple(images.shape), str(images.dtype)))
         assert len(images) == len(cands)
         return cands[:, -1]
 
@@ -185,3 +190,59 @@ def test_reranked_validation_matches_jax(setup, monkeypatch):
     assert len(ids) == len(pt.val_dataset)
     L = pt.config.inference.max_length
     assert {s[1:] for s in pt.reranker.shapes} == {(NUM_CANDIDATES, L)}
+
+
+def _option(cfg, option):
+    import copy
+
+    cfg = copy.deepcopy(cfg)
+    cfg.device_resize = option.startswith("device_resize")
+    cfg.fold_normalize = option == "fold_normalize"
+    cfg.inference.use_clip_reranking = option.endswith("rerank")
+    return cfg
+
+
+@pytest.mark.parametrize("option", ["device_resize", "device_resize_rerank",
+                                    "fold_normalize"])
+def test_preprocessing_options_evaluate_as_jax(setup, option, monkeypatch):
+    kind, cfg, pcfg, vocab, port_vocab = setup[:5]
+    jcfg, pcfg = _option(cfg, option), _option(pcfg, option)
+    rerank = option.endswith("rerank")
+    stubs = {"jax": LastCandidate(), "port": LastCandidate()}
+    jseen = _captured(monkeypatch, jax_metrics)
+    j = jax_main.evaluate(jcfg, "best_model", tokenizer=vocab,
+                          reranker=stubs["jax"] if rerank else None)
+    pseen = _captured(monkeypatch, port_coco_eval)
+    p = port_main.evaluate(pcfg, "best_model", tokenizer=port_vocab,
+                           reranker=stubs["port"] if rerank else None,
+                           device="cpu")
+    (jgen, _, jids), = jseen
+    (pgen, _, pids), = pseen
+    assert len(pids) == len(setup[6].val_dataset)
+    assert dict(zip(pids, pgen)) == dict(zip(jids, jgen)), (kind, option)
+    assert p == j, (kind, option)
+    if rerank:
+        size = pcfg.image_size
+        assert set(stubs["port"].pixels) == {
+            ((NUM_CANDIDATES, size, size, 3), "torch.float32")}
+
+
+def test_device_resize_validation_matches_jax(setup, monkeypatch):
+    """Reranked validation over the canvases of a ``device_resize``
+    validation set: the loss within 1e-5 relative, the metrics equal, the
+    stub handed the resized pixels."""
+    kind, cfg, pcfg, vocab, port_vocab, jt, pt = setup
+    jval = jax_datasets(_option(cfg, "device_resize"), vocab)[1]
+    pval = build_coco_datasets(_option(pcfg, "device_resize"),
+                               port_vocab)[1]
+    assert jval.device_resize and pval.device_resize
+    monkeypatch.setattr(jt, "val_dataset", jval)
+    monkeypatch.setattr(pt, "val_dataset", pval)
+    pt.reranker.pixels.clear()
+    j_loss, j_metrics = jt._validate_epoch(0)
+    p_loss, p_metrics = pt._validate_epoch(0)
+    np.testing.assert_allclose(p_loss, j_loss, rtol=LOSS_RTOL)
+    assert p_metrics == j_metrics, kind
+    size = pcfg.image_size
+    assert set(pt.reranker.pixels) == {
+        ((NUM_CANDIDATES, size, size, 3), "torch.float32")}

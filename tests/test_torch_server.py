@@ -1,7 +1,8 @@
 """Serving (port: inference/server.py) and the CLI (port: main.py) on the
 CPU: concurrent submits over a bucket ladder give the captions of a direct
-``beam_search`` decode (CLIP + GPT-2, ViT + Transformer decoder, and
-ResNet + LSTM with soft attention through its kernel switch); greedy,
+``beam_search`` decode (CLIP + GPT-2, ViT + Transformer decoder, ViT +
+Q-Former and Swin with it, and ResNet + LSTM with soft attention through
+its kernel switch); greedy,
 nucleus, diverse-beam and CLIP-reranked serving give the captions of a
 direct ``decode()`` / ``rerank_candidates``, and two services of one seed
 the same nucleus captions; the CLI serves a JSON config's decoding
@@ -35,7 +36,8 @@ from image_captioning_ml_project_tpu_torch.models.captioning_model import (
     load_model)
 from image_captioning_ml_project_tpu_torch.models.clip_text import CLIPScorer
 from image_captioning_ml_project_tpu_torch.params import load_scorer
-from torch_port_helpers import IMAGE_SIZE, images_uint8, tiny_config
+from torch_port_helpers import (IMAGE_SIZE, family_config, family_inputs,
+                                images_uint8, tiny_config)
 
 torch.set_num_threads(1)
 
@@ -507,6 +509,64 @@ def test_transformer_configuration_is_served():
         assert service.stats.snapshot()["decode_steps"] > 0
     finally:
         service.stop()
+
+
+@pytest.mark.parametrize("family", ["qformer", "swin"])
+def test_other_families_are_served(family):
+    """A Q-Former model and a Swin model behind ``CaptionService``, each
+    on its bucket ladder (the Q-Former's cache built from its queries):
+    concurrent submits give the direct decode's captions."""
+    cfg = family_config(family, vocab=VOCAB)
+    cfg.seed = 5
+    tok = _vocab()
+    images = family_inputs(cfg, 17, n=3)
+    want = _direct_captions(cfg, tok, images)
+    service = CaptionService(cfg, tok, "cpu", batch_size=2,
+                             bucket_sizes=[1, 2], max_wait_ms=30.0)
+    service.start(warmup=True)
+    try:
+        reqs = [service.submit_async(img) for img in images]
+        assert [service.result(r) for r in reqs] == want
+    finally:
+        service.stop()
+
+
+def test_cli_family_configurations():
+    """``--config qformer`` and ``butd`` are the JAX package's
+    ``scripts/bench_families.py`` widths, and ``--encoder_type swin`` puts
+    Swin-B (about 87 M parameters) in the Transformer family."""
+    from image_captioning_ml_project_tpu_torch.config import (
+        DecoderType, EncoderType)
+    from image_captioning_ml_project_tpu_torch.models.captioning_model \
+        import ImageCaptioningModel
+    from image_captioning_ml_project_tpu_torch.models.encoders import (
+        ObjectRegionEncoder)
+    from image_captioning_ml_project_tpu_torch.models.swin import SwinEncoder
+
+    q, b = (port_main.resolve_config(n) for n in ("qformer", "butd"))
+    for c in (q, b):
+        d = c.model.decoder
+        assert d.decoder_type == DecoderType.TRANSFORMER
+        assert (d.hidden_dim, d.num_layers, d.num_heads, d.max_length,
+                c.model.vocab_size, c.inference.beam_size,
+                c.inference.max_length) == (768, 6, 12, 24, 30000, 5, 20)
+    assert q.model.use_q_former and (
+        q.model.q_former_num_queries, q.model.q_former_num_layers,
+        q.model.q_former_num_heads, q.model.projection_dim) == (32, 2, 8,
+                                                                768)
+    e = b.model.encoder
+    assert e.encoder_type == EncoderType.OBJECT_REGION
+    assert (e.max_objects, e.region_feature_dim, e.feature_dim) == (36, 2048,
+                                                                    768)
+    swin = port_main.resolve_config("transformer")
+    port_main._update_config_from_args(swin, port_main.build_argparser(
+        ).parse_args(["--encoder_type", "swin"]))
+    with torch.device("meta"):
+        models = [ImageCaptioningModel(c) for c in (q, b, swin)]
+    assert isinstance(models[1].encoder, ObjectRegionEncoder)
+    assert isinstance(models[2].encoder, SwinEncoder)
+    backbone = sum(p.numel() for p in models[2].encoder.backbone.parameters())
+    assert 86e6 < backbone < 88e6
 
 
 def test_cli_builtin_configurations():

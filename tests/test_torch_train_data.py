@@ -122,10 +122,13 @@ def test_transforms_are_the_same(fixtures):
 
 
 def test_native_loader_and_device_resize_are_not_ported(fixtures):
-    """The native loader is ported: ``native_loader`` builds the datasets
-    (on this PNG fixture every image falls back to PIL, so the batches are
-    the PIL path's). The device-resident resize is not yet (ROADMAP.md
-    Queue 1 item 9): asking for it raises."""
+    """Both are ported now (the name predates the device-resident resize):
+    ``native_loader`` builds the datasets (on this PNG fixture every image
+    falls back to PIL, so the batches are the PIL path's), and
+    ``device_resize`` gives the validation set the JAX package's canvas
+    batches (``image`` canvases and each square's ``image_size``; some of
+    the fixture's squares exceed the 48-pixel canvas and take the host
+    downscale), the training set its crops."""
     roots, vocab = fixtures
     cfg = _config(roots["port"])
     cfg.native_loader = True
@@ -139,8 +142,14 @@ def test_native_loader_and_device_resize_are_not_ported(fixtures):
                 for ds in (ds_native, ds_plain))
         assert np.array_equal(a["image"], b["image"])
     cfg.device_resize = True
-    with pytest.raises(NotImplementedError, match="item 9"):
-        coco.build_coco_datasets(cfg, tok)
+    want = jax_coco.build_coco_datasets(cfg, vocab)
+    got = coco.build_coco_datasets(cfg, tok)
+    assert [d.device_resize for d in got] == [False, True]
+    for a, b in zip(want, got):
+        kw = dict(shuffle=False, drop_last=False, pad_last=True)
+        _assert_batches_equal(list(jax_coco.iterate_batches(a, 4, **kw)),
+                              list(coco.iterate_batches(b, 4, **kw)))
+    assert got[1][0]["image"].shape == (48, 48, 3)
 
 
 CANDIDATES = ["a man riding a horse on a street",

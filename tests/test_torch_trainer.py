@@ -50,36 +50,16 @@ from image_captioning_ml_project_tpu_torch.data.tokenizer import (
     WordVocab as PortVocab)
 from image_captioning_ml_project_tpu_torch.train.trainer import (
     CaptioningTrainer)
-from image_captioning_ml_project_tpu_torch.params import _grouped
 from torch_port_helpers import (LOSS_RTOL, assert_state_close,
-                                loose_entries, record_gradients,
-                                bridge_state, coco_fixture, one_device_mesh,
-                                port_config, train_config)
+                                loose_entries, jax_gradients,
+                                record_gradients, bridge_state, coco_fixture,
+                                one_device_mesh, port_config, train_config)
 
 torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
     return coco_fixture(str(tmp_path_factory.mktemp("coco")))
-
-
-def _jax_gradients(jt, b, rng):
-    """{optimizer name: |gradient|} of the JAX trainer's loss on batch
-    ``b`` at its current state, as its next ``_train_step`` computes it
-    (the same dropout stream), mapped onto the port's parameters."""
-    state = jt.state
-
-    def loss(params, images, captions, mask, key):
-        losses, _ = jt._forward_loss(
-            params, state.batch_stats, jt._prepare_inputs(images), captions,
-            jax.random.fold_in(key, state.step), True, caption_mask=mask)
-        return losses["total_loss"]
-
-    grads = jax.device_get(jax.jit(jax.grad(loss))(
-        state.params, b["image"], b["caption_tokens"], b["attention_mask"],
-        rng))
-    return {n: g.abs() for n, g in _grouped(
-        grads["model"], grads.get("loss", {}), stats=False).items()}
 
 
 @pytest.fixture(scope="module", params=["vit_lstm", "clip_gpt2",
@@ -113,7 +93,7 @@ def pair(request, data, tmp_path_factory):
     port_grads, jax_grads = record_gradients(pt), []
     jm, pm = [], []
     for b in batches[1:]:
-        jax_grads.append(_jax_gradients(jt, b, rng))
+        jax_grads.append(jax_gradients(jt, b["image"], b, rng))
         jm.append(jax_step(b))
         pm.append({k: float(v) for k, v in pt.train_step(
             b["image"], b["caption_tokens"], b["attention_mask"]).items()})

@@ -58,12 +58,29 @@ def test_vit_backbone_uses_its_patch_bias_and_position_table():
 @pytest.mark.parametrize("encoder", ["swin", "object_region", "convnext",
                                      "efficientnet"])
 def test_other_encoders_name_their_roadmap_item(encoder):
+    """Swin and the object-region encoder are built (ROADMAP.md Queue 1
+    item 10, done); ConvNeXt and EfficientNet, which the JAX package's
+    ``build_encoder`` refuses too, raise its ``ValueError``; and
+    ``use_object_features`` picks the object-region encoder whatever the
+    encoder type, checked first as the JAX factory checks it."""
+    from image_captioning_ml_project_tpu.models.encoders import (
+        build_encoder as jax_build_encoder)
+    from image_captioning_ml_project_tpu_torch.models.encoders import (
+        ObjectRegionEncoder)
+    from image_captioning_ml_project_tpu_torch.models.swin import SwinEncoder
+
     cfg = get_default_config().model.encoder
     cfg.encoder_type = EncoderType(encoder)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 10"):
-        build_encoder(cfg, 224)
-    cfg.encoder_type = EncoderType.VIT
+    if encoder in ("convnext", "efficientnet"):
+        with pytest.raises(ValueError, match="Unsupported encoder type"):
+            jax_build_encoder(cfg)
+        with pytest.raises(ValueError, match="Unsupported encoder type"):
+            build_encoder(cfg, 224)
+    else:
+        with torch.device("meta"):
+            built = build_encoder(cfg, 224)
+        assert isinstance(built, SwinEncoder if encoder == "swin"
+                          else ObjectRegionEncoder)
     cfg.use_object_features = True
-    with pytest.raises(NotImplementedError, match="object-region"):
-        build_encoder(cfg, 224)
+    with torch.device("meta"):
+        assert isinstance(build_encoder(cfg, 224), ObjectRegionEncoder)

@@ -109,6 +109,81 @@ def both_models(seed: int, **config):
     return _both_models(seed, tuple(sorted(config.items())))
 
 
+# the other families at tiny widths: Q-Former (ViT + 8 queries of width
+# 48, 2 + 2 layers, 4 heads), BUTD (6 regions of 24 features) and Swin (two
+# stages, embed 16, window 3, 40x40 images: a 10x10 grid padded to 12,
+# merged with a pad to 5x5), each with the Transformer decoder
+FAMILY_IMAGE_SIZE = {"qformer": IMAGE_SIZE, "butd": IMAGE_SIZE, "swin": 40}
+FAMILY_REGIONS = 6
+
+
+def family_config(family: str, width: int = 32, **kw):
+    """``tiny_config`` of the Transformer decoder at ``width`` with the
+    family's encoder (``qformer``, ``butd``, ``swin``, or ``butd_qformer``:
+    the Q-Former over BUTD's masked regions)."""
+    encoder = {"qformer": "vit", "butd": "object_region", "swin": "swin",
+               "butd_qformer": "object_region"}[family]
+    c = tiny_config(encoder=encoder, decoder="transformer", width=width,
+                    **kw)
+    e = c.model.encoder
+    if "qformer" in family:
+        c.model.use_q_former = True
+        c.model.projection_dim, c.model.q_former_num_queries = 48, 8
+        c.model.q_former_num_layers, c.model.q_former_num_heads = 2, 4
+    if "butd" in family:
+        e.max_objects, e.region_feature_dim = FAMILY_REGIONS, 24
+    if family == "swin":
+        e.swin_embed_dim, e.swin_depths = 16, (2, 2)
+        e.swin_num_heads, e.swin_window_size = (2, 4), 3
+        c.image_size = FAMILY_IMAGE_SIZE["swin"]
+    return c
+
+
+def family_inputs(cfg, seed: int, n: int = 2):
+    """numpy inputs: uint8 images, or regions with each image's first 2 to
+    all of them valid (the first image's fewest)."""
+    rs = np.random.RandomState(seed)
+    e = cfg.model.encoder
+    if e.encoder_type == EncoderType.OBJECT_REGION:
+        N = e.max_objects
+        counts = np.linspace(2, N, n).round().astype(int)
+        return {"region_features": rs.randn(
+                    n, N, e.region_feature_dim).astype(np.float32),
+                "region_boxes": rs.rand(n, N, 4).astype(np.float32),
+                "region_mask": np.arange(N)[None] < counts[:, None]}
+    return rs.randint(0, 256, (n, cfg.image_size, cfg.image_size,
+                               3)).astype(np.uint8)
+
+
+def jax_inputs(x):
+    """What the JAX trainer hands ``model.encode``: normalised images, or
+    the region dict as it is."""
+    if isinstance(x, dict):
+        return {k: jnp.asarray(v) for k, v in x.items()}
+    return jax_images(x)
+
+
+def port_inputs(x):
+    if isinstance(x, dict):
+        return {k: torch.from_numpy(v) for k, v in x.items()}
+    return torch.from_numpy(x)
+
+
+@functools.lru_cache(maxsize=None)
+def family_models(family: str, seed: int = 0, width: int = 32):
+    """(config, flax model, variables, port model on the CPU) of
+    :func:`family_config` from the port's seeded draw
+    (``init_flax_params``: Swin's bias tables and the Q-Former's queries
+    drawn, not zero), the same numbers in both packages."""
+    from image_captioning_ml_project_tpu_torch.params import init_flax_params
+
+    cfg = family_config(family, width=width)
+    variables = jax.tree_util.tree_map(
+        jnp.asarray, init_flax_params(port_config(cfg), seed))
+    return (cfg, ImageCaptioningModel(cfg), variables,
+            load_model(cfg, "cpu", params=variables))
+
+
 def bf16_ulp(ref: np.ndarray) -> float:
     """One bf16 ulp at the magnitude of ``ref``'s largest element."""
     mag = float(np.abs(ref).max())
@@ -214,6 +289,27 @@ def adam_step_bound(count):
     s = sum(((1 - B1) * B1 ** k) ** 2 / ((1 - B2) * B2 ** k)
             for k in range(count))
     return math.sqrt(s) * math.sqrt(1 - B2 ** count) / (1 - B1 ** count)
+
+
+def jax_gradients(jt, inputs, b, rng):
+    """{optimizer name: |gradient|} of the JAX trainer's loss on ``inputs``
+    (its ``_batch_inputs`` of batch ``b``) and ``b``'s captions at its
+    current state, as its next ``_train_step`` computes it (the same
+    dropout stream), mapped onto the port's parameters."""
+    from image_captioning_ml_project_tpu_torch.params import _grouped
+
+    state = jt.state
+
+    def loss(params, inputs, captions, mask, key):
+        losses, _ = jt._forward_loss(
+            params, state.batch_stats, jt._prepare_inputs(inputs), captions,
+            jax.random.fold_in(key, state.step), True, caption_mask=mask)
+        return losses["total_loss"]
+
+    grads = jax.device_get(jax.jit(jax.grad(loss))(
+        state.params, inputs, b["caption_tokens"], b["attention_mask"], rng))
+    return {n: g.abs() for n, g in _grouped(
+        grads["model"], grads.get("loss", {}), stats=False).items()}
 
 
 def record_gradients(trainer):
