@@ -178,11 +178,61 @@ prints no result line:
    pixels, then ``--mode eval --fold_normalize`` (uint8 pixels to the
    patch embed's fold; under ``device_resize`` the model is handed
    normalised floats and nothing folds, as in the JAX package), each
-   with phase 8's launch checks.
+   with phase 8's launch checks;
+10. parallel and legacy: two ranks of the port's mesh on the one card,
+   over gloo (each a process of this script, ``--parallel-rank``, with
+   the deadline :data:`PAR_RANK_TIMEOUT`; a rank that fails or hangs
+   fails the phase). In f32 on phase 7's fixture, dropout 0, one warmup
+   step (as the CPU parity tests), two CE
+   steps of global batch 4 of the flagship at data parallelism 2, then at
+   tensor parallelism 2 (GPT-2's blocks Megatron-sharded), and of
+   ResNet-101 + LSTM (BatchNorm on the global batch) at dp2: losses
+   within 1e-5 relative of the one-process trainer's on the card and
+   ``grad_norm`` within phase 7's 1e-3, the gathered state (parameters,
+   Adam moments, running statistics) by phase 7's rules
+   (:func:`hold_train_state`). ResNet-101's gradients over 2 + 2 rows
+   are known only to a few percent: a one-process run with the stem
+   nudged by one ulp moves them as far. There each step's gradient and
+   any moment beyond phase 7's entry rule (tensor by tensor) and the
+   parameters' moves (over the model) must lie within four times the
+   nudged run's relative L2 distance or 1e-3, and every parameter entry
+   of each run within phase 7's atol 1e-5 + rtol 1e-4 of the AdamW steps
+   its own recorded moments give. The same two LSTM steps without the warmup
+   step are reported beside the nudged run's (each step's loss relative
+   to one process); before the flagship's
+   dp2 steps ``_validate_epoch`` on the 64 validation images in one batch,
+   each rank decoding its 32 rows (#5 twice, for the loss's forward and
+   the decode's encode, #3 and #4 once a decode step, nothing else, on
+   each rank), the gathered tokens identical to the one-process
+   decode's. In bf16 at full width: one warm-up and five timed
+   steps of global batch 64 at dp2 and at tp2 (each rank's median step,
+   images/s of the global batch, peak memory; no kernel launched; the two
+   ranks share the card, so the times say what the code costs, not what
+   two cards gain); the tp2 trainer's checkpoint restored in one process
+   bit-identical to the ranks' gathered state. One f32 legacy step of
+   batch 4 at dp2 against the one-process step, held as ResNet-101's.
+   Then the CLI as ``torchrun`` starts it (``python -m
+   torch.distributed.run --nproc_per_node 2 -m
+   image_captioning_ml_project_tpu_torch.main``, a free localhost port):
+   ``--mode train`` of the flagship at dp2 in bf16 for one epoch of five
+   steps of 64 (validation and the epoch checkpoint included), then
+   ``--mode eval`` of its checkpoint in f32 at dp2 and in one process,
+   ``results.json`` identical (:func:`torchrun_cli`). Then the legacy
+   Show-Attend-Tell stack in one process at the JAX legacy CLI's defaults
+   (ResNet-50, 224 pixels, a 14 x 14 grid, widths 512, a word vocabulary
+   of 10000, f32): forward and 20-token ``generate`` of 4 images on the
+   card and on the CPU (tokens identical, predictions and alphas within
+   1e-4), two steps of batch 2 on both (``ce`` and ``att_reg`` within 1e-5
+   relative, the state as ResNet-101's at dp2), 20 steps of batch 16 on one
+   batch (the loss falling; ms a step, images/s, peak memory),
+   ``validate`` on the 64 validation images, ``generate_captions`` on 4
+   JPEGs, the epoch checkpoints restored bit-identical; no kernel
+   launched in the legacy stack.
 
-The last four lines are the train and eval phases' numbers (JSON), phase
-9's (JSON), a JSON summary of the kernels and ``{"ok": true, "device":
-{...}}``. Each kernel's entry holds its numbers
+The last five lines are the train and eval phases' numbers (JSON), phase
+9's (JSON), phase 10's (JSON), a JSON summary of the kernels and ``{"ok":
+true, "device": {...}}`` (the card's ``nvidia-smi`` line is printed
+first, in phase 1). Each kernel's entry holds its numbers
 and launches for the Transformer family where that family runs it, else
 for the flagship, else for the LSTM; the other families', where they have
 their own shape (the LSE over the LSTM's vocabulary of 10000), are under
@@ -192,7 +242,9 @@ launches in the flagship's other decoding options' runs under
 ``decoding_options``, and their launches in the train phase (its
 steps, its validation, the service across the reload, the timed SCST
 steps) under ``training``, in phase 8's eval, reranked eval and
-demo under ``evaluation``, and in phase 9's runs under ``families``;
+demo under ``evaluation``, in phase 9's runs under ``families``, and
+in phase 10 per rank (the dp2 validation, the bf16 steps at dp2 and
+tp2) and in the legacy stack under ``parallel``;
 #6's numbers at phase 9's memory lengths are under ``family_shapes``.
 """
 
@@ -1846,45 +1898,110 @@ def _flat_state(tree, prefix=""):
     return out
 
 
-def record_steps(torch, trainer, steps):
+def record_steps(torch, trainer, steps, prefix=""):
     """Each step ``trainer`` takes from now on appends, on the CPU, its
-    |gradient|s and the Adam moments after it to ``steps`` ({"grads",
-    "mu", "nu"}: {optimizer name: tensor})."""
+    gradients and the Adam moments after it to ``steps`` ({"grads", "mu",
+    "nu"}: {optimizer name: tensor}), names prefixed with ``prefix``; a
+    trainer that holds shards gathers them to full tensors first (every
+    rank of the model axis takes part)."""
     opt = trainer.optimizer
     step = opt.step
+    gather = getattr(trainer, "_gather", lambda x: x)
+
+    def full(tensors):
+        return {prefix + n: v.detach().float().cpu()
+                for n, v in gather(dict(tensors)).items()}
 
     def recording(grads):
-        record = {"grads": {n: g.detach().abs().cpu()
-                            for n, g in grads.items()}}
+        record = {"grads": full(grads)}
         out = step(grads)
-        record["mu"] = {n: m.float().cpu() for n, m in opt.mu.items()}
-        record["nu"] = {n: v.cpu() for n, v in opt.nu.items()}
+        record["mu"], record["nu"] = full(opt.mu), full(opt.nu)
         steps.append(record)
         return out
 
     opt.step = recording
 
 
-def hold_train_state(torch, trainer, reference, before, steps, lrs):
-    """``trainer``'s state against ``reference``'s after the same steps
-    from the parameters ``before`` (``steps``: the two trainers' lists of
-    :func:`record_steps` records): every Adam moment after each step
-    within that step's :data:`TRAIN_MOMENT_ATOL` + :data:`TRAIN_MOMENT_RTOL`;
-    every parameter within :data:`TRAIN_PARAM_ATOL` +
-    :data:`TRAIN_PARAM_RTOL`, but an entry whose gradient on either
-    trainer lies in (0, :data:`SMALL_GRADIENT`) in a step: each trainer's
-    move of it within the bias-corrected Adam steps at the learning rates
-    ``lrs`` plus their decay, the two within twice the Adam steps. Fails
-    naming the worst entries. Returns a line that says how close they
-    came."""
-    mine, ref = trainer._state_tree(), reference._state_tree()
-    count0 = ref["opt_state"]["count"] - len(lrs)
+def param_start(tree):
+    """A state tree's parameters by optimizer name, copied to the CPU: the
+    start of the steps :func:`hold_train_state` holds."""
+    return {f"{group}.{k}": v.detach().float().cpu().clone()
+            for group, params in tree["params"].items()
+            for k, v in params.items()}
+
+
+def _relative_l2(a, b):
+    """||a - b|| / ||b|| (0 where both are 0)."""
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _adam_replay(torch, p0, steps, key, lrs, count0, weight_decay):
+    """The parameter ``key`` after AdamW's steps from ``p0`` with the
+    moments a run recorded (``steps``: its :func:`record_steps` records)
+    at the learning rates ``lrs``, in the optimizer's f32 arithmetic
+    (``train/optim.AdamW``: bias correction at counts ``count0 + 1``...,
+    eps 1e-8 outside the root, decoupled decay on tensors of more than
+    one dimension)."""
+    p = p0.clone()
+    for i, (record, lr) in enumerate(zip(steps, lrs)):
+        count = count0 + 1 + i
+        bc1 = float(1 - torch.tensor(ADAM_B1, dtype=torch.float32) ** count)
+        bc2 = float(1 - torch.tensor(ADAM_B2, dtype=torch.float32) ** count)
+        u = (record["mu"][key] / bc1) / ((record["nu"][key] / bc2).sqrt()
+                                         + 1e-8)
+        if weight_decay and p.ndim > 1:
+            u = u + weight_decay * p
+        p = p + float(-torch.tensor(lr, dtype=torch.float32)) * u
+    return p
+
+
+def hold_train_state(torch, got, want, before, steps, lrs, weight_decay,
+                     floor=None):
+    """``got``'s training state against ``want``'s (state trees, as
+    ``_state_tree()`` gives them) after the same steps from the parameters
+    ``before`` (:func:`param_start`), ``steps`` the two runs' lists of
+    :func:`record_steps` records, ``lrs`` the steps' learning rates, by
+    phase 7's rules:
+
+    * every Adam moment after each step within that step's
+      :data:`TRAIN_MOMENT_ATOL` + :data:`TRAIN_MOMENT_RTOL`;
+    * every BatchNorm running statistic and every parameter within
+      :data:`TRAIN_PARAM_ATOL` + :data:`TRAIN_PARAM_RTOL`, but a parameter
+      entry whose gradient on either run lies in (0,
+      :data:`SMALL_GRADIENT`) in a step: each run's move of it within the
+      bias-corrected Adam steps at ``lrs`` plus their decay, the two
+      within twice the Adam steps.
+
+    ``floor`` is for a model whose gradients rounding alone moves by
+    percents (a deep ResNet with BatchNorm over a few rows): the same run
+    as ``want``'s with the stem nudged by one ulp (:func:`_floor_run`'s
+    records and state). An Adam step then follows its gradient's rounding
+    wherever the steps' gradients of an entry nearly cancel, not only
+    where they are small, so the runs are held tensor by tensor against
+    that floor: each step's gradient and any moment tensor beyond the
+    entry rule, tensor by tensor, and the parameters' moves from
+    ``before`` over the whole model (a flipped step is a discrete event,
+    too rare in a small tensor to compare there) within four times the
+    nudged run's relative L2 distance from ``want``'s or 1e-3, whichever
+    is larger; a running statistic within four times the nudged run's
+    largest |diff| where that is larger than the entry rule.
+    Every parameter entry of each run must still lie within
+    :data:`TRAIN_PARAM_ATOL` + :data:`TRAIN_PARAM_RTOL` of the AdamW
+    steps its own recorded moments give (:func:`_adam_replay`), so an
+    update the optimizer got wrong fails entry by entry. Fails naming the
+    worst entries. Returns a line that says how close they came."""
+    count0 = int(want["opt_state"]["count"]) - len(lrs)
     adam = sum(lr * adam_step_bound(count0 + 1 + i)
                for i, lr in enumerate(lrs))
-    wd = reference.config.training.weight_decay
-    worst = {"param": (0.0, ""), "loose": (0.0, "")}
+    worst = {"param": (0.0, ""), "loose": (0.0, ""), "stats": (0.0, ""),
+             "replay": (0.0, "")}
     worst.update({f"moment {i + 1}": (0.0, "") for i in range(len(lrs))})
-    n, n_loose, failures = 0, 0, []
+    for k in ("gradient", "gradient floor", "moment L2"):
+        worst[k] = (0.0, "")
+    n, n_small, n_apart, n_apart_floor, failures = 0, 0, 0, 0, []
+    # the squared distances of the parameters' moves, summed over the
+    # model: got's and the nudged run's from want's, and want's moves
+    moves = {"got": 0.0, "floor": 0.0, "want": 0.0}
 
     def fail(key, excess, got, want):
         over = int((excess > 0).sum())
@@ -1894,63 +2011,143 @@ def hold_train_state(torch, trainer, reference, before, steps, lrs):
         failures.append(f"{key}: {over} entries beyond the tolerance, "
                         + "; ".join(rows))
 
-    def note(kind, diff, key):
-        d = float(diff.max()) if diff.numel() else 0.0
-        if d > worst[kind][0]:
-            worst[kind] = (d, key)
+    def note(kind, value, key):
+        if value > worst[kind][0]:
+            worst[kind] = (value, key)
+
+    def relative_rule(kind, key, got, want, base):
+        rel = _relative_l2(got, want)
+        note(kind, rel, key)
+        if rel > max(4 * base, 1e-3):
+            failures.append(f"{key}: relative L2 {rel:.3e}, the nudged "
+                            f"run's {base:.3e}")
+
+    def entry_tol(ref):
+        return TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL * ref.abs()
 
     for i, (got_step, want_step) in enumerate(zip(*steps)):
+        if floor is not None:
+            for name, w in want_step["grads"].items():
+                base = _relative_l2(floor["steps"][i]["grads"][name], w)
+                note("gradient floor", base, name)
+                relative_rule("gradient", f"gradient of {name} at step "
+                              f"{i + 1}", got_step["grads"][name], w, base)
         for moment in ("mu", "nu"):
-            for name, want in want_step[moment].items():
-                got = got_step[moment][name]
-                diff = (got - want).abs()
-                note(f"moment {i + 1}", diff, f"{moment} {name}")
+            for name, w in want_step[moment].items():
+                g = got_step[moment][name]
+                diff = (g - w).abs()
+                note(f"moment {i + 1}", float(diff.max()),
+                     f"{moment} {name}")
                 excess = diff - (TRAIN_MOMENT_ATOL[i]
-                                 + TRAIN_MOMENT_RTOL * want.abs())
-                if float(excess.max()) > 0:
-                    fail(f"Adam {moment} of {name} after step {i + 1}",
-                         excess, got, want)
+                                 + TRAIN_MOMENT_RTOL * w.abs())
+                if float(excess.max()) <= 0:
+                    continue
+                key = f"Adam {moment} of {name} after step {i + 1}"
+                if floor is None:
+                    fail(key, excess, g, w)
+                else:
+                    relative_rule("moment L2", key, g, w, _relative_l2(
+                        floor["steps"][i][moment][name], w))
+    for name, w in want["batch_stats"].items():
+        w = w.float().cpu()
+        g = got["batch_stats"][name].float().cpu()
+        d = (g - w).abs()
+        note("stats", float(d.max()), name)
+        allowed = entry_tol(w)
+        if floor is not None:
+            allowed = torch.clamp(allowed, min=4 * float(
+                (floor["state"]["batch_stats"][name].float() - w)
+                .abs().max()))
+        excess = d - allowed
+        if float(excess.max()) > 0:
+            fail(f"running statistic {name}", excess, g, w)
     for group in ("model", "loss"):
-        for name, want in ref["params"][group].items():
+        for name, w in want["params"][group].items():
             key = f"{group}.{name}"
-            got = mine["params"][group][name].float().cpu()
-            want = want.float().cpu()
+            g = got["params"][group][name].float().cpu()
+            w = w.float().cpu()
             p0 = before[key]
-            loose = torch.zeros(want.shape, dtype=torch.bool)
-            for got_step, want_step in zip(*steps):
-                top = torch.maximum(got_step["grads"][key],
-                                    want_step["grads"][key])
-                loose |= (top > 0) & (top < SMALL_GRADIENT)
-            diff = (got - want).abs()
+            diff = (g - w).abs()
             n += diff.numel()
-            n_loose += int(loose.sum())
-            note("param", diff[~loose], key)
-            note("loose", diff[loose], key)
+            apart = diff > entry_tol(w)
+            n_apart += int(apart.sum())
+            if floor is not None:
+                for side, run in ((g, steps[0]), (w, steps[1])):
+                    replay = _adam_replay(torch, p0, run, key, lrs, count0,
+                                          weight_decay)
+                    d = (side - replay).abs()
+                    note("replay", float(d.max()), key)
+                    excess = d - entry_tol(replay)
+                    if float(excess.max()) > 0:
+                        fail(f"parameter {key} against its run's AdamW "
+                             f"steps", excess, side, replay)
+                f = floor["state"]["params"][group][name].float()
+                moves["got"] += float((g - w).square().sum())
+                moves["floor"] += float((f - w).square().sum())
+                moves["want"] += float((w - p0).square().sum())
+                n_apart_floor += int(((f - w).abs() > entry_tol(w)).sum())
+                note("param", float(diff.max()), key)
+                continue
+            loose = torch.zeros(w.shape, dtype=torch.bool)
+            for got_step, want_step in zip(*steps):
+                top = torch.maximum(got_step["grads"][key].abs(),
+                                    want_step["grads"][key].abs())
+                loose |= (top > 0) & (top < SMALL_GRADIENT)
+            n_small += int(loose.sum())
+            note("param", float(diff[~loose].max()) if (~loose).any()
+                 else 0.0, key)
+            note("loose", float(diff[loose].max()) if loose.any() else 0.0,
+                 key)
             # the decay of |p| <= |p0| + adam over the steps, and f32
             # rounding of the bound's own terms
-            reach = (adam + sum(lrs) * wd * (p0.abs() + adam)) \
+            reach = (adam + sum(lrs) * weight_decay * (p0.abs() + adam)) \
                 * (1 + 1e-5) + 1e-9
-            for side in (got, want):
+            for side in (g, w):
                 excess = torch.where(loose, (side - p0).abs() - reach, 0.0)
                 if float(excess.max()) > 0:
                     fail(f"the move of parameter {key}", excess, side, p0)
-            excess = torch.where(
-                loose, diff - 2 * adam,
-                diff - (TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL * want.abs()))
+            excess = torch.where(loose, diff - 2 * adam,
+                                 diff - entry_tol(w))
             if float(excess.max()) > 0:
-                fail(f"parameter {key}", excess, got, want)
-    check(not failures, f"{len(failures)} leaves beyond the tolerance: "
-                        + " | ".join(failures))
+                fail(f"parameter {key}", excess, g, w)
+    if floor is not None:
+        # an entry's step parts the runs by about 2 lr when its sign
+        # flips, a discrete event of rounding: the moves are compared over
+        # the whole model, where such events are many
+        want_l2 = max(math.sqrt(moves["want"]), 1e-30)
+        rel = math.sqrt(moves["got"]) / want_l2
+        base = math.sqrt(moves["floor"]) / want_l2
+        if rel > max(4 * base, 1e-3):
+            failures.append(f"the parameters' moves over the model: "
+                            f"relative L2 {rel:.3e}, the nudged run's "
+                            f"{base:.3e}")
+    check(not failures, f"{len(failures)} beyond the tolerance: "
+                        + " | ".join(failures[:10]))
     moments = "; ".join(
         f"after step {i + 1} {worst[f'moment {i + 1}'][0]:.3e} "
         f"({worst[f'moment {i + 1}'][1]})" for i in range(len(lrs)))
-    return (f"Adam moments, largest |diff|: {moments}; {n} parameter "
-            f"entries: largest "
-            f"|diff| {worst['param'][0]:.3e} ({worst['param'][1]}) where "
-            f"every step's |gradient| is 0 or at least {SMALL_GRADIENT:g}; "
-            f"{n_loose} entries below it within {2 * adam:.3e} of each "
-            f"other (each moved within {adam:.3e} + decay), largest "
-            f"{worst['loose'][0]:.3e} ({worst['loose'][1]})")
+    line = f"Adam moments, largest |diff|: {moments}; {n} parameter entries"
+    if floor is None:
+        line += (f": largest |diff| {worst['param'][0]:.3e} "
+                 f"({worst['param'][1]}) where every step's |gradient| is 0 "
+                 f"or at least {SMALL_GRADIENT:g}; {n_small} entries below "
+                 f"it within "
+                 f"{2 * adam:.3e} of each other (each moved within "
+                 f"{adam:.3e} + decay), largest {worst['loose'][0]:.3e} "
+                 f"({worst['loose'][1]})")
+    else:
+        line += (f", each within {worst['replay'][0]:.3e} of its run's "
+                 f"AdamW steps ({worst['replay'][1]}); the moves over the "
+                 f"model {rel:.3e} relative L2 apart (the nudged run's "
+                 f"{base:.3e}); {n_apart} entries beyond atol "
+                 f"{TRAIN_PARAM_ATOL:g} + rtol {TRAIN_PARAM_RTOL:g} between "
+                 f"the runs (the nudged run's {n_apart_floor}), largest "
+                 f"|diff| {worst['param'][0]:.3e} ({worst['param'][1]})"
+                 + "".join(f"; largest {k} relative L2 {worst[k][0]:.3e} "
+                           f"({worst[k][1]})" for k in (
+                               "gradient", "gradient floor", "moment L2")))
+    return (line + f"; running statistics largest |diff| "
+            f"{worst['stats'][0]:.3e} ({worst['stats'][1]})")
 
 
 def _zero_launches(kernels):
@@ -1978,9 +2175,7 @@ def train_card_vs_cpu(torch, dev, cfg, tree, train_ds, tmp, kernels):
         t = CaptioningTrainer(c, train_ds, train_ds, None, device=device,
                               params=tree)
         if name == "cpu":
-            before = {f"{group}.{k}": v.clone() for group, params in
-                      t._state_tree()["params"].items()
-                      for k, v in params.items()}
+            before = param_start(t._state_tree())
         steps[name] = []
         record_steps(torch, t, steps[name])
         _zero_launches(kernels)
@@ -2010,9 +2205,11 @@ def train_card_vs_cpu(torch, dev, cfg, tree, train_ds, tmp, kernels):
                            f"{a['grad_norm']} cpu {b['grad_norm']}")
         check(a["learning_rate"] == b["learning_rate"] > 0,
               f"train f32 step {step + 1}: learning rates {a} {b}")
-    held = hold_train_state(torch, trainers["card"], trainers["cpu"],
-                            before, (steps["card"], steps["cpu"]),
-                            [m["learning_rate"] for m in metrics["cpu"]])
+    held = hold_train_state(torch, trainers["card"]._state_tree(),
+                            trainers["cpu"]._state_tree(), before,
+                            (steps["card"], steps["cpu"]),
+                            [m["learning_rate"] for m in metrics["cpu"]],
+                            c.training.weight_decay)
     print(f"train f32 card vs CPU: worst relative loss {worst}; "
           f"{held}", flush=True)
     for t in trainers.values():
@@ -2305,9 +2502,7 @@ def scst_card_vs_cpu(torch, dev, cfg, tree, tokenizer, train_ds, tmp,
         if name == "card":
             sampled, mask, greedy = _scst_rollouts(
                 torch, c.inference.max_length, vocab, ref_tokens, g)
-            before = {f"{group}.{k}": v.float().cpu() for group, params in
-                      t._state_tree()["params"].items()
-                      for k, v in params.items()}
+            before = param_start(t._state_tree())
         steps[name] = []
         record_steps(torch, t, steps[name])
         _zero_launches(kernels)
@@ -2332,9 +2527,10 @@ def scst_card_vs_cpu(torch, dev, cfg, tree, tokenizer, train_ds, tmp,
     rel = abs(a["rl_loss"] - b["rl_loss"]) / abs(b["rl_loss"])
     check(rel <= 1e-5, f"scst f32 rl_loss card {a['rl_loss']} cpu "
                        f"{b['rl_loss']} (rel {rel:.2e})")
-    held = hold_train_state(torch, trainers["card"], trainers["cpu"],
-                            before, (steps["card"], steps["cpu"]),
-                            [b["learning_rate"]])
+    held = hold_train_state(torch, trainers["card"]._state_tree(),
+                            trainers["cpu"]._state_tree(), before,
+                            (steps["card"], steps["cpu"]),
+                            [b["learning_rate"]], c.training.weight_decay)
     print(f"scst f32 card vs CPU: rewards {rewards['cpu'][0].tolist()} / "
           f"greedy {rewards['cpu'][1].tolist()}, card within 1e-5; rl_loss "
           f"card {a['rl_loss']:.8f} cpu {b['rl_loss']:.8f} (rel {rel:.2e}); "
@@ -3300,6 +3496,943 @@ def families_phase(torch, dev, smi, fixture, scorer, tmp):
     return numbers, cross
 
 
+# ---------------------------------------------------------------------------
+# parallel and legacy (phase 10)
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 2
+PAR_F32_BATCH = 4         # global batch of the f32 parity steps
+PAR_BF16_BATCH = 64       # global batch of the timed bf16 steps
+PAR_BF16_STEPS = 6        # one warm-up step, then five timed
+PAR_VAL_BATCH = 64        # validation: 32 rows a rank
+PAR_RANK_TIMEOUT = 900    # seconds the ranks may take together
+LEGACY_VOCAB = 10000
+LEGACY_STEPS = 20
+LEGACY_BATCH = 16         # the JAX legacy CLI's
+LEGACY_MAX_LENGTH = 20
+LEGACY_IMAGES = 4         # card against CPU, and generate_captions
+
+
+class _RecordingTokenizer:
+    """The tokenizer, keeping every token row it decodes."""
+
+    def __init__(self, tokenizer):
+        self._tokenizer = tokenizer
+        self.rows = []
+
+    def __getattr__(self, name):
+        return getattr(self._tokenizer, name)
+
+    def __len__(self):
+        return len(self._tokenizer)
+
+    def decode(self, ids, skip_special_tokens=True):
+        self.rows.append([int(i) for i in ids])
+        return self._tokenizer.decode(ids, skip_special_tokens)
+
+
+def _cpu_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    if hasattr(tree, "detach"):
+        return tree.detach().float().cpu().clone()
+    return tree
+
+
+def _legacy_tree(trainer):
+    """A legacy trainer's state as :func:`hold_train_state` reads one (its
+    parameters under ``model``)."""
+    st = trainer.state_tree()
+    return {"params": {"model": st["params"], "loss": {}},
+            "batch_stats": st["batch_stats"], "opt_state": st["opt_state"],
+            "step": st["step"]}
+
+
+def _digests(torch, tree):
+    """sha256 of every tensor of a state tree, by path."""
+    import hashlib
+
+    return {k: hashlib.sha256(v.detach().cpu().contiguous().reshape(-1).view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+        for k, v in _flat_state(tree).items()}
+
+
+# the weight nudged by one or two ulps for a run's rounding floor
+FLOOR_WEIGHT = "encoder.backbone.embedder.convolution.weight"
+
+
+def nudge_weights(torch, model):
+    """Scale the ResNet's stem weights by 1 + 2^-22 (one or two ulps): the
+    run then differs from the unnudged one by rounding alone."""
+    with torch.no_grad():
+        model.get_parameter(FLOOR_WEIGHT).mul_(1 + 2.0 ** -22)
+
+
+def one_warmup_step(schedule):
+    """``schedule`` with lr 0 at the first update, as a warmup step."""
+    return lambda count: schedule(count) if count else 0.0
+
+
+def _floor_run(torch, make, step, tree, prefix=""):
+    """The rounding floor of a run: a trainer from ``make()`` with
+    :func:`nudge_weights` applied takes two steps (``step(trainer)``);
+    returns its :func:`record_steps` records (names prefixed with
+    ``prefix``) and its state after them (``tree(trainer)`` on the CPU),
+    as :func:`hold_train_state`'s ``floor``."""
+    t = make()
+    nudge_weights(torch, t.model)
+    steps = []
+    record_steps(torch, t, steps, prefix=prefix)
+    step(t)
+    step(t)
+    out = {"steps": steps, "state": _cpu_tree(tree(t))}
+    del t.optimizer.step, t
+    return out
+
+
+def _par_data(spec):
+    """(base config, tokenizer, train set, val set) of phase 7's fixture,
+    as the parent hands it to the ranks."""
+    from image_captioning_ml_project_tpu_torch.config import config_from_dict
+    from image_captioning_ml_project_tpu_torch.data.coco import (
+        build_coco_datasets)
+    from image_captioning_ml_project_tpu_torch.data.tokenizer import WordVocab
+
+    base = config_from_dict(spec["config"])
+    tokenizer = WordVocab.load(spec["vocab"])
+    train_ds, val_ds = build_coco_datasets(base, tokenizer)
+    return base, tokenizer, train_ds, val_ds
+
+
+def _par_f32_config(data, family, out, warmup):
+    """The f32 parity steps' config of ``family`` (``flagship``, or
+    ``lstm``: ResNet-101 + LSTM) on phase 7's fixture: global batch 4,
+    dropout 0, lr 1e-4 after ``warmup`` steps, validation in one batch of
+    64."""
+    from image_captioning_ml_project_tpu_torch.main import lstm_config
+
+    base, tokenizer = data[:2]
+    if family == "lstm":
+        base = copy.deepcopy(base)
+        base.model = copy.deepcopy(lstm_config().model)
+        base.model.pad_token_id = tokenizer.pad_token_id
+        base.model.bos_token_id = tokenizer.bos_token_id
+        base.model.eos_token_id = tokenizer.eos_token_id
+    c = _train_config(base, out, False, PAR_F32_BATCH, 1e-4, warmup, 0.0)
+    c.inference.num_candidates = PAR_VAL_BATCH
+    return c
+
+
+def _par_lstm_no_warmup(torch, dev, spec, data, mesh, tmp):
+    """The LSTM family's two f32 parity steps without the warmup step (the
+    first at lr 1e-4): each step's total loss at dp2, and in one process
+    with the stem nudged by one ulp (:func:`nudge_weights`), relative to
+    the one-process run's. Reported, not held: after a real first update
+    the runs part at the entries whose Adam step's sign rounding decides,
+    and the nudged run shows how far rounding alone then moves the second
+    step's loss (the reason :func:`_par_f32` takes a warmup step).
+    Returns rank 0's numbers."""
+    from image_captioning_ml_project_tpu_torch.data.pipeline import (
+        shard_batch)
+    from image_captioning_ml_project_tpu_torch.train.trainer import (
+        CaptioningTrainer)
+
+    _, tokenizer, train_ds, val_ds = data
+    c = _par_f32_config(data, "lstm", os.path.join(tmp, "f32_lstm_nw"), 0)
+    sd = torch.load(spec["weights"]["lstm"], mmap=True, weights_only=True)
+    batch = _fixed_batch(train_ds, PAR_F32_BATCH)
+    runs = (("one process", None, False), ("nudged", None, True),
+            ("dp2", mesh, False))
+    losses = {}
+    for name, m, nudge in runs:
+        if m is None and mesh.rank != 0:
+            continue
+        t = CaptioningTrainer(c, train_ds, val_ds, tokenizer, device=dev,
+                              state_dict=sd, mesh=m)
+        if nudge:
+            nudge_weights(torch, t.model)
+        b = shard_batch(batch, m)
+        losses[name] = [float(t.train_step(
+            b["image"], b["caption_tokens"], b["attention_mask"])[
+                "total_loss"]) for _ in range(2)]
+        del t
+        torch.cuda.empty_cache()
+    if mesh.rank != 0:
+        return None
+    ref = losses["one process"]
+    out = {f"{name} loss_rel": [abs(a - b) / abs(b)
+                                for a, b in zip(losses[name], ref)]
+           for name in ("dp2", "nudged")}
+    print(f"parallel f32 lstm dp2 without the warmup step, each step's "
+          f"loss relative to one process: {out}", flush=True)
+    return out
+
+
+def _par_f32(torch, dev, spec, data, mesh, family, refs, kernels, tmp):
+    """Two f32 CE steps of global batch 4 (dropout 0, one warmup step) of
+    ``family`` on ``mesh``, held on rank 0 to the one-process trainer's
+    on the card (built once per family, kept in ``refs``) by phase 7's
+    rules; with ``validate`` first the f32 validation of 64 images, each
+    rank decoding its rows, its gathered tokens against the one-process
+    decode's. Returns this rank's numbers (rank 0's with the
+    comparisons)."""
+    from image_captioning_ml_project_tpu_torch.data.pipeline import (
+        shard_batch)
+    from image_captioning_ml_project_tpu_torch.train.trainer import (
+        CaptioningTrainer)
+
+    _, tokenizer, train_ds, val_ds = data
+    # one warmup step, as the CPU parity tests take: lr 0 at the first
+    # step, so both steps run on the same weights and only the second
+    # update's Adam signs can part the two runs
+    c = _par_f32_config(data, family, os.path.join(tmp, f"f32_{family}"), 1)
+    sd = torch.load(spec["weights"][family], mmap=True, weights_only=True)
+    rank = mesh.rank
+    numbers = {"mesh": dict(mesh.shape)}
+    validate = family == "flagship" and mesh.mp == 1
+    if rank == 0 and family not in refs:
+        ref = CaptioningTrainer(c, train_ds, val_ds, tokenizer, device=dev,
+                                state_dict=sd)
+        entry = {"before": param_start(ref._state_tree()), "steps": []}
+        if validate:
+            rec = _RecordingTokenizer(tokenizer)
+            ref.tokenizer = rec
+            entry["validation"] = (ref._validate_epoch(0), rec.rows)
+        record_steps(torch, ref, entry["steps"])
+        batch = _fixed_batch(train_ds, PAR_F32_BATCH)
+        if family == "lstm":
+            entry["floor"] = _floor_run(
+                torch, lambda: CaptioningTrainer(
+                    c, train_ds, val_ds, tokenizer, device=dev,
+                    state_dict=sd),
+                lambda t: t.train_step(batch["image"],
+                                       batch["caption_tokens"],
+                                       batch["attention_mask"]),
+                lambda t: t._state_tree())
+        entry["metrics"] = [{k: float(v) for k, v in ref.train_step(
+            batch["image"], batch["caption_tokens"],
+            batch["attention_mask"]).items()} for _ in range(2)]
+        entry["state"] = _cpu_tree(ref._state_tree())
+        del ref.optimizer.step, ref
+        torch.cuda.empty_cache()
+        refs[family] = entry
+    t = CaptioningTrainer(c, train_ds, val_ds, tokenizer, device=dev,
+                          state_dict=sd, mesh=mesh)
+    del sd
+    if validate:
+        rec = _RecordingTokenizer(tokenizer)
+        t.tokenizer = rec
+        _zero_launches(kernels)
+        with DecodeCounts() as counted:
+            t0 = time.perf_counter()
+            val_loss, metrics = t._validate_epoch(0)
+            seconds = time.perf_counter() - t0
+        launched = _launches(kernels)
+        # #5 twice a batch: the validation loss's forward and the
+        # decode's encode
+        want = {"encoder_stack": 2 * counted.encodes,
+                "beam_decode_stack": counted.steps,
+                "lse_and_block_max": counted.steps}
+        check(counted.encodes == 1 and counted.steps > 0 and launched == {
+            k: want.get(k, 0) for k in launched},
+            f"rank {rank} validation: {counted.encodes} encodes, "
+            f"{counted.steps} decode steps, launches {launched}")
+        numbers["validation"] = {"seconds": seconds, "launches": launched,
+                                 "decode_steps": counted.steps,
+                                 "rows_per_rank": PAR_VAL_BATCH // mesh.dp}
+        if rank == 0:
+            (ref_loss, ref_metrics), ref_rows = refs[family]["validation"]
+            check(rec.rows == ref_rows,
+                  f"dp{mesh.dp} validation tokens differ from the "
+                  f"one-process decode's")
+            rel = abs(val_loss - ref_loss) / abs(ref_loss)
+            check(rel <= 1e-5, f"validation loss {val_loss} one process "
+                               f"{ref_loss}")
+            numbers["validation"].update(
+                val_loss=val_loss, loss_rel=rel, cider=metrics["CIDEr"],
+                cider_one_process=ref_metrics["CIDEr"],
+                rows=len(rec.rows))
+    steps = []
+    record_steps(torch, t, steps)
+    batch = shard_batch(_fixed_batch(train_ds, PAR_F32_BATCH), mesh)
+    _zero_launches(kernels)
+    metrics = [{k: float(v) for k, v in t.train_step(
+        batch["image"], batch["caption_tokens"],
+        batch["attention_mask"]).items()} for _ in range(2)]
+    launched = _launches(kernels)
+    check(not any(launched.values()),
+          f"rank {rank}: f32 steps launched kernels: {launched}")
+    state = _cpu_tree(t._state_tree())
+    del t.optimizer.step, t
+    torch.cuda.empty_cache()
+    if rank != 0:
+        return numbers
+    ref = refs[family]
+    worst = {}
+    # losses within 1e-5 relative, grad_norm within phase 7's 1e-3 (the
+    # ResNet's BatchNorm over 2 + 2 rows amplifies the reduction order)
+    for i, (a, b) in enumerate(zip(metrics, ref["metrics"])):
+        for key, tol in (("total_loss", 1e-5), ("ce_loss", 1e-5),
+                         ("grad_norm", 1e-3)):
+            rel = abs(a[key] - b[key]) / abs(b[key])
+            worst[key] = max(worst.get(key, 0.0), rel)
+            check(rel <= tol, f"{family} {dict(mesh.shape)} step {i + 1}: "
+                              f"{key} {a[key]} one process {b[key]}")
+        check(a["learning_rate"] == b["learning_rate"],
+              f"learning rates {a} {b}")
+    held = hold_train_state(
+        torch, state, ref["state"], ref["before"], (steps, ref["steps"]),
+        [m["learning_rate"] for m in ref["metrics"]],
+        c.training.weight_decay, floor=ref.get("floor"))
+    print(f"parallel f32 {family} {dict(mesh.shape)}: worst relative "
+          f"{worst}; {held}", flush=True)
+    numbers.update(worst_rel=worst, losses=[m["total_loss"]
+                                            for m in metrics])
+    return numbers
+
+
+def _par_bf16(torch, dev, spec, data, mesh, kernels, tmp):
+    """One warm-up and five timed bf16 CE steps of global batch 64 (dropout
+    0.1, lr 1e-4, warmup 2) of the flagship on ``mesh``: each rank's median
+    step time, images/s and peak memory, no kernel launched; at tp2 the
+    checkpoint saved and the gathered state's digests. Returns this rank's
+    numbers."""
+    from image_captioning_ml_project_tpu_torch.data.pipeline import (
+        shard_batch)
+    from image_captioning_ml_project_tpu_torch.train.trainer import (
+        CaptioningTrainer)
+    from image_captioning_ml_project_tpu_torch.utils.checkpoint import (
+        CheckpointManager)
+
+    base, tokenizer, train_ds, val_ds = data
+    c = _train_config(base, os.path.join(tmp, f"bf16_{mesh.mp}"), True,
+                      PAR_BF16_BATCH, 1e-4, 2, 0.1)
+    sd = torch.load(spec["weights"]["flagship"], mmap=True, weights_only=True)
+    t = CaptioningTrainer(c, train_ds, val_ds, tokenizer, device=dev,
+                          state_dict=sd, mesh=mesh)
+    del sd
+    batch = shard_batch(_fixed_batch(train_ds, PAR_BF16_BATCH), mesh)
+    images, caps, mask = (torch.from_numpy(batch[k]).to(dev) for k in (
+        "image", "caption_tokens", "attention_mask"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches(kernels)
+    times, losses = [], []
+    for _ in range(PAR_BF16_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(t.train_step(images, caps, mask)["total_loss"]))
+        times.append(time.perf_counter() - t0)
+    launched = _launches(kernels)
+    check(not any(launched.values()),
+          f"rank {mesh.rank}: bf16 steps launched kernels: {launched}")
+    check(all(map(math.isfinite, losses)), f"bf16 losses {losses}")
+    ms = statistics.median(times[1:]) * 1e3
+    numbers = {"rank": mesh.rank, "rows": len(caps), "ms_per_step": ms,
+               "images_per_s": PAR_BF16_BATCH / ms * 1e3,
+               "first_step_ms": times[0] * 1e3, "losses": losses,
+               "max_memory_allocated_gib":
+                   torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               "launches": launched}
+    if mesh.mp > 1:
+        t.ckpt = CheckpointManager(spec["tp_checkpoint"])
+        t0 = time.perf_counter()
+        t.save_checkpoint(0)
+        t.ckpt.wait_until_finished()
+        numbers["checkpoint_save_s"] = time.perf_counter() - t0
+        tree = t._state_tree()
+        if mesh.rank == 0:
+            numbers["digests"] = _digests(torch, tree)
+        del tree
+    del t
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def _par_legacy(torch, dev, spec, mesh, tmp):
+    """Two f32 legacy steps (dropout 0, the first at lr 0) of global batch
+    4 at dp2, held on rank 0 to the one-process steps on the card: ``ce``
+    and ``att_reg`` within 1e-5 relative, the state by
+    :func:`hold_train_state` with the one-process run's rounding floor."""
+    from image_captioning_ml_project_tpu_torch.data.pipeline import (
+        shard_batch)
+    from image_captioning_ml_project_tpu_torch.legacy.train import (
+        LegacyTrainer)
+
+    vocab, train_ds, _ = _legacy_data(spec)
+    batch = _fixed_batch(train_ds, PAR_F32_BATCH)
+    sd = torch.load(spec["weights"]["legacy"], mmap=True, weights_only=True)
+
+    def make(m=None):
+        t = LegacyTrainer(vocab, None, mesh=m, device=dev, dropout=0.0,
+                          state_dict=sd,
+                          checkpoint_dir=os.path.join(tmp, "legacy_ck"))
+        t.optimizer.schedule = one_warmup_step(t.optimizer.schedule)
+        return t
+
+    def step(t, m=None):
+        b = shard_batch(batch, m)
+        return {k: float(v) for k, v in t.train_step(
+            b["image"], b["caption_tokens"]).items()}
+
+    runs = {}
+    for name, m in (("one process", None), ("dp2", mesh)):
+        if name == "one process" and mesh.rank != 0:
+            continue
+        t = make(m)
+        before = param_start(_legacy_tree(t))
+        steps = []
+        record_steps(torch, t, steps, prefix="model.")
+        lrs = [float(t.optimizer.schedule(i)) for i in range(2)]
+        metrics = [step(t, m) for _ in range(2)]
+        runs[name] = (metrics, _cpu_tree(_legacy_tree(t)), steps)
+        del t.optimizer.step, t
+        torch.cuda.empty_cache()
+    if mesh.rank != 0:
+        return None
+    floor = _floor_run(torch, make, step, _legacy_tree, prefix="model.")
+    (got_m, got, got_steps), (want_m, want, want_steps) = (
+        runs["dp2"], runs["one process"])
+    worst = {}
+    for a, b in zip(got_m, want_m):
+        for key in ("ce", "att_reg"):
+            rel = abs(a[key] - b[key]) / abs(b[key])
+            worst[key] = max(worst.get(key, 0.0), rel)
+            check(rel <= 1e-5, f"legacy dp2 {key} {a[key]} one process "
+                               f"{b[key]}")
+    held = hold_train_state(torch, got, want, before,
+                            (got_steps, want_steps), lrs, 0.0, floor=floor)
+    print(f"parallel legacy dp2, two steps: ce {got_m[-1]['ce']:.6f} (one "
+          f"process {want_m[-1]['ce']:.6f}); worst relative {worst}; "
+          f"{held}", flush=True)
+    return {"worst_rel": worst, "ce": got_m[-1]["ce"],
+            "att_reg": got_m[-1]["att_reg"]}
+
+
+def parallel_rank(spec_path, rank):
+    """One rank of phase 10's two (``--parallel-rank``): the process group
+    over gloo through a file store (both ranks on card 0), the kernels
+    loaded from the parent's build, then each scenario in order; rank 0
+    writes every rank's numbers to the spec's ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from image_captioning_ml_project_tpu_torch.config import MeshConfig
+    from image_captioning_ml_project_tpu_torch.ops import _build
+    from image_captioning_ml_project_tpu_torch.parallel.mesh import (
+        create_mesh, init_distributed, rank_device)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    # the f32 comparisons: one algorithm per convolution, run to run
+    torch.backends.cudnn.deterministic = True
+    init_distributed(rank=rank, world_size=PAR_RANKS,
+                     init_method=f"file://{spec['store']}",
+                     timeout_s=PAR_RANK_TIMEOUT)
+    dev = torch.device(rank_device("cuda", rank))
+    for name in LIBRARIES:
+        _build.load_library(name)
+    kernels = counters()
+    tmp = os.path.join(spec["tmp"], f"rank{rank}")
+    data = _par_data(spec)
+    out, refs = {}, {}
+    try:
+        def mesh_of(dp, mp):
+            return create_mesh(MeshConfig(data_parallel=dp,
+                                          model_parallel=mp))
+
+        for family, dp, mp in (("flagship", 2, 1), ("flagship", 1, 2),
+                               ("lstm", 2, 1)):
+            t0 = time.perf_counter()
+            key = f"f32 {family} dp{dp} tp{mp}"
+            out[key] = _par_f32(torch, dev, spec, data, mesh_of(dp, mp),
+                                family, refs, kernels, tmp)
+            if rank == 0:
+                out[key]["seconds"] = time.perf_counter() - t0
+        refs.clear()
+        out["f32 lstm dp2 no warmup"] = _par_lstm_no_warmup(
+            torch, dev, spec, data, mesh_of(2, 1), tmp)
+        for dp, mp in ((2, 1), (1, 2)):
+            out[f"bf16 flagship dp{dp} tp{mp}"] = _par_bf16(
+                torch, dev, spec, data, mesh_of(dp, mp), kernels, tmp)
+        out["f32 legacy dp2"] = _par_legacy(torch, dev, spec,
+                                            mesh_of(2, 1), tmp)
+        per_rank = [None] * PAR_RANKS
+        dist.all_gather_object(per_rank, out)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(spec["out"], "w") as f:
+            json.dump(per_rank, f)
+
+
+def _legacy_data(spec):
+    """(the legacy word vocabulary of 10000, train set, val set) over phase
+    7's fixture at 224 pixels."""
+    from image_captioning_ml_project_tpu_torch.data.coco import (
+        COCOCaptionDataset)
+    from image_captioning_ml_project_tpu_torch.data.tokenizer import WordVocab
+
+    vocab = WordVocab.load(spec["legacy_vocab"])
+    root = spec["config"]["data_root"]
+    sets = [COCOCaptionDataset(root, f"annotations/captions_{s}2014.json",
+                               f"{s}2014", vocab, image_size=224,
+                               max_length=LEGACY_MAX_LENGTH,
+                               is_training=s == "train")
+            for s in ("train", "val")]
+    return vocab, sets[0], sets[1]
+
+
+def run_parallel_ranks(torch, spec, tmp):
+    """Start the two ranks (this script with ``--parallel-rank``), each
+    logging to its own file, and wait for both within
+    :data:`PAR_RANK_TIMEOUT`; a rank that fails or hangs fails the phase
+    and every rank is stopped. Returns the ranks' numbers."""
+    spec_path = os.path.join(tmp, "parallel_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ)
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        env.pop(k, None)
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+            for r in range(PAR_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--parallel-rank", spec_path, str(r)],
+                              env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT, cwd=ROOT)
+             for r in range(PAR_RANKS)]
+    deadline = time.monotonic() + PAR_RANK_TIMEOUT
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+                break
+            if time.monotonic() > deadline:
+                failed = f"the ranks passed {PAR_RANK_TIMEOUT} s"
+                break
+            time.sleep(0.2)
+        if failed is None and any(p.returncode for p in procs):
+            failed = f"exit codes {[p.returncode for p in procs]}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, log in enumerate(logs):
+        log.seek(0)
+        text = log.read()
+        if failed is not None:
+            print(f"--- rank {r}:\n{text[-8000:]}", flush=True)
+        else:
+            for line in text.splitlines():
+                if line.startswith("parallel "):
+                    print(f"rank {r}: {line}", flush=True)
+    check(failed is None, f"parallel ranks failed: {failed}")
+    with open(spec["out"]) as f:
+        return json.load(f)
+
+
+def _run_cli(args, log, timeout, ranks=0):
+    """``python -m image_captioning_ml_project_tpu_torch.main`` with
+    ``args``, in one process or, with ``ranks``, under ``python -m
+    torch.distributed.run --nproc_per_node ranks`` on a free localhost
+    port, its output to ``log``. A run that exits non-zero or outlasts
+    ``timeout`` s (its process group is then killed) fails the phase.
+    Returns its seconds."""
+    import signal
+    import socket
+
+    cmd = [sys.executable, "-m"]
+    if ranks:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        cmd += ["torch.distributed.run", f"--nproc_per_node={ranks}",
+                "--master_addr=127.0.0.1", f"--master_port={port}", "-m"]
+    cmd += [f"{PKG}.main", *args]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+              "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    with open(log, "w+") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=ROOT, env=env, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = f"killed after {timeout} s"
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+        if rc != 0:
+            f.seek(0)
+            print(f.read()[-8000:], flush=True)
+        check(rc == 0, f"{' '.join(cmd[2:6])} ... exited {rc}")
+    return time.perf_counter() - t0
+
+
+def torchrun_cli(torch, smi, base, vocab_path, tmp):
+    """The CLI as ``torchrun`` starts it, two ranks on the one card over
+    gloo: ``--mode train`` of the flagship at dp2 in bf16 (seeded weights;
+    one epoch of phase 7's 320 training captions at global batch 64, five
+    steps; validation of the 64 images; the epoch checkpoint from rank 0),
+    then ``--mode eval`` of that checkpoint in f32 at dp2 (each rank
+    decoding its 32 rows of the one batch of 64) and in one process:
+    ``results.json`` identical. Returns the numbers."""
+    from image_captioning_ml_project_tpu_torch.config import save_config
+    from image_captioning_ml_project_tpu_torch.utils.checkpoint import (
+        CheckpointManager)
+
+    paths = {}
+    for name, amp in (("train", True), ("eval", False)):
+        c = _train_config(base, os.path.join(tmp, f"cli_{name}"), amp,
+                          PAR_BF16_BATCH, 1e-4, 2, 0.1)
+        c.training.num_epochs = 1
+        c.inference.num_candidates = PAR_VAL_BATCH
+        c.mesh.data_parallel, c.mesh.model_parallel = 2, 1
+        paths[name] = os.path.join(tmp, f"cli_{name}.json")
+        save_config(c, paths[name])
+    common = ["--vocab", vocab_path, "--device", "cuda"]
+    out = os.path.join(tmp, "cli_train")
+    numbers = {"card": smi, "ranks_share_the_card": True}
+    numbers["train_s"] = _run_cli(
+        ["--mode", "train", "--config", paths["train"], "--output_dir", out,
+         *common], os.path.join(tmp, "cli_train.log"), 600, ranks=PAR_RANKS)
+    with open(os.path.join(out, "training.log")) as f:
+        logged = re.findall(r"Epoch 1: Train Loss: ([^,]+), Val Loss: "
+                            r"([^,]+),", f.read())
+    check(len(logged) == 1 and all(math.isfinite(float(x))
+                                   for x in logged[0]),
+          f"torchrun train: the epoch's losses in training.log: {logged}")
+    ckpt = os.path.join(out, "checkpoints", "checkpoint_epoch_1")
+    steps = CheckpointManager(os.path.dirname(ckpt)).restore(
+        os.path.basename(ckpt), {"step": None})[0]["step"]
+    want_steps = 5 * TRAIN_IMAGES // PAR_BF16_BATCH
+    check(steps == want_steps, f"torchrun train: the checkpoint's step "
+                               f"{steps}, not {want_steps}")
+    numbers.update(train_loss=float(logged[0][0]),
+                   val_loss=float(logged[0][1]), steps=steps)
+    results = {}
+    for name, ranks in (("one process", 0), ("dp2", PAR_RANKS)):
+        d = os.path.join(tmp, f"cli_eval_{ranks}")
+        numbers[f"eval {name} s"] = _run_cli(
+            ["--mode", "eval", "--config", paths["eval"], "--output_dir", d,
+             "--checkpoint", ckpt, *common],
+            os.path.join(tmp, f"cli_eval_{ranks}.log"), 300, ranks=ranks)
+        with open(os.path.join(d, "results.json")) as f:
+            results[name] = json.load(f)
+    check(results["dp2"] == results["one process"]
+          and len(results["dp2"]) == TRAIN_IMAGES,
+          f"torchrun eval: results.json of {len(results['dp2'])} captions "
+          f"differs from the one-process run's "
+          f"{len(results['one process'])}")
+    numbers["captions"] = len(results["dp2"])
+    print(f"parallel CLI under torch.distributed.run, two ranks on the card: "
+          f"--mode train dp2 bf16 ({steps} steps of {PAR_BF16_BATCH}, "
+          f"validation, checkpoint) {numbers['train_s']:.1f} s, train loss "
+          f"{numbers['train_loss']}, val loss {numbers['val_loss']}; --mode "
+          f"eval f32 of its checkpoint: one process "
+          f"{numbers['eval one process s']:.1f} s, dp2 "
+          f"{numbers['eval dp2 s']:.1f} s, results.json identical "
+          f"({numbers['captions']} captions) [{smi}]", flush=True)
+    return numbers
+
+
+def legacy_one_process(torch, dev, smi, spec, tmp, kernels):
+    """The legacy stack alone (the JAX legacy CLI's defaults: ResNet-50,
+    224 pixels, a 14 x 14 grid, widths 512, the vocabulary of 10000;
+    f32): forward and ``generate`` of 4 images on the card and on the CPU;
+    two steps of batch 2 (dropout 0) on both; 20 steps of batch 16 on one
+    batch, timed; ``validate`` on the 64 validation images;
+    ``generate_captions`` on 4 JPEGs; the epoch checkpoints restored bit
+    for bit; no kernel launched in any of it."""
+    from PIL import Image
+
+    from image_captioning_ml_project_tpu_torch.data.coco import (
+        normalize_images)
+    from image_captioning_ml_project_tpu_torch.legacy.demo import (
+        generate_captions)
+    from image_captioning_ml_project_tpu_torch.legacy.model import (
+        ShowAttendTell)
+    from image_captioning_ml_project_tpu_torch.legacy.train import (
+        LegacyTrainer, load_legacy_checkpoints)
+    from image_captioning_ml_project_tpu_torch.legacy.validate import validate
+
+    vocab, train_ds, val_ds = _legacy_data(spec)
+    sd = torch.load(spec["weights"]["legacy"], mmap=True, weights_only=True)
+    numbers = {}
+    _zero_launches(kernels)
+
+    # forward and generate, card against CPU
+    val = _fixed_batch(val_ds, LEGACY_IMAGES)
+    caps = torch.from_numpy(val["caption_tokens"][:, 0]).long()
+    outs = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        model = ShowAttendTell(len(vocab)).eval()
+        model.load_state_dict(sd)
+        model.to(device, memory_format=torch.channels_last)
+        with torch.inference_mode():
+            images = normalize_images(torch.from_numpy(val["image"]).to(
+                device))
+            out = model(images, caps.to(device))
+            tokens, alphas = model.generate(images, LEGACY_MAX_LENGTH,
+                                            start_token_id=vocab.bos_token_id)
+        outs[name] = (out["predictions"].cpu(), out["alphas"].cpu(),
+                      tokens.cpu(), alphas.cpu())
+        del model
+    (p, a, tk, ga), (p0, a0, tk0, ga0) = outs["card"], outs["cpu"]
+    errs = {"predictions": float((p - p0).abs().max()),
+            "alphas": float((a - a0).abs().max()),
+            "generate_alphas": float((ga - ga0).abs().max())}
+    check(torch.equal(tk, tk0), f"legacy generate: card tokens {tk.tolist()} "
+                                f"CPU {tk0.tolist()}")
+    check(max(errs.values()) <= 1e-4, f"legacy card against CPU: {errs}")
+    numbers["card_vs_cpu"] = dict(errs, tokens_identical=True,
+                                  images=LEGACY_IMAGES)
+    print(f"legacy forward and generate, card against CPU ({LEGACY_IMAGES} "
+          f"images, {LEGACY_MAX_LENGTH} tokens identical): {errs}",
+          flush=True)
+
+    # two steps of batch 2 (the first at lr 0), card against CPU
+    batch = _fixed_batch(train_ds, 2)
+
+    def make(device):
+        t = LegacyTrainer(vocab, train_ds, val_ds, device=device,
+                          dropout=0.0, state_dict=sd,
+                          checkpoint_dir=os.path.join(tmp, "lg_ck"))
+        t.optimizer.schedule = one_warmup_step(t.optimizer.schedule)
+        return t
+
+    def step(t):
+        return {k: float(v) for k, v in t.train_step(
+            batch["image"], batch["caption_tokens"]).items()}
+
+    runs = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        t = make(device)
+        before = param_start(_legacy_tree(t))
+        steps = []
+        record_steps(torch, t, steps, prefix="model.")
+        lrs = [float(t.optimizer.schedule(i)) for i in range(2)]
+        metrics = [step(t) for _ in range(2)]
+        runs[name] = (metrics, _cpu_tree(_legacy_tree(t)), steps)
+        del t.optimizer.step, t
+    floor = _floor_run(torch, lambda: make("cpu"), step, _legacy_tree,
+                       prefix="model.")
+    worst = {}
+    for i, (a, b) in enumerate(zip(runs["card"][0], runs["cpu"][0])):
+        for key in ("ce", "att_reg"):
+            rel = abs(a[key] - b[key]) / abs(b[key])
+            worst[key] = max(worst.get(key, 0.0), rel)
+            check(rel <= 1e-5, f"legacy step {i + 1} {key}: card {a[key]} "
+                               f"CPU {b[key]}")
+    held = hold_train_state(torch, runs["card"][1], runs["cpu"][1], before,
+                            (runs["card"][2], runs["cpu"][2]), lrs, 0.0,
+                            floor=floor)
+    numbers["steps_card_vs_cpu"] = {"worst_rel": worst, "batch": 2}
+    print(f"legacy two steps of batch 2, card against CPU: worst relative "
+          f"{worst}; {held}", flush=True)
+    del runs
+
+    # twenty steps of batch 16 on one batch
+    t = LegacyTrainer(vocab, train_ds, val_ds, device=dev, state_dict=sd,
+                      batch_size=LEGACY_BATCH,
+                      checkpoint_dir=os.path.join(tmp, "legacy_ckpt"))
+    batch = _fixed_batch(train_ds, LEGACY_BATCH)
+    images = torch.from_numpy(batch["image"]).to(dev)
+    caps = torch.from_numpy(batch["caption_tokens"]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(LEGACY_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(t.train_step(images, caps)["ce"]))
+        times.append(time.perf_counter() - t0)
+    check(all(map(math.isfinite, losses)), f"legacy losses {losses}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last < first, f"legacy loss did not fall: {losses}")
+    ms = statistics.median(times[5:]) * 1e3
+    numbers["train"] = {
+        "batch": LEGACY_BATCH, "steps": LEGACY_STEPS, "ms_per_step": ms,
+        "images_per_s": LEGACY_BATCH / ms * 1e3, "loss_first5": first,
+        "loss_last5": last, "max_memory_allocated_gib":
+            torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"legacy train batch {LEGACY_BATCH}: ce {first:.4f} -> "
+          f"{last:.4f}, {ms:.2f} ms/step (median of the last 15), "
+          f"{numbers['train']['images_per_s']:.1f} images/s, "
+          f"max_memory_allocated "
+          f"{numbers['train']['max_memory_allocated_gib']:.2f} GiB [{smi}]",
+          flush=True)
+
+    # validate on the 64 validation images
+    t0 = time.perf_counter()
+    val_metrics = validate(t.model, val_ds, vocab, batch_size=LEGACY_BATCH,
+                           max_length=LEGACY_MAX_LENGTH)
+    seconds = time.perf_counter() - t0
+    check(all(math.isfinite(v) for v in val_metrics.values())
+          and val_metrics["loss"] > 0, f"legacy validate: {val_metrics}")
+    numbers["validate"] = dict(val_metrics, seconds=seconds,
+                               images=len(val_ds))
+    print(f"legacy validate on {len(val_ds)} images: {val_metrics}, "
+          f"{seconds:.1f} s", flush=True)
+
+    # generate_captions on a directory of 4 JPEGs
+    jpegs = os.path.join(tmp, "legacy_jpegs")
+    os.makedirs(jpegs, exist_ok=True)
+    for i in range(LEGACY_IMAGES):
+        Image.fromarray(val["image"][i]).save(
+            os.path.join(jpegs, f"{i}.jpg"), "JPEG", quality=95)
+    t0 = time.perf_counter()
+    captions = generate_captions(t.model, vocab, jpegs, image_size=224,
+                                 max_length=LEGACY_MAX_LENGTH)
+    check(len(captions) == LEGACY_IMAGES, f"captions {captions}")
+    numbers["generate_captions"] = {"images": len(captions),
+                                    "seconds": time.perf_counter() - t0}
+    print(f"legacy generate_captions: {captions}", flush=True)
+
+    # the epoch checkpoints, restored bit for bit
+    t._save(0)
+    t._save(0, mid=True)
+    for suffix in ("", "_mid"):
+        fresh = ShowAttendTell(len(vocab))
+        load_legacy_checkpoints(fresh, t.ckpt.directory,
+                                f"encoder_epoch_0{suffix}",
+                                f"decoder_epoch_0{suffix}")
+        want = t.model.state_dict()
+        for name, v in fresh.state_dict().items():
+            check(torch.equal(v, want[name].cpu()),
+                  f"legacy checkpoint{suffix}: {name} differs")
+    print("legacy: encoder_epoch_0 and decoder_epoch_0 (and _mid) "
+          "restored bit-identical", flush=True)
+    launched = _launches(kernels)
+    check(not any(launched.values()),
+          f"the legacy stack launched kernels: {launched}")
+    numbers["launches"] = launched
+    del t
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def parallel_phase(torch, dev, smi, fixture, tree, tmp):
+    """Phase 10 (module docstring). Returns the summary line's numbers and
+    each kernel's per-rank launches."""
+    from image_captioning_ml_project_tpu_torch.config import (
+        EncoderConfig, config_to_dict)
+    from image_captioning_ml_project_tpu_torch.data.tokenizer import WordVocab
+    from image_captioning_ml_project_tpu_torch.main import lstm_config
+    from image_captioning_ml_project_tpu_torch.params import (
+        from_flax, init_flax_params, init_legacy_flax_params,
+        legacy_from_flax)
+    from image_captioning_ml_project_tpu_torch.train.trainer import (
+        CaptioningTrainer)
+
+    kernels = counters()
+    seed = fixture["seed"]
+    base = copy.deepcopy(fixture["config"])
+    t0 = time.perf_counter()
+    weights = {"flagship": os.path.join(tmp, "flagship.pt"),
+               "lstm": os.path.join(tmp, "lstm.pt"),
+               "legacy": os.path.join(tmp, "legacy.pt")}
+    torch.save(from_flax(tree), weights["flagship"])
+    lstm = lstm_config()
+    torch.save(from_flax(init_flax_params(lstm, seed)), weights["lstm"])
+    vocab_path = os.path.join(tmp, "vocab.json")
+    fixture["tokenizer"].save(vocab_path)
+    # the legacy vocabulary: the fixture's words, filler words to 10000
+    words = WordVocab.build([ex["caption"] for ex in fixture[
+        "train_ds"].examples], threshold=1).word2idx
+    words.update({f"w{i}": i for i in range(len(words), LEGACY_VOCAB)})
+    legacy_vocab = os.path.join(tmp, "legacy_vocab.json")
+    WordVocab(words).save(legacy_vocab)
+    torch.save(legacy_from_flax(init_legacy_flax_params(
+        LEGACY_VOCAB, EncoderConfig(), seed)), weights["legacy"])
+    print(f"phase 10 weights (flagship, ResNet-101 + LSTM, legacy) drawn "
+          f"from seed {seed} and saved: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    spec = {"store": os.path.join(tmp, "parallel_store"),
+            "out": os.path.join(tmp, "parallel_out.json"),
+            "tmp": tmp, "config": config_to_dict(base), "vocab": vocab_path,
+            "legacy_vocab": legacy_vocab, "weights": weights,
+            "tp_checkpoint": os.path.join(tmp, "tp_checkpoint")}
+    t0 = time.perf_counter()
+    ranks = run_parallel_ranks(torch, spec, tmp)
+    ranks_s = time.perf_counter() - t0
+    zero = ranks[0]
+    numbers = {"ranks_s": ranks_s, "ranks": PAR_RANKS,
+               "card_shared_by_ranks": True}
+    for key, value in zero.items():
+        if key.startswith("bf16"):
+            numbers[key] = [{k: v for k, v in r[key].items()
+                             if k != "digests"} for r in ranks]
+            for r in numbers[key]:
+                print(f"parallel {key} rank {r['rank']}: {r['rows']} rows, "
+                      f"{r['ms_per_step']:.1f} ms/step (median of 5), "
+                      f"{r['images_per_s']:.1f} images/s of the global "
+                      f"batch, max_memory_allocated "
+                      f"{r['max_memory_allocated_gib']:.2f} GiB [{smi}; "
+                      f"both ranks on one card]", flush=True)
+        else:
+            numbers[key] = value
+    val = [r["f32 flagship dp2 tp1"]["validation"] for r in ranks]
+    numbers["f32 flagship dp2 tp1"]["validation_per_rank"] = [
+        {k: v[k] for k in ("launches", "decode_steps", "rows_per_rank",
+                           "seconds")} for v in val]
+    print(f"parallel validation dp2: {numbers['f32 flagship dp2 tp1']}",
+          flush=True)
+
+    # the tp2 checkpoint, restored in one process
+    c = _train_config(base, os.path.join(tmp, "tp_restore"), True,
+                      PAR_BF16_BATCH, 1e-4, 2, 0.1)
+    c.checkpoint_dir = spec["tp_checkpoint"]
+    one = CaptioningTrainer(c, fixture["train_ds"], fixture["val_ds"],
+                            fixture["tokenizer"], device=dev,
+                            state_dict=torch.load(weights["flagship"],
+                                                  mmap=True,
+                                                  weights_only=True))
+    one.load_checkpoint("checkpoint_epoch_1")
+    got = _digests(torch, one._state_tree())
+    want = zero["bf16 flagship dp1 tp2"]["digests"]
+    check(got == want, f"the tp2 checkpoint restored in one process "
+                       f"differs in {sorted(k for k in want if got.get(k) != want[k])[:5]}")
+    numbers["tp2_checkpoint"] = {"tensors": len(want), "bit_identical": True}
+    print(f"parallel: the tp2 checkpoint restored in one process, "
+          f"{len(want)} tensors bit-identical to the ranks' gathered state",
+          flush=True)
+    del one
+    torch.cuda.empty_cache()
+
+    numbers["cli"] = torchrun_cli(torch, smi, base, vocab_path, tmp)
+
+    t0 = time.perf_counter()
+    numbers["legacy"] = legacy_one_process(torch, dev, smi, spec, tmp,
+                                           kernels)
+    print(f"legacy one process: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches = {}
+    for name in kernels:
+        per = {}
+        for r, out in enumerate(ranks):
+            v = out["f32 flagship dp2 tp1"]["validation"]["launches"][name]
+            per[f"rank {r} validation dp2"] = v
+            for key in ("bf16 flagship dp2 tp1", "bf16 flagship dp1 tp2"):
+                per[f"rank {r} {key} steps"] = out[key]["launches"][name]
+        per["legacy"] = numbers["legacy"]["launches"][name]
+        launches[name] = per
+    return numbers, launches
+
+
 def kernel_entry(name, route, source, replaces, numbers, launches):
     """The summary line's entry for one kernel: the numbers at the shape
     of the first family that runs it of the Transformer, the flagship and
@@ -3334,6 +4467,8 @@ def main():
              "sweeps), printing the "
              "numbers as one JSON line; for comparisons inside one run on "
              "one card")
+    parser.add_argument("--parallel-rank", nargs=2, metavar=("SPEC", "RANK"),
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     try:
         import torch
@@ -3342,6 +4477,14 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
                  "false)")
+    if args.parallel_rank:
+        # one of phase 10's ranks, started by the phase itself
+        try:
+            parallel_rank(args.parallel_rank[0], int(args.parallel_rank[1]))
+        except Exception:
+            traceback.print_exc()
+            sys.exit("chip_smoke: rank FAILED")
+        return
     root = os.path.realpath(args.time_tree) if args.time_tree else ROOT
     sys.path.insert(0, root)
     try:
@@ -3520,6 +4663,13 @@ def main():
         print(f"families phase: {time.perf_counter() - t0:.1f} s [{smi}]",
               flush=True)
 
+        phase("parallel and legacy")
+        t0 = time.perf_counter()
+        parallel, par_launches = parallel_phase(
+            torch, dev, smi, fixture, trees["flagship"][1], tmp)
+        print(f"parallel and legacy phase: {time.perf_counter() - t0:.1f} s "
+              f"[{smi}]", flush=True)
+
         # the port stands alone: nothing of JAX or the JAX package ran
         foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
             "jax", "jaxlib", "flax", "image_captioning_ml_project_tpu"))
@@ -3579,6 +4729,7 @@ def main():
             and "launches" in numbers and numbers["launches"][entry["name"]]}
         if entry["name"] == "cross_attention":
             entry["family_shapes"] = cross_shapes
+        entry["parallel"] = par_launches[entry["name"]]
     print(json.dumps({"training": {
         key: (training[key] if key == "f32_card_vs_cpu" else
               {k: v for k, v in training[key].items() if k != "launches"})
@@ -3592,6 +4743,7 @@ def main():
                  if isinstance(numbers, dict) else numbers
                  for run, numbers in runs.items()}
         for family, runs in families.items()}}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": kind, "count": count}}))

@@ -524,7 +524,9 @@ def iterate_batches(dataset, batch_size: int, shuffle: bool = False,
                     seed: int = 0,
                     pad_last: bool = False,
                     num_workers: int = 0,
-                    skip_batches: int = 0) -> Iterator[Dict[str, Any]]:
+                    skip_batches: int = 0,
+                    rows: Optional[slice] = None
+                    ) -> Iterator[Dict[str, Any]]:
     """Yield fixed-shape batches. ``sampler`` (e.g. the curriculum sampler)
     overrides shuffling (reference: src/data/dataset.py:445-462).
 
@@ -544,7 +546,14 @@ def iterate_batches(dataset, batch_size: int, shuffle: bool = False,
 
     ``skip_batches`` skips the first k chunks of the (identically seeded)
     index order without loading them — mid-epoch checkpoint resume replays
-    the exact remaining batch sequence at zero decode cost."""
+    the exact remaining batch sequence at zero decode cost.
+
+    ``rows`` (one rank's slice of a batch,
+    :func:`..parallel.mesh.batch_rows`) loads only those rows of each
+    batch: its array fields, ``batch_valid`` included, are the slice's,
+    while its list fields (the captions) stay the whole batch's, read from
+    the examples without decoding, as the JAX package shards only the
+    arrays of a batch over its mesh."""
     if sampler is not None:
         indices = list(sampler)
     else:
@@ -576,7 +585,7 @@ def iterate_batches(dataset, batch_size: int, shuffle: bool = False,
                 elif drop_last:
                     return
             tasks = [(i, (seed * 1_000_003 + i) & 0x7FFFFFFF)
-                     for i in chunk]
+                     for i in (chunk if rows is None else chunk[rows])]
             if pool is not None:
                 samples = list(pool.map(
                     _worker_get, tasks,
@@ -598,14 +607,25 @@ def iterate_batches(dataset, batch_size: int, shuffle: bool = False,
                         dataset.rng = np.random.RandomState(sample_seed)
                     samples.append(dataset[i])
             batch = collate(samples)
+            if rows is not None:
+                batch.update(collate([_list_fields(dataset, i)
+                                      for i in chunk]))
             if pad_last:
                 mask = np.zeros(batch_size, dtype=bool)
                 mask[:valid] = True
-                batch["batch_valid"] = mask
+                batch["batch_valid"] = mask if rows is None else mask[rows]
             yield batch
     finally:
         if pool is not None:
             pool.shutdown(wait=False, cancel_futures=True)
+
+
+def _list_fields(dataset, idx: int) -> Dict[str, Any]:
+    """A sample's list fields from its example, with no decode: a training
+    sample's caption, an eval sample's references."""
+    ex = dataset.examples[idx]
+    return ({"caption": ex["caption"]} if dataset.is_training
+            else {"captions": ex["captions"]})
 
 
 _WORKER_DATASET = None

@@ -1,10 +1,16 @@
-"""Host -> device data pipeline: background prefetch.
+"""Host -> device data pipeline: background prefetch, and this rank's
+rows of a host batch under a mesh.
 
-Counterpart of ``image_captioning_ml_project_tpu.data.pipeline`` on one
-device: a background thread takes the host batch iterator's next batch
-while the device runs the current one, pins its arrays' host memory and
-copies them to the device with ``non_blocking`` copies, keeping ``size``
-batches in flight. Non-array fields (captions, ids as lists) pass through.
+Counterpart of ``image_captioning_ml_project_tpu.data.pipeline``: a
+background thread takes the host batch iterator's next batch while the
+device runs the current one, pins its arrays' host memory and copies them
+to the device with ``non_blocking`` copies, keeping ``size`` batches in
+flight. Non-array fields (captions, ids as lists) pass through. Under a
+mesh the iterator itself yields this rank's rows of each batch
+(``iterate_batches(rows=)``), so a rank decodes only its own images;
+:func:`shard_batch` cuts a host batch that was made whole. The lists stay
+whole, as in the JAX package, which places only the arrays' row blocks
+on the devices of its mesh.
 """
 
 from __future__ import annotations
@@ -15,6 +21,20 @@ from typing import Any, Dict, Iterator
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import batch_rows
+
+
+def shard_batch(batch: Dict[str, Any], mesh,
+                data_axis: str = "data") -> Dict[str, Any]:
+    """This rank's rows (:func:`..parallel.mesh.batch_rows` over
+    ``data_axis``) of every array field of a host batch; the other fields
+    as they are. Without a mesh, the batch itself."""
+    if mesh is None:
+        return batch
+    return {k: v[batch_rows(len(v), mesh, data_axis)]
+            if isinstance(v, np.ndarray) and v.ndim else v
+            for k, v in batch.items()}
 
 
 def to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:

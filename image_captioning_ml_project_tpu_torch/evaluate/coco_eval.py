@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..data.coco import iterate_batches
+from ..parallel.mesh import batch_rows, gather_rows_host
 from .metrics import calculate_metrics
 
 
@@ -30,28 +31,34 @@ def evaluate_model_on_coco(
     results_file: str = "results.json",
     annotation_file: Optional[str] = None,
     num_workers: int = 0,
+    mesh=None,
 ) -> Dict[str, float]:
     """``decode_batch_fn(batch) -> tokens [B, L]`` (a host array or a
     tensor on any device) over a host batch of ``dataset``, which must be
     an eval-mode dataset (grouped references). Returns the metric dict and
-    writes ``results_file``."""
+    writes ``results_file`` (where one is named). Under ``mesh`` the
+    batches hold this rank's rows of the data axis
+    (``iterate_batches(rows=)``), and their tokens, validity and ids are
+    gathered from every rank on the host, in the whole batch's order."""
     logger = logging.getLogger(__name__)
     results: List[Dict] = []
     generated, references, image_ids = [], [], []
+    rows = None if mesh is None else batch_rows(batch_size, mesh)
 
     for batch in iterate_batches(dataset, batch_size, shuffle=False,
                                  drop_last=False, pad_last=True,
-                                 num_workers=num_workers):
+                                 num_workers=num_workers, rows=rows):
         tokens = decode_batch_fn(batch)
         if isinstance(tokens, torch.Tensor):
             tokens = tokens.cpu().numpy()
-        tokens = np.asarray(tokens)
-        valid = batch.get("batch_valid", np.ones(len(tokens), dtype=bool))
+        tokens, valid, ids = (gather_rows_host(np.asarray(a), mesh)
+                              for a in (tokens, batch["batch_valid"],
+                                        batch["image_id"]))
         for i in range(len(tokens)):
             if not valid[i]:
                 continue
             caption = tokenizer.decode(tokens[i], skip_special_tokens=True)
-            image_id = int(np.asarray(batch["image_id"])[i])
+            image_id = int(ids[i])
             results.append({"image_id": image_id, "caption": caption})
             generated.append(caption)
             references.append(batch["captions"][i])

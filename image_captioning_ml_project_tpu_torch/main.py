@@ -59,6 +59,21 @@ draws the weights from ``--seed``, and answers ``/caption`` and
 (``num_candidates``), which needs a locally cached HF CLIP checkpoint
 (without one the service warns and serves without reranking).
 
+Under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` set),
+``train`` and ``eval`` are one rank of a mesh: the process group starts
+(:func:`.parallel.mesh.init_distributed`: NCCL for CUDA tensors where
+every local rank has its card, gloo where ranks share one), the mesh is
+built from the config's ``mesh`` section (``data_parallel``,
+``model_parallel``; -1 takes the rest), and rank ``r`` runs on
+``cuda:{LOCAL_RANK % cards}``. ``eval`` rounds its batch up to the data
+axis and each rank decodes its rows. Only global rank 0 writes
+checkpoints, ``results.json`` and the log file::
+
+    torchrun --nproc_per_node 2 -m image_captioning_ml_project_tpu_torch.main \
+        --mode train --config run.json --data_root data --output_dir runs/x
+
+``demo`` and ``serve`` do not run under a mesh yet.
+
 ``--native_loader`` decodes JPEGs with the port's C++ loader
 (:mod:`.native`; PIL where it did not build). ``--device_resize`` moves
 eval's resize and normalisation to the device: the host decodes each
@@ -425,14 +440,15 @@ def _datasets(config: Config, tokenizer):
 
 
 def train(config: Config, checkpoint_path: Optional[str] = None,
-          tokenizer=None, device="cuda", reranker=None):
+          tokenizer=None, device="cuda", reranker=None, mesh=None):
     """Training on ``device`` (the JAX CLI's ``train``): the COCO
     datasets, the tokenizer, the curriculum sampler when
     ``use_curriculum`` is set, the CLIP reranker of validation when
     ``use_clip_reranking`` is set (``reranker``, or one built by
     :func:`_resolve_reranker`), the trainer, an optional resume from
     ``checkpoint_path``, then ``train()``: cross-entropy epochs, and SCST
-    from ``rl_start_epoch`` when ``use_rl``. Returns the trainer."""
+    from ``rl_start_epoch`` when ``use_rl``; one rank of ``mesh`` where
+    one is given. Returns the trainer."""
     from .train.curriculum import create_curriculum_sampler
     from .train.trainer import CaptioningTrainer
 
@@ -446,7 +462,7 @@ def train(config: Config, checkpoint_path: Optional[str] = None,
         reranker = _resolve_reranker(config, tokenizer, reranker, device)
     trainer = CaptioningTrainer(config, train_ds, val_ds, tokenizer,
                                 curriculum_sampler=sampler,
-                                reranker=reranker, device=device)
+                                reranker=reranker, device=device, mesh=mesh)
     if checkpoint_path:
         trainer.load_checkpoint(checkpoint_path)
     trainer.train()
@@ -468,13 +484,15 @@ def _load_decode_model(config: Config, checkpoint_path: Optional[str],
 
 
 def evaluate(config: Config, checkpoint_path: Optional[str] = None,
-             tokenizer=None, reranker=None, device="cuda"):
+             tokenizer=None, reranker=None, device="cuda", mesh=None):
     """Caption the validation set on ``device`` with the configured
     strategy (the JAX CLI's ``eval``) and return the caption metrics: the
     ``checkpoint_path`` weights (or the seed's) in one decode model for
     the run (:func:`_load_decode_model`), batches of
-    ``inference.num_candidates`` (the reference's quirk; one device, so no
-    rounding to a mesh), the last one padded and its padding ignored,
+    ``inference.num_candidates`` (the reference's quirk) rounded up to a
+    multiple of ``mesh``'s data axis, each rank decoding its rows and the
+    tokens gathered on the host (only rank 0 writes ``results.json``),
+    the last batch padded and its padding ignored,
     and with ``use_clip_reranking`` the reranker (``reranker``, or
     :func:`_resolve_reranker`'s) picking among ``num_candidates`` beam
     candidates on the batch's device images (from ``device_resize``
@@ -498,24 +516,29 @@ def evaluate(config: Config, checkpoint_path: Optional[str] = None,
         reranker = None
     else:
         reranker = _resolve_reranker(config, tokenizer, reranker, device)
-    generator = torch.Generator(device=device).manual_seed(config.seed)
+    seed = config.seed if mesh is None else config.seed + mesh.data_rank
+    generator = torch.Generator(device=device).manual_seed(seed)
 
     @torch.inference_mode()
-    def decode_host_batch(batch):
+    def decode_rows(batch):
         inputs = to_device(batch_inputs(batch, regions), device)
         tokens = decode_images(model, prepare_inputs(inputs,
                                                      config.image_size),
                                config, generator,
                                candidates=reranker is not None)
-        if reranker is None:
-            return tokens
-        return reranker(rerank_pixels(inputs, config.image_size), tokens)
+        if reranker is not None:
+            tokens = reranker(rerank_pixels(inputs, config.image_size),
+                              tokens)
+        return tokens
 
+    dp = mesh.dp if mesh is not None else 1
+    main_rank = mesh is None or mesh.rank == 0
     return evaluate_model_on_coco(
-        decode_host_batch, val_ds, tokenizer,
-        batch_size=config.inference.num_candidates,
-        results_file=os.path.join(config.output_dir, "results.json"),
-        num_workers=config.num_workers)
+        decode_rows, val_ds, tokenizer,
+        batch_size=-(-config.inference.num_candidates // dp) * dp,
+        results_file=(os.path.join(config.output_dir, "results.json")
+                      if main_rank else None),
+        num_workers=config.num_workers, mesh=mesh)
 
 
 def demo(config: Config, checkpoint_path: Optional[str] = None,
@@ -583,12 +606,11 @@ def main(argv=None):
         save_config(config, args.save_config)
     logging.basicConfig(level=logging.INFO)
     tokenizer = setup_tokenizer(config, vocab_path=args.vocab)
-    if args.mode == "train":
-        return train(config, checkpoint_path=args.checkpoint,
-                     tokenizer=tokenizer, device=args.device)
-    if args.mode == "eval":
-        return evaluate(config, args.checkpoint, tokenizer=tokenizer,
-                        device=args.device)
+    if args.mode in ("train", "eval"):
+        return _train_or_eval(config, args, tokenizer)
+    if "WORLD_SIZE" in os.environ:
+        raise SystemExit(f"--mode {args.mode} does not run under a mesh "
+                         f"yet (ROADMAP.md Queue 1 item 16)")
     if args.mode == "demo":
         return demo(config, args.checkpoint, args.image_path,
                     tokenizer=tokenizer, device=args.device)
@@ -602,6 +624,27 @@ def main(argv=None):
           bucket_sizes=[int(b) for b in args.serve_buckets.split(",")]
           if args.serve_buckets else None,
           checkpoint_path=args.checkpoint)
+
+
+def _train_or_eval(config: Config, args, tokenizer):
+    """``--mode train`` or ``eval``: alone, or under ``torchrun`` as one
+    rank of the config's mesh (the process group torn down after)."""
+    from .parallel.mesh import create_mesh, init_distributed, rank_device
+
+    ranks = init_distributed()
+    device, mesh = args.device, None
+    if ranks is not None:
+        device = rank_device(args.device, ranks[2])
+        mesh = create_mesh(config.mesh)
+    try:
+        if args.mode == "train":
+            return train(config, checkpoint_path=args.checkpoint,
+                         tokenizer=tokenizer, device=device, mesh=mesh)
+        return evaluate(config, args.checkpoint, tokenizer=tokenizer,
+                        device=device, mesh=mesh)
+    finally:
+        if ranks is not None:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -45,7 +45,8 @@ from torch import nn
 from ..config import EncoderType, reads_regions
 from ..data.coco import IMAGENET_MEAN, IMAGENET_STD, normalize_images
 from ..ops.encoder_stack import encoder_stack
-from .layers import LayerNorm, kernels_on
+from ..parallel.sharding import all_reduce_sum
+from .layers import LayerNorm, data_group, kernels_on
 
 
 def encoder_fold_enabled() -> bool:
@@ -324,6 +325,10 @@ class BatchNorm(nn.Module):
     0, in f32 over every axis but the channels'), and then updates the
     running statistics to ``0.9 * running + 0.1 * batch``, the biased
     variance included (``F.batch_norm`` would store the unbiased one).
+    Inside :func:`.layers.data_parallel` the batch statistics are the
+    global batch's: the per-channel sums of x and x^2 all-reduced over the
+    data axis (differentiably), so every rank normalises and updates its
+    running statistics as one process on the whole batch would.
     Either way ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32,
     cast to the input dtype. The scale and bias stay f32 under
     :func:`..utils.amp.cast_float_params`, as flax keeps them; the
@@ -346,8 +351,19 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = (0, 2, 3)
-            mean = xf.mean(axes)
-            var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            group = data_group()
+            if group is None:
+                mean = xf.mean(axes)
+                var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            else:
+                # the global batch's moments: every rank's sums, reduced
+                # in the forward and, for their gradients, the backward
+                sums = all_reduce_sum(torch.stack(
+                    [xf.sum(axes), (xf * xf).sum(axes)]), group)
+                n = xf.numel() // xf.shape[1] \
+                    * torch.distributed.get_world_size(group)
+                mean, mean2 = sums[0] / n, sums[1] / n
+                var = (mean2 - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

@@ -28,6 +28,16 @@ only for TPU DMA tiling.
 In training mode the teacher-forced forward applies HF's embedding,
 attention and residual dropout (``DecoderConfig.dropout``) where the JAX
 decoder does under ``deterministic=False``.
+
+Under tensor parallelism (:func:`..parallel.sharding.tensor_parallel`)
+the attention and MLP blocks hold this rank's shards and their
+``tp_group`` is the mesh's model group: ``c_attn`` holds whole heads of
+q, k and v (``num_heads / M`` of them) and ``c_fc`` a slice of the
+hidden units, the two ``c_proj`` the matching input columns; the
+teacher-forced forward then all-reduces each ``c_proj`` product before
+its bias (:func:`..parallel.sharding.reduce_from`) and the backward each
+block input's gradient (:func:`..parallel.sharding.copy_to`). Decoding
+never sees shards: it runs on gathered weights.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from ..inference.decoding import greedy_decode
 from ..ops.beam_decode_attention import (beam_decode_attention,
                                          beam_decode_attention_qkv)
 from ..ops.beam_decode_stack import beam_decode_stack
+from ..parallel.sharding import copy_to, reduce_from
 from .layers import LayerNorm, dropout
 
 _NEG_INF = -1e9
@@ -64,7 +75,19 @@ def decode_path() -> str:
     return "fold" if decode_fold_enabled() else "split"
 
 
+def _row_split_out(linear: nn.Linear, x: torch.Tensor, group
+                   ) -> torch.Tensor:
+    """``linear(x)`` where ``linear``'s input columns are split over
+    ``group``: the partial products all-reduced, then the bias."""
+    if group is None:
+        return linear(x)
+    return reduce_from(F.linear(x, linear.weight), group) + linear.bias
+
+
 class GPT2Attention(nn.Module):
+    # the parameters tensor parallelism splits (parallel.sharding)
+    tp_params = ("c_attn.weight", "c_attn.bias", "c_proj.weight")
+
     def __init__(self, hidden_dim: int, num_heads: int, rate: float = 0.0):
         super().__init__()
         self.hidden_dim = hidden_dim
@@ -72,15 +95,19 @@ class GPT2Attention(nn.Module):
         self.rate = rate  # HF attn_pdrop and resid_pdrop (training only)
         self.c_attn = nn.Linear(hidden_dim, 3 * hidden_dim)
         self.c_proj = nn.Linear(hidden_dim, hidden_dim)
+        self.tp_group = None  # the model axis's group when sharded
 
     def full(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None):
         """Causal self-attention over x [B, T, H] (+ additive bias).
         Returns (out [B, T, H], (k, v) each [B, T, nh, hd])."""
-        B, T, H = x.shape
-        nh = self.num_heads
-        hd = H // nh
-        q, k, v = (t.reshape(B, T, nh, hd)
-                   for t in self.c_attn(x).split(H, dim=-1))
+        B, T, _ = x.shape
+        hd = self.hidden_dim // self.num_heads
+        if self.tp_group is not None:
+            x = copy_to(x, self.tp_group)
+        qkv = self.c_attn(x)
+        H = qkv.shape[-1] // 3  # this rank's heads' width
+        nh = H // hd
+        q, k, v = (t.reshape(B, T, nh, hd) for t in qkv.split(H, dim=-1))
         scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) \
             / (hd ** 0.5)
         causal = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
@@ -90,7 +117,8 @@ class GPT2Attention(nn.Module):
         w = torch.softmax(scores, dim=-1).to(v.dtype)
         w = dropout(w, self.rate, self.training)
         out = torch.einsum("bnqk,bknd->bqnd", w, v).reshape(B, T, H)
-        return dropout(self.c_proj(out), self.rate, self.training), (k, v)
+        out = _row_split_out(self.c_proj, out, self.tp_group)
+        return dropout(out, self.rate, self.training), (k, v)
 
     def cached_step(self, x: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, pos: int,
@@ -120,14 +148,20 @@ class GPT2Attention(nn.Module):
 
 
 class GPT2MLP(nn.Module):
+    tp_params = ("c_fc.weight", "c_fc.bias", "c_proj.weight")
+
     def __init__(self, hidden_dim: int, rate: float = 0.0):
         super().__init__()
         self.rate = rate  # HF resid_pdrop (training only)
         self.c_fc = nn.Linear(hidden_dim, 4 * hidden_dim)
         self.c_proj = nn.Linear(4 * hidden_dim, hidden_dim)
+        self.tp_group = None  # the model axis's group when sharded
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dropout(self.c_proj(F.gelu(self.c_fc(x), approximate="tanh")),
+        if self.tp_group is not None:
+            x = copy_to(x, self.tp_group)
+        h = F.gelu(self.c_fc(x), approximate="tanh")
+        return dropout(_row_split_out(self.c_proj, h, self.tp_group),
                        self.rate, self.training)
 
 

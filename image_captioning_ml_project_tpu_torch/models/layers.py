@@ -13,6 +13,7 @@ from ..ops.numerics import layer_norm
 
 _rng = threading.local()
 _routes = threading.local()
+_data = threading.local()
 
 
 @contextlib.contextmanager
@@ -43,6 +44,25 @@ def plain_routes() -> Iterator[None]:
         yield
     finally:
         _routes.plain = before
+
+
+@contextlib.contextmanager
+def data_parallel(group) -> Iterator[None]:
+    """Run the forwards inside as one rank of the data axis's ``group``
+    (None: alone): training-mode BatchNorm then takes its statistics over
+    the global batch, every rank's rows, as a flax ``BatchNorm`` does on a
+    batch sharded over the mesh. Per thread."""
+    before = getattr(_data, "group", None)
+    _data.group = group
+    try:
+        yield
+    finally:
+        _data.group = before
+
+
+def data_group():
+    """The data axis's group of :func:`data_parallel`, or None."""
+    return getattr(_data, "group", None)
 
 
 def kernels_on(module: nn.Module) -> bool:

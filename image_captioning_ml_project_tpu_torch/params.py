@@ -353,6 +353,76 @@ def from_flax(tree: Mapping, stats: bool = True) -> Dict[str, torch.Tensor]:
     return br.out
 
 
+# the legacy decoder's Dense layers (its LSTM cell's ``gates`` aside)
+_LEGACY_DENSE = ("enc_att", "dec_att", "att", "h_lin", "c_lin", "f_beta",
+                 "fc")
+
+
+def legacy_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Map the JAX legacy ``ShowAttendTell`` variables (``{"params":
+    ..., "batch_stats": ...}`` or the params alone) to an f32 state dict
+    of :class:`.legacy.model.ShowAttendTell`: the ResNet backbone with its
+    BatchNorm statistics, the decoder's attention (``enc_att``,
+    ``dec_att``, ``att``), its fused LSTM cell, ``h_lin``, ``c_lin``,
+    ``f_beta``, ``fc`` and the word embedding (none with ``use_bert``).
+    Every leaf must be consumed."""
+    flat = {}
+    if "params" in tree and isinstance(tree["params"], Mapping):
+        flat = {f"{_STATS}/{k}": v
+                for k, v in _flatten(tree.get(_STATS, {})).items()}
+        tree = tree["params"]
+    flat.update(_flatten(tree))
+    br = _Bridge(flat)
+    _resnet_encoder(br)
+    for n in _LEGACY_DENSE:
+        br.dense(f"decoder/{n}", f"decoder.{n}")
+    br.dense("decoder/decode_step/gates", "decoder.decode_step.gates")
+    if "decoder/embedding/embedding" in br.flat:
+        br.put("decoder.embedding.weight",
+               br.take("decoder/embedding/embedding"))
+    if br.flat:
+        raise ValueError(f"unmapped flax leaves: {sorted(br.flat)}")
+    return br.out
+
+
+def init_legacy_flax_params(vocab_size: int, encoder_config, seed: int,
+                            use_bert: bool = False, embed_dim: int = 512,
+                            attention_dim: int = 512,
+                            decoder_dim: int = 512) -> Dict[str, Any]:
+    """Seeded weights in the flax layout of the JAX legacy
+    ``ShowAttendTell``, drawn from ``numpy.random.RandomState(seed)`` as
+    :func:`init_flax_params` draws the captioning model's: the ResNet
+    first (conv kernels at ``lecun_normal`` scale, BatchNorm statistics 0
+    and 1), then the decoder's Dense kernels and embedding N(0, 0.02²),
+    biases 0. With ``use_bert`` the embeddings are BERT's 768."""
+    rs = np.random.RandomState(seed)
+
+    def normal(*shape, std=0.02):
+        return (rs.standard_normal(shape) * std).astype(np.float32)
+
+    def dense(n_in, n_out):
+        return {"kernel": normal(n_in, n_out),
+                "bias": np.zeros(n_out, np.float32)}
+
+    def norm(n):
+        return {"scale": np.ones(n, np.float32),
+                "bias": np.zeros(n, np.float32)}
+
+    encoder, stats = _draw_resnet(encoder_config, normal, norm)
+    E, A, D = encoder_config.resnet_hidden_sizes[-1], attention_dim, \
+        decoder_dim
+    emb = 768 if use_bert else embed_dim
+    decoder = {"enc_att": dense(E, A), "dec_att": dense(D, A),
+               "att": dense(A, 1),
+               "decode_step": {"gates": dense(emb + E + D, 4 * D)},
+               "h_lin": dense(E, D), "c_lin": dense(E, D),
+               "f_beta": dense(D, E), "fc": dense(D, vocab_size)}
+    if not use_bert:
+        decoder["embedding"] = {"embedding": normal(vocab_size, emb)}
+    return {"params": {"encoder": encoder, "decoder": decoder},
+            _STATS: {"encoder": stats}}
+
+
 def loss_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """Map the JAX ``CombinedLoss`` params (with or without the top-level
     ``"params"``; empty without contrastive and ITM losses) to an f32
@@ -370,6 +440,30 @@ def loss_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     if br.flat:
         raise ValueError(f"unmapped flax leaves: {sorted(br.flat)}")
     return br.out
+
+
+def resize_token_embeddings(state: Mapping[str, torch.Tensor],
+                            new_vocab_size: int,
+                            key: str = "decoder.backbone.wte.weight",
+                            init_std: float = 0.02, seed: int = 0
+                            ) -> Dict[str, torch.Tensor]:
+    """A state dict with the embedding table ``key`` [V, H] resized to
+    ``new_vocab_size`` rows, HF ``resize_token_embeddings`` semantics as
+    the JAX package's ``models.hf_port.resize_token_embeddings``: the
+    existing rows kept, new rows N(0, init_std²) drawn from
+    ``numpy.random.RandomState(seed)``, extra rows cut. GPT-2's LM head is
+    tied to the table, so it follows."""
+    table = state[key]
+    old, dim = table.shape
+    out = dict(state)
+    if new_vocab_size < old:
+        out[key] = table[:new_vocab_size].clone()
+    elif new_vocab_size > old:
+        extra = np.random.RandomState(seed).normal(
+            0.0, init_std, (new_vocab_size - old, dim))
+        out[key] = torch.cat([table, torch.from_numpy(extra).to(
+            table.dtype).to(table.device)])
+    return out
 
 
 def _adam_state(node: Any):

@@ -7,6 +7,16 @@ parameters (the ITM head and the two feature projections) are the
 trainer's ``"loss"`` group. The linear layers are named so that
 :func:`..params.loss_from_flax` maps the flax module's ``Dense_0``,
 ``Dense_1``, ``image_feat_proj`` and ``text_feat_proj`` onto them.
+
+Under data parallelism (a ``group``, the mesh's data axis) each loss is
+this rank's share of the global batch's loss, so that the shares sum to
+it and the gradients all-reduced by sum are the global batch's, as the
+JAX trainer's one program over the sharded batch computes them: the
+masked CE and the REINFORCE loss divide local sums by the global token
+count, the attention regularisation its local sum by the global element
+count, and the contrastive and ITM losses run on every rank over the
+global features (gathered differentiably,
+:func:`..parallel.sharding.gather_rows`) and count ``1 / dp`` each.
 """
 
 from __future__ import annotations
@@ -14,16 +24,32 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..models.layers import dropout
+from ..parallel.sharding import gather_rows
+
+
+def global_count(count: torch.Tensor, group) -> torch.Tensor:
+    """``count`` (a denominator, no gradient) summed over ``group``'s
+    ranks; as it is without one."""
+    if group is None:
+        return count
+    count = count.detach().clone()
+    dist.all_reduce(count, group=group)
+    return count
+
+
+def _ranks(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
 
 
 def shifted_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                           pad_token_id: int,
-                          target_mask: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          target_mask: Optional[torch.Tensor] = None,
+                          group=None) -> torch.Tensor:
     """Language-modeling CE: predict targets[t+1] from logits[t].
 
     ``target_mask`` [B, T] (1 = supervised token, e.g. the tokenizer's
@@ -38,25 +64,32 @@ def shifted_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
         mask = (shift_targets != pad_token_id).float()
     logp = torch.log_softmax(shift_logits, dim=-1)
     nll = -logp.gather(-1, shift_targets[..., None])[..., 0]
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return (nll * mask).sum() \
+        / global_count(mask.sum(), group).clamp_min(1.0)
 
 
 def attention_regularization(attention_weights: torch.Tensor,
-                             token_mask: Optional[torch.Tensor] = None
-                             ) -> torch.Tensor:
+                             token_mask: Optional[torch.Tensor] = None,
+                             group=None) -> torch.Tensor:
     """Doubly-stochastic regularization ``((1 - sum_t alpha)^2).mean()``;
     attention_weights [B, T, S], token_mask [B, T] marks real caption
     steps."""
     if token_mask is not None:
         attention_weights = attention_weights * token_mask[:, :, None]
     total = attention_weights.sum(dim=1)  # [B, S]
-    return ((1.0 - total) ** 2).mean()
+    if group is None:
+        return ((1.0 - total) ** 2).mean()
+    return ((1.0 - total) ** 2).sum() / (total.numel() * _ranks(group))
 
 
 def contrastive_loss(image_features: torch.Tensor,
                      text_features: torch.Tensor,
-                     temperature: float = 0.07) -> torch.Tensor:
-    """Symmetric InfoNCE over the batch."""
+                     temperature: float = 0.07, group=None) -> torch.Tensor:
+    """Symmetric InfoNCE over the (global) batch."""
+    if group is not None:
+        return contrastive_loss(gather_rows(image_features, group),
+                                gather_rows(text_features, group),
+                                temperature) / _ranks(group)
     img = image_features / torch.linalg.vector_norm(image_features, dim=-1,
                                                     keepdim=True)
     txt = text_features / torch.linalg.vector_norm(text_features, dim=-1,
@@ -101,6 +134,10 @@ class CombinedLoss(nn.Module):
     model's pooled image features (the encoder's ``feature_dim``) and text
     features (the decoder's ``hidden_dim``), which flax infers at init."""
 
+    # the mesh's data axis group (set by a trainer under a mesh): the
+    # losses are then this rank's shares of the global batch's
+    data_group = None
+
     def __init__(self, pad_token_id: int, use_contrastive: bool = False,
                  use_itm: bool = False, contrastive_weight: float = 0.1,
                  itm_weight: float = 0.1, temperature: float = 0.07,
@@ -132,8 +169,9 @@ class CombinedLoss(nn.Module):
         negatives come from ``generator`` (the trainer's per-step stream);
         without one, from a generator seeded 0, as the JAX module falls
         back to a fixed key outside training."""
+        group = self.data_group
         ce = shifted_cross_entropy(logits, targets, self.pad_token_id,
-                                   target_mask=target_mask)
+                                   target_mask=target_mask, group=group)
         total = ce
         out = {"ce_loss": ce}
         have_features = (image_features is not None
@@ -144,11 +182,15 @@ class CombinedLoss(nn.Module):
 
         if self.use_contrastive and have_features:
             cl = contrastive_loss(image_features, text_features,
-                                  self.temperature)
+                                  self.temperature, group=group)
             total = total + self.contrastive_weight * cl
             out["contrastive_loss"] = cl
 
         if self.use_itm and have_features:
+            if group is not None:
+                # the global batch's pairs and negatives on every rank
+                image_features = gather_rows(image_features, group)
+                text_features = gather_rows(text_features, group)
             B = image_features.shape[0]
             num_neg = int(B * self.negative_ratio)
             device = image_features.device
@@ -164,7 +206,7 @@ class CombinedLoss(nn.Module):
                                             device=device)])
             itm_logits = self.itm_head(all_img, all_txt)
             logp = torch.log_softmax(itm_logits, dim=-1)
-            il = -logp.gather(-1, labels[:, None]).mean()
+            il = -logp.gather(-1, labels[:, None]).mean() / _ranks(group)
             total = total + self.itm_weight * il
             out["itm_loss"] = il
 
@@ -179,7 +221,8 @@ class CombinedLoss(nn.Module):
                 valid = (targets != self.pad_token_id).float()
             token_mask = torch.cat([valid[:, 1:],
                                     torch.zeros_like(valid[:, :1])], dim=1)
-            ar = attention_regularization(attention_weights, token_mask)
+            ar = attention_regularization(attention_weights, token_mask,
+                                          group=group)
             total = total + self.attention_reg_weight * ar
             out["attention_reg_loss"] = ar
 

@@ -105,8 +105,8 @@ def create_learning_rate_schedule(config, total_steps: int) -> Callable:
                            3 * step_size: 0.1})
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every gradient's squared entries, in f32.
+def sum_of_squares(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The sum of every gradient's squared entries, in f32 (0 for none).
 
     On CUDA one ``_foreach_norm`` (a few multi-tensor launches for the
     whole list, f32 partial sums reduced as a tree). On the CPU each
@@ -114,10 +114,17 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     ``vector_norm`` accumulate in one f32 running sum, 2.7e-3 off on a
     tensor of 38 M normal entries (GPT-2's embedding), its ``sum`` 5e-8
     (torch 2.13, against a float64 sum)."""
+    if not grads:
+        return torch.zeros(())
     if grads[0].is_cuda:
-        return torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm([g.float() for g in grads])))
-    return torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+        return torch.stack(torch._foreach_norm(
+            [g.float() for g in grads])).square().sum()
+    return torch.stack([g.float().square().sum() for g in grads]).sum()
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of :func:`sum_of_squares`."""
+    return sum_of_squares(grads).sqrt()
 
 
 class AdamW:
@@ -135,8 +142,13 @@ class AdamW:
                  weight_decay: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8,
                  mu_dtype: Optional[torch.dtype] = None,
-                 clip_norm: float = 0.0):
+                 clip_norm: float = 0.0,
+                 norm_fn: Callable[[List[torch.Tensor]], torch.Tensor]
+                 = global_norm):
         self.params = params
+        # the gradients' global norm, given them in ``names`` order (a
+        # tensor-parallel trainer's sums the shards over the model axis)
+        self.norm_fn = norm_fn
         self.names = list(params)
         self.schedule = schedule
         self.weight_decay = weight_decay
@@ -153,7 +165,7 @@ class AdamW:
     def step(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         names = self.names
         g = [grads[n] for n in names]
-        norm = global_norm(g)
+        norm = self.norm_fn(g)
         if self.clip_norm and self.clip_norm > 0:
             trigger = norm < self.clip_norm
             g = [torch.where(trigger, t, (t / norm) * self.clip_norm)
@@ -217,12 +229,15 @@ class AdamW:
 
 
 def create_optimizer(config, total_steps: int,
-                     params: Dict[str, torch.Tensor]
-                     ) -> Tuple[AdamW, Callable]:
-    """(AdamW over ``params``, its schedule) for a ``TrainingConfig``."""
+                     params: Dict[str, torch.Tensor],
+                     norm_fn: Callable[[List[torch.Tensor]], torch.Tensor]
+                     = global_norm) -> Tuple[AdamW, Callable]:
+    """(AdamW over ``params``, its schedule) for a ``TrainingConfig``;
+    ``norm_fn`` as :class:`AdamW`'s."""
     schedule = create_learning_rate_schedule(config, total_steps)
     mu_dtype = (torch.bfloat16
                 if getattr(config, "adam_mu_dtype", "float32") == "bfloat16"
                 else None)
     return AdamW(params, schedule, config.weight_decay, mu_dtype=mu_dtype,
-                 clip_norm=config.grad_clip_norm), schedule
+                 clip_norm=config.grad_clip_norm,
+                 norm_fn=norm_fn), schedule

@@ -56,13 +56,33 @@ mid-epoch step checkpoints, full resume):
   and in the object-region mode (``object_region`` encoder or
   ``use_object_features``) the detector regions' dict.
 
-Not yet ported, and raising ``NotImplementedError`` naming its
-``ROADMAP.md`` item: a device mesh.
+Under a mesh (:mod:`..parallel`, one process per rank) the trainer is
+one rank of the JAX trainer's one program:
+
+* every rank draws the same seeded weights and rank 0's are broadcast;
+  with a model axis larger than 1 the GPT-2 blocks are sharded
+  Megatron-style (:func:`..parallel.sharding.tensor_parallel`), and the
+  Adam moments with them;
+* each rank takes its contiguous rows of every global batch
+  (:func:`..data.pipeline.prefetch` with the mesh); the losses are its
+  shares of the global batch's (:mod:`.losses`), BatchNorm takes the
+  global batch's statistics (:func:`..models.layers.data_parallel`), the
+  gradients are all-reduced by sum over the data axis, and the clip's
+  global norm sums the shards' squares over the model axis; the returned
+  losses are the global batch's;
+* dropout masks come from the step's generator folded with the data
+  rank, so a run with dropout differs from the one-process run;
+* validation rounds its batch up to the data axis, decodes this rank's
+  rows on full (gathered) weights and gathers the tokens on the host;
+* checkpoints hold the full tensors (a tensor-parallel checkpoint is a
+  one-process one) and only global rank 0 writes them and the log file;
+  resume shards what it reads.
 """
 
 from __future__ import annotations
 
 import copy
+import logging
 import time
 from typing import Any, Dict, Iterator, Optional, Tuple
 
@@ -81,14 +101,18 @@ from ..inference.decoding import (_map, batch_size_of, decode_images,
                                   greedy_decode, sample_decode)
 from ..models.captioning_model import (ImageCaptioningModel,
                                        build_train_model, load_model)
-from ..models.layers import dropout_generator, plain_routes
+from ..models.layers import data_parallel, dropout_generator, plain_routes
 from ..ops.resize import resize_normalize, resize_square
+from ..parallel.mesh import (all_reduce_host, batch_rows, gather_rows_host,
+                             replicate)
+from ..parallel.sharding import (gather_params, infer_param_shardings,
+                                 shard_params, tensor_parallel)
 from ..utils.amp import cast_for_compute, castable_parameters
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logging import MetricLogger, setup_logging
 from ..utils.rng import fold_in, generator
-from .losses import CombinedLoss, shifted_cross_entropy
-from .optim import create_optimizer
+from .losses import CombinedLoss, global_count, shifted_cross_entropy
+from .optim import create_optimizer, global_norm, sum_of_squares
 
 def compute_dtype(config: Config) -> torch.dtype:
     """A trainer's compute dtype: bf16 under ``use_amp`` unless the model
@@ -179,16 +203,14 @@ class CaptioningTrainer:
     passes the CPU, as the tests do). The model starts from ``params``,
     the JAX package's variable tree, or ``state_dict``, this package's
     (a checkpoint's model weights); with neither the weights are drawn
-    from ``config.seed`` (:func:`..params.init_flax_params`)."""
+    from ``config.seed`` (:func:`..params.init_flax_params`). ``mesh``
+    (:func:`..parallel.mesh.create_mesh`) makes it one rank of a data-
+    and tensor-parallel run; ``device`` is then this rank's."""
 
     def __init__(self, config: Config, train_dataset, val_dataset,
                  tokenizer, mesh=None, curriculum_sampler=None,
                  reranker=None, device="cuda", params=None,
                  state_dict=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "training over a device mesh is not yet ported to PyTorch "
-                "(ROADMAP.md Queue 1 item 13)")
         enc = config.model.encoder
         self._object_mode = reads_regions(enc)
         self.device = torch.device(device)
@@ -201,13 +223,25 @@ class CaptioningTrainer:
         self.tokenizer = tokenizer
         self.curriculum_sampler = curriculum_sampler
         self.reranker = reranker
-        self.logger = setup_logging(config.output_dir, __name__)
+        tc = config.training
+        dp = mesh.dp if mesh is not None else 1
+        if tc.batch_size % dp:
+            raise ValueError(f"batch size {tc.batch_size} does not divide "
+                             f"over the {dp} ranks of the data axis")
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
+        # the data axis's group where it has more than one rank
+        self._data_group = mesh.data_group if dp > 1 else None
+        # only global rank 0 writes the log file
+        self.logger = setup_logging(config.output_dir if self.is_main
+                                    else None, __name__)
+        if not self.is_main:
+            self.logger.setLevel(logging.WARNING)
 
         self.dtype = compute_dtype(config)
-        self.model = build_train_model(config, self.device, params=params,
-                                       state_dict=state_dict)
+        self.model = replicate(build_train_model(
+            config, self.device, params=params, state_dict=state_dict), mesh)
 
-        tc = config.training
         mc = config.model
         self.loss_mod = CombinedLoss(
             pad_token_id=mc.pad_token_id,
@@ -222,6 +256,17 @@ class CaptioningTrainer:
             text_dim=mc.decoder.hidden_dim)
         _init_loss(self.loss_mod, config.seed + 2)
         self.loss_mod.to(self.device).train()
+        replicate(self.loss_mod, mesh)
+        self.loss_mod.data_group = self._data_group
+        # tensor parallelism: the GPT-2 blocks' shards (a no-op without a
+        # model axis); the full shapes by model and optimizer name decide
+        # the placements of what is gathered and sharded
+        shapes = tensor_parallel(self.model, mesh)
+        self._full_shapes = dict(shapes)
+        self._full_shapes.update({f"model.{n}": s for n, s in shapes.items()})
+        self._sharded = {n for n, spec in infer_param_shardings(
+            self._full_shapes, mesh.mp if mesh is not None else 1).items()
+            if spec}
 
         self.steps_per_epoch = max(len(train_dataset) // tc.batch_size, 1)
 
@@ -261,7 +306,8 @@ class CaptioningTrainer:
             "model": castable_parameters(self.model),
             "loss": castable_parameters(self.loss_mod)}
         self.optimizer, self.lr_schedule = create_optimizer(
-            tc, self.total_steps, self._named_params())
+            tc, self.total_steps, self._named_params(),
+            norm_fn=self._sharded_norm if self._sharded else global_norm)
         self.step = 0
         self._rng_seed = config.seed + 1
         # SCST: the train references and their CIDEr document frequencies
@@ -283,28 +329,60 @@ class CaptioningTrainer:
                     for n, p in self.loss_mod.named_parameters()})
         return out
 
+    def _gather(self, local: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """Full tensors of local ones by model or optimizer name (every
+        rank of the model axis must call it)."""
+        if not self._sharded:
+            return local
+        return gather_params(local, self.mesh, self._full_shapes)
+
+    def _shard(self, full: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+        """This rank's shards of full tensors by model or optimizer name."""
+        if not self._sharded:
+            return full
+        return shard_params(full, self.mesh)
+
+    def _sharded_norm(self, grads) -> torch.Tensor:
+        """The global norm of the full gradient under tensor parallelism:
+        the shards' squares summed over the model axis, the replicated
+        gradients' counted once."""
+        names = self.optimizer.names
+        split = [g for n, g in zip(names, grads) if n in self._sharded]
+        whole = [g for n, g in zip(names, grads) if n not in self._sharded]
+        sq = sum_of_squares(split).to(grads[0].device)
+        torch.distributed.all_reduce(sq, group=self.mesh.model_group)
+        return (sq + sum_of_squares(whole).to(sq.device)).sqrt()
+
     def _state_tree(self) -> Dict[str, Any]:
         """The one checkpointed view of the training state — save_checkpoint,
         save_step_checkpoint and load_checkpoint must agree or resume
-        silently drops fields."""
+        silently drops fields. Full tensors under tensor parallelism
+        (gathered: every rank of the model axis must call it)."""
+        opt = self.optimizer.state_dict()
         return {
             "params": {
-                "model": {n: p.detach()
-                          for n, p in self.model.named_parameters()},
+                "model": self._gather(
+                    {n: p.detach() for n, p in self.model.named_parameters()}),
                 "loss": {n: p.detach()
                          for n, p in self.loss_mod.named_parameters()}},
             "batch_stats": {n: b for n, b in self.model.named_buffers()},
-            "opt_state": self.optimizer.state_dict(),
+            "opt_state": dict(opt, mu=self._gather(opt["mu"]),
+                              nu=self._gather(opt["nu"])),
             "step": self.step,
         }
 
     @torch.no_grad()
     def _load_weights(self, params: Dict[str, Dict[str, torch.Tensor]],
                       batch_stats: Optional[Dict[str, torch.Tensor]]) -> None:
-        """Copy checkpointed weights (any device) into the masters."""
+        """Copy checkpointed weights (any device, full tensors) into the
+        masters (this rank's shards of them)."""
         for group, module in (("model", self.model),
                               ("loss", self.loss_mod)):
             theirs = params[group]
+            if group == "model":
+                theirs = self._shard(dict(theirs))
             mine = dict(module.named_parameters())
             if set(theirs) != set(mine):
                 raise KeyError(f"checkpoint {group} parameters differ from "
@@ -321,7 +399,10 @@ class CaptioningTrainer:
         """Take a whole training state (a :meth:`_state_tree` dict, e.g. a
         JAX trainer's through :func:`..params.train_state_from_flax`)."""
         self._load_weights(state["params"], state.get("batch_stats"))
-        self.optimizer.load_state_dict(state["opt_state"])
+        opt = state["opt_state"]
+        self.optimizer.load_state_dict(dict(
+            opt, mu=self._shard(dict(opt["mu"])),
+            nu=self._shard(dict(opt["nu"]))))
         self.step = int(state["step"])
 
     # ------------------------------------------------------------------
@@ -361,11 +442,41 @@ class CaptioningTrainer:
             attention_weights=out.get("attention_weights"),
             target_mask=caption_mask, generator=itm_gen)
 
+    def _rank_seed(self, seed: int) -> int:
+        """``seed`` folded with the data rank under a mesh (each rank's
+        rows draw their own masks and samples), else ``seed``."""
+        if self.mesh is None:
+            return seed
+        return fold_in(seed, self.mesh.data_rank)
+
     def _step_generators(self, step: int):
-        """(dropout, ITM) generators of ``step``, on the trainer's device."""
+        """(dropout, ITM) generators of ``step``, on the trainer's device;
+        the dropout one folded with the data rank (the ITM negatives are
+        drawn over the global batch, the same on every rank)."""
         seed = fold_in(self._rng_seed, step)
-        return (generator(fold_in(seed, 0), self.device),
+        return (generator(self._rank_seed(fold_in(seed, 0)), self.device),
                 generator(fold_in(seed, 1), self.device))
+
+    def _data_sum(self, metrics: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """Each rank's loss shares summed over the data axis: the global
+        batch's losses (one all-reduce)."""
+        if self._data_group is None:
+            return metrics
+        keys = list(metrics)
+        flat = torch.stack([metrics[k].float() for k in keys])
+        torch.distributed.all_reduce(flat, group=self._data_group)
+        return dict(zip(keys, flat.unbind()))
+
+    def _global_mean(self, values: torch.Tensor) -> torch.Tensor:
+        """The mean of per-row ``values`` over the global batch."""
+        if self._data_group is None:
+            return values.float().mean()
+        total = torch.stack([values.float().sum(),
+                             torch.tensor(float(values.numel()),
+                                          device=values.device)])
+        torch.distributed.all_reduce(total, group=self._data_group)
+        return total[0] / total[1]
 
     def train_step(self, images, captions, caption_mask
                    ) -> Dict[str, torch.Tensor]:
@@ -379,11 +490,12 @@ class CaptioningTrainer:
         self.loss_mod.train()
         drop_gen, itm_gen = self._step_generators(self.step)
         self._zero_grads()
-        with torch.enable_grad(), dropout_generator(drop_gen):
+        with torch.enable_grad(), dropout_generator(drop_gen), \
+                data_parallel(self._data_group):
             losses = self._forward_loss(images, captions, caption_mask,
                                         itm_gen)
             losses["total_loss"].backward()
-        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics = self._data_sum({k: v.detach() for k, v in losses.items()})
         metrics.update(self._apply_gradients())
         return metrics
 
@@ -399,6 +511,14 @@ class CaptioningTrainer:
         params = self._named_params()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
+        if self._data_group is not None:
+            # one all-reduce (sum) of every gradient over the data axis
+            names = list(grads)
+            flat = torch._utils._flatten_dense_tensors(
+                [grads[n].float() for n in names])
+            torch.distributed.all_reduce(flat, group=self._data_group)
+            grads = dict(zip(names, torch._utils._unflatten_dense_tensors(
+                flat, [grads[n] for n in names])))
         lr = float(self.lr_schedule(self.step))
         norm = self.optimizer.step(grads)
         for p in params.values():
@@ -413,7 +533,8 @@ class CaptioningTrainer:
         operands are copies, so a kept one would decode with old
         weights."""
         state = {n: t.detach() for n, t in self.model.state_dict().items()}
-        return load_decode_model(self.config, self.device, state)
+        return load_decode_model(self.config, self.device,
+                                 self._gather(state))
 
     @torch.inference_mode()
     def eval_loss_step(self, model, images, captions, caption_mask,
@@ -496,8 +617,14 @@ class CaptioningTrainer:
             sampler=iter(sampler) if sampler is not None else None,
             seed=self.config.seed + epoch,
             num_workers=self.config.num_workers,
-            skip_batches=skip_batches)
+            skip_batches=skip_batches, rows=self._rows(
+                self.config.training.batch_size))
         return prefetch(it, self.device)
+
+    def _rows(self, batch_size: int) -> Optional[slice]:
+        """This rank's rows of a global batch (None without a mesh)."""
+        return None if self.mesh is None else batch_rows(batch_size,
+                                                          self.mesh)
 
     def save_step_checkpoint(self, epoch: int, batch_index: int, phase: str):
         """Rolling mid-epoch checkpoint (``config.save_every_steps``).
@@ -514,6 +641,7 @@ class CaptioningTrainer:
         stalling the train loop."""
         frac = getattr(self.config, "step_ckpt_max_overhead", 0.0)
         now = time.monotonic()
+        throttled = False
         if frac and hasattr(self, "_step_ckpt_done_t"):
             wait_s = self._step_ckpt_cost_s / frac
             if now - self._step_ckpt_done_t < wait_s:
@@ -522,13 +650,23 @@ class CaptioningTrainer:
                     "next allowed %.0fs after it (%.0fs remain)",
                     self._step_ckpt_cost_s, wait_s,
                     wait_s - (now - self._step_ckpt_done_t))
-                return
+                throttled = True
+        if self._sharded:
+            # the gather is collective: rank 0's decision holds for all
+            decision = [throttled]
+            torch.distributed.broadcast_object_list(decision, src=0)
+            throttled = decision[0]
+        if throttled or not (self.is_main or self._sharded):
+            return
         # the blocking cost includes the drain of the previous in-flight
         # save, so a slow disk write shows in the throttle too
         t0 = time.monotonic()
         self.ckpt.wait_until_finished()
+        state = self._state_tree()
+        if not self.is_main:
+            return
         self.ckpt.save_step(
-            self._state_tree(),
+            state,
             metadata={"epoch": epoch, "batch_index": batch_index,
                       "phase": phase, "step": int(self.step),
                       "best_val_score": self.best_val_score},
@@ -606,16 +744,21 @@ class CaptioningTrainer:
 
     def _rollout_generator(self, step: int) -> torch.Generator:
         """The rollouts' sampling generator of ``step`` on the trainer's
-        device: stream 2 of the step's seed (dropout is 0, ITM 1)."""
-        return generator(fold_in(fold_in(self._rng_seed, step), 2),
-                         self.device)
+        device: stream 2 of the step's seed (dropout is 0, ITM 1), folded
+        with the data rank under a mesh."""
+        return generator(self._rank_seed(
+            fold_in(fold_in(self._rng_seed, step), 2)), self.device)
 
     def rollout_model(self) -> ImageCaptioningModel:
         """The rollouts' decode model on the current masters: an
         :meth:`eval_state` model built at the first call of an SCST pass,
         and at every later call the masters (cast) and the BatchNorm
         statistics copied into it in place. Its parameters are views of the
-        kernels' stacked operands, so the stacks follow."""
+        kernels' stacked operands, so the stacks follow. Under tensor
+        parallelism a fresh :meth:`eval_state` of the gathered weights at
+        every call."""
+        if self._sharded:
+            return self.eval_state()
         if self._rollout is None:
             model = self.eval_state()
             mine = dict(self.model.named_parameters())
@@ -712,7 +855,8 @@ class CaptioningTrainer:
                 tok_logp = logp.gather(-1, sampled[:, 1:, None])[..., 0]
                 mask = token_mask[:, 1:].float()
                 loss = -(advantages[:, None] * tok_logp * mask).sum() \
-                    / mask.sum().clamp_min(1.0)
+                    / global_count(mask.sum(),
+                                   self._data_group).clamp_min(1.0)
                 return self.config.training.rl_weight * loss
         finally:
             self.model.train()
@@ -732,7 +876,7 @@ class CaptioningTrainer:
                                     advantages)
         with torch.enable_grad():
             loss.backward()
-        metrics = {"rl_loss": loss.detach()}
+        metrics = self._data_sum({"rl_loss": loss.detach()})
         metrics.update(self._apply_gradients())
         return metrics
 
@@ -752,8 +896,9 @@ class CaptioningTrainer:
         sample_r, greedy_r, adv = self.scst_rewards(sampled, greedy,
                                                     ref_tokens, ref_valid)
         metrics = self.rl_update_step(images, sampled, mask, adv)
-        metrics.update(reward=sample_r.mean(), greedy_reward=greedy_r.mean(),
-                       adv_abs=adv.abs().mean())
+        metrics.update(reward=self._global_mean(sample_r),
+                       greedy_reward=self._global_mean(greedy_r),
+                       adv_abs=self._global_mean(adv.abs()))
         return metrics
 
     def _references_by_image_id(self) -> Dict[int, list]:
@@ -878,16 +1023,20 @@ class CaptioningTrainer:
 
     def _validate_epoch(self, epoch: int) -> Tuple[float, Dict[str, float]]:
         # validation batch size = inference.num_candidates, as in the JAX
-        # trainer (one device: no data-axis rounding)
-        batch_size = self.config.inference.num_candidates
-        gen = generator(self.config.seed + 17, self.device)
+        # trainer, rounded up to a multiple of the data axis; each rank
+        # takes its rows and the tokens are gathered on the host
+        dp = self.mesh.dp if self.mesh is not None else 1
+        nc = self.config.inference.num_candidates
+        batch_size = -(-nc // dp) * dp
+        gen = generator(self._rank_seed(self.config.seed + 17), self.device)
         losses = []
         generated, references, image_ids = [], [], []
         # pad_last so the trailing short batch is evaluated, covering every
         # val image
         it = iterate_batches(self.val_dataset, batch_size, shuffle=False,
                              drop_last=False, pad_last=True,
-                             num_workers=self.config.num_workers)
+                             num_workers=self.config.num_workers,
+                             rows=self._rows(batch_size))
         model = self.eval_state()
         # the reranker scores pixels: the object-region mode has none
         reranker = None if self._object_mode else self.reranker
@@ -897,7 +1046,7 @@ class CaptioningTrainer:
             inputs = self._batch_inputs(batch)
             valid = batch.get("batch_valid")
             if valid is None:
-                valid = torch.ones(batch_size, dtype=torch.bool,
+                valid = torch.ones(len(first_ref), dtype=torch.bool,
                                    device=self.device)
             loss_b, ntok_b = self.eval_loss_step(model, inputs, first_ref,
                                                  first_mask, valid)
@@ -912,9 +1061,11 @@ class CaptioningTrainer:
                 tokens = self.val_decode_step(model, inputs, gen)
             if isinstance(tokens, torch.Tensor):
                 tokens = tokens.cpu().numpy()
-            tokens = np.asarray(tokens)
-            valid = valid.cpu().numpy()
-            ids = batch["image_id"].cpu().numpy()
+            # every data rank's rows, in the global batch's order
+            tokens = gather_rows_host(np.asarray(tokens), self.mesh)
+            valid = gather_rows_host(valid.cpu().numpy(), self.mesh)
+            ids = gather_rows_host(batch["image_id"].cpu().numpy(),
+                                   self.mesh)
             for j in range(len(tokens)):
                 if not valid[j]:
                     continue
@@ -923,8 +1074,10 @@ class CaptioningTrainer:
                 references.append(batch["captions"][j])
                 image_ids.append(int(ids[j]))
         del model
-        val_loss = (sum(l * n for l, n in losses)
-                    / max(sum(n for _, n in losses), 1)) if losses else 0.0
+        loss_sum, ntok = all_reduce_host(
+            [sum(l * n for l, n in losses), sum(n for _, n in losses)],
+            self.mesh)
+        val_loss = float(loss_sum / max(ntok, 1)) if losses else 0.0
         metrics = calculate_metrics(generated, references, image_ids) \
             if generated else {"CIDEr": 0.0}
         return val_loss, metrics
@@ -934,8 +1087,15 @@ class CaptioningTrainer:
     # ------------------------------------------------------------------
 
     def save_checkpoint(self, epoch: int, is_best: bool = False):
+        """The epoch checkpoint (and ``best_model``), written by global
+        rank 0 (every rank of the model axis gathers)."""
+        if not (self.is_main or self._sharded):
+            return
+        state = self._state_tree()
+        if not self.is_main:
+            return
         self.ckpt.save_epoch(
-            epoch, self._state_tree(),
+            epoch, state,
             metadata={"epoch": epoch, "best_val_score": self.best_val_score},
             config=self.config, is_best=is_best)
 

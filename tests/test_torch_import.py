@@ -170,3 +170,49 @@ def test_chip_smoke_fails_without_a_gpu_or_the_port(tmp_path):
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
         assert proc.stdout == ""
+
+
+_PROBE_MESH = """
+import importlib, pkgutil, sys, tempfile
+import torch
+import image_captioning_ml_project_tpu_torch.legacy as legacy
+import image_captioning_ml_project_tpu_torch.parallel as parallel
+for pkg in (legacy, parallel):
+    for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        importlib.import_module(m.name)
+from image_captioning_ml_project_tpu_torch.config import EncoderConfig
+from image_captioning_ml_project_tpu_torch.data.tokenizer import WordVocab
+from image_captioning_ml_project_tpu_torch.legacy.train import LegacyTrainer
+from image_captioning_ml_project_tpu_torch.parallel.mesh import (
+    create_mesh, init_distributed)
+d = tempfile.mkdtemp()
+init_distributed(rank=0, world_size=1, init_method="file://" + d + "/store",
+                 timeout_s=60)
+mesh = create_mesh()
+assert mesh.shape == {"data": 1, "model": 1}
+vocab = WordVocab.build(["a cat on a mat"], threshold=1)
+t = LegacyTrainer(vocab, None, mesh=mesh, device="cpu", checkpoint_dir=d,
+                  encoder_config=EncoderConfig(
+                      resnet_embedding_size=8, resnet_hidden_sizes=(8, 16),
+                      resnet_depths=(1, 1)))
+m = t.train_step(torch.zeros(2, 32, 32, 3, dtype=torch.uint8),
+                 torch.ones(2, 5, dtype=torch.long))
+assert torch.isfinite(m["ce"])
+torch.distributed.destroy_process_group()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "image_captioning_ml_project_tpu"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_parallel_and_legacy_import_no_jax():
+    """``parallel/`` and ``legacy/`` alone, in a fresh interpreter: every
+    module imported, a one-rank mesh built over gloo and a legacy step
+    taken on it, and nothing of JAX or the JAX package in
+    ``sys.modules``."""
+    proc = subprocess.run([sys.executable, "-c", _PROBE_MESH], cwd=REPO,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
