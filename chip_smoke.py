@@ -227,12 +227,39 @@ prints no result line:
    batch (the loss falling; ms a step, images/s, peak memory),
    ``validate`` on the 64 validation images, ``generate_captions`` on 4
    JPEGs, the epoch checkpoints restored bit-identical; no kernel
-   launched in the legacy stack.
+   launched in the legacy stack;
+11. serving and the demo under the mesh: first #1 at the flagship's tp2
+   shapes, each model rank's 6 heads of 64 (H = 384), 64 images x 5 beams
+   behind the 10-row prefix, f32 and bf16 against its plain version and
+   timed in bf16. Then ``CaptionService(mesh=)`` on two ranks sharing the
+   card over gloo (phase 10's ``--parallel-rank``, deadline
+   :data:`SERVE_RANK_TIMEOUT`), the flagship at full width on phase 7's
+   ``best_model``, batch 64, buckets 1/8/64 rounded to the data axis. In
+   f32 at dp2 and at tp2 (GPT-2 on each rank's head-whole shards): the
+   token rows of ``_run_images`` of 64, 8 and 1 seeded images and the
+   captions of 64 concurrent requests identical to the one-process f32
+   service's (a row that parts prints the step and the one-process top-2
+   log-probability gap there, and fails the phase). In bf16 at dp2 and
+   tp2: a warm-up round of 64 concurrent requests, three timed rounds (the
+   round's seconds, each rank's median decode ms) and three single
+   requests on the smallest bucket (:data:`SERVE_MAX_WAIT_MS` of batcher
+   wait). Each rank's counters, set to 0 just before its service is built
+   and read after it stops: #5 once a batch, #4 once a decode step, and #3
+   once a step at dp2 or #1 once a layer a step at tp2, nothing else (no
+   #2, no #3 at tp2). Then the CLI under ``python -m
+   torch.distributed.run --nproc_per_node 2`` in f32: ``--mode serve`` at
+   dp2 answers ``/healthz``, 16 concurrent PNG requests get the
+   one-process captions, a ``POST /reload`` with 16 more in flight
+   answers and so does each of them, ``/stats`` counts them, and SIGTERM
+   to the launcher ends it with both ranks logging a clean end; the same
+   at tp2 with 4 requests and no reload; then ``--mode demo`` at dp2 and
+   at tp2, the two launches side by side, each logs ``main.demo``'s
+   caption in one process, from rank 0 only (:func:`serving_cli`).
 
-The last five lines are the train and eval phases' numbers (JSON), phase
-9's (JSON), phase 10's (JSON), a JSON summary of the kernels and ``{"ok":
-true, "device": {...}}`` (the card's ``nvidia-smi`` line is printed
-first, in phase 1). Each kernel's entry holds its numbers
+The last six lines are the train and eval phases' numbers (JSON), phase
+9's (JSON), phase 10's (JSON), phase 11's (JSON), a JSON summary of the
+kernels and ``{"ok": true, "device": {...}}`` (the card's ``nvidia-smi``
+line is printed first, in phase 1). Each kernel's entry holds its numbers
 and launches for the Transformer family where that family runs it, else
 for the flagship, else for the LSTM; the other families', where they have
 their own shape (the LSE over the LSTM's vocabulary of 10000), are under
@@ -3932,11 +3959,22 @@ def parallel_rank(spec_path, rank):
     torch.backends.cudnn.deterministic = True
     init_distributed(rank=rank, world_size=PAR_RANKS,
                      init_method=f"file://{spec['store']}",
-                     timeout_s=PAR_RANK_TIMEOUT)
+                     timeout_s=spec.get("timeout", PAR_RANK_TIMEOUT))
     dev = torch.device(rank_device("cuda", rank))
     for name in LIBRARIES:
         _build.load_library(name)
     kernels = counters()
+    if spec.get("phase") == "serving_mesh":
+        try:
+            out = serving_rank(torch, dev, spec, kernels)
+            per_rank = [None] * PAR_RANKS
+            dist.all_gather_object(per_rank, out)
+        finally:
+            dist.destroy_process_group()
+        if rank == 0:
+            with open(spec["out"], "w") as f:
+                json.dump(per_rank, f)
+        return
     tmp = os.path.join(spec["tmp"], f"rank{rank}")
     data = _par_data(spec)
     out, refs = {}, {}
@@ -3989,23 +4027,26 @@ def _legacy_data(spec):
 
 def run_parallel_ranks(torch, spec, tmp):
     """Start the two ranks (this script with ``--parallel-rank``), each
-    logging to its own file, and wait for both within
-    :data:`PAR_RANK_TIMEOUT`; a rank that fails or hangs fails the phase
-    and every rank is stopped. Returns the ranks' numbers."""
-    spec_path = os.path.join(tmp, "parallel_spec.json")
+    logging to its own file, and wait for both within the spec's
+    ``timeout`` (:data:`PAR_RANK_TIMEOUT` by default); a rank that fails
+    or hangs fails the phase and every rank is stopped. Returns the
+    ranks' numbers."""
+    timeout = spec.get("timeout", PAR_RANK_TIMEOUT)
+    spec_path = os.path.join(tmp, f"{spec.get('phase', 'parallel')}_spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
     env = dict(os.environ)
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
         env.pop(k, None)
-    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+    logs = [open(os.path.join(tmp, f"{spec.get('phase', 'parallel')}_"
+                              f"rank{r}.log"), "w+")
             for r in range(PAR_RANKS)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
                                "--parallel-rank", spec_path, str(r)],
                               env=env, stdout=logs[r],
                               stderr=subprocess.STDOUT, cwd=ROOT)
              for r in range(PAR_RANKS)]
-    deadline = time.monotonic() + PAR_RANK_TIMEOUT
+    deadline = time.monotonic() + timeout
     failed = None
     try:
         while any(p.poll() is None for p in procs):
@@ -4015,7 +4056,7 @@ def run_parallel_ranks(torch, spec, tmp):
                 failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
                 break
             if time.monotonic() > deadline:
-                failed = f"the ranks passed {PAR_RANK_TIMEOUT} s"
+                failed = f"the ranks passed {timeout} s"
                 break
             time.sleep(0.2)
         if failed is None and any(p.returncode for p in procs):
@@ -4039,47 +4080,75 @@ def run_parallel_ranks(torch, spec, tmp):
         return json.load(f)
 
 
-def _run_cli(args, log, timeout, ranks=0):
-    """``python -m image_captioning_ml_project_tpu_torch.main`` with
-    ``args``, in one process or, with ``ranks``, under ``python -m
-    torch.distributed.run --nproc_per_node ranks`` on a free localhost
-    port, its output to ``log``. A run that exits non-zero or outlasts
-    ``timeout`` s (its process group is then killed) fails the phase.
-    Returns its seconds."""
-    import signal
+def _free_port():
     import socket
 
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _cli_command(args, ranks=0):
+    """(argv, environment) of ``python -m
+    image_captioning_ml_project_tpu_torch.main`` with ``args``, in one
+    process or, with ``ranks``, under ``python -m torch.distributed.run
+    --nproc_per_node ranks`` on a free localhost port."""
     cmd = [sys.executable, "-m"]
     if ranks:
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
         cmd += ["torch.distributed.run", f"--nproc_per_node={ranks}",
-                "--master_addr=127.0.0.1", f"--master_port={port}", "-m"]
+                "--master_addr=127.0.0.1", f"--master_port={_free_port()}",
+                "-m"]
     cmd += [f"{PKG}.main", *args]
     env = dict(os.environ, PYTHONPATH=ROOT)
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
               "MASTER_ADDR", "MASTER_PORT"):
         env.pop(k, None)
+    return cmd, env
+
+
+def _run_cli(args, log, timeout, ranks=0):
+    """:func:`_cli_command`'s run, its output to ``log``. A run that exits
+    non-zero or outlasts ``timeout`` s (its process group is then killed)
+    fails the phase. Returns its seconds."""
+    return _run_clis([(args, log, ranks)], timeout)[0]
+
+
+def _run_clis(runs, timeout):
+    """:func:`_run_cli` of each (args, log, ranks) of ``runs``, all started
+    together; every process group is killed once they end or the first
+    fails. Returns each run's seconds."""
+    import signal
+
     t0 = time.perf_counter()
-    with open(log, "w+") as f:
-        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
-                                cwd=ROOT, env=env, start_new_session=True)
-        try:
-            rc = proc.wait(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            rc = f"killed after {timeout} s"
-        finally:
+    started = []
+    try:
+        for args, log, ranks in runs:
+            cmd, env = _cli_command(args, ranks)
+            f = open(log, "w+")
+            started.append((cmd, f, subprocess.Popen(
+                cmd, stdout=f, stderr=subprocess.STDOUT, cwd=ROOT, env=env,
+                start_new_session=True)))
+        seconds = []
+        for cmd, f, proc in started:
+            try:
+                rc = proc.wait(timeout=max(0.0, t0 + timeout
+                                           - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                rc = f"killed after {timeout} s"
+            if rc != 0:
+                f.seek(0)
+                print(f.read()[-8000:], flush=True)
+            check(rc == 0, f"{' '.join(cmd[2:6])} ... exited {rc}")
+            seconds.append(time.perf_counter() - t0)
+        return seconds
+    finally:
+        for _, f, proc in started:
             try:
                 os.killpg(proc.pid, signal.SIGKILL)
             except ProcessLookupError:
                 pass
             proc.wait()
-        if rc != 0:
-            f.seek(0)
-            print(f.read()[-8000:], flush=True)
-        check(rc == 0, f"{' '.join(cmd[2:6])} ... exited {rc}")
-    return time.perf_counter() - t0
+            f.close()
 
 
 def torchrun_cli(torch, smi, base, vocab_path, tmp):
@@ -4433,6 +4502,566 @@ def parallel_phase(torch, dev, smi, fixture, tree, tmp):
     return numbers, launches
 
 
+# ---------------------------------------------------------------------------
+# serving and the demo under the mesh (phase 11)
+# ---------------------------------------------------------------------------
+
+SERVE_IMAGES = 64          # images of the f32 parity runs and of a round
+SERVE_BATCH = 64
+SERVE_BUCKETS = [1, 8, 64]
+SERVE_ROUNDS = 3           # timed bf16 rounds, after one warm-up round
+SERVE_SINGLES = 3          # single requests on the smallest bucket
+SERVE_MAX_WAIT_MS = 20.0   # the bf16 services' batcher wait
+SERVE_CLI_REQUESTS = 16
+SERVE_RANK_TIMEOUT = 600   # seconds phase 11's ranks may take together
+SERVE_MESHES = ((2, 1), (1, 2))
+
+
+def check_tp_attention(torch, dev, smi):
+    """#1 at the flagship's tp2 shapes, where each model rank runs 6 of the
+    12 heads (H = 384, head width 64): 64 images x 5 beams behind the
+    10-row prefix, pos 0, 7 and 19, f32 (within 1e-5) and bf16 (within 2
+    ulps) against its plain version, the caches bit-identical; then timed
+    in bf16 at pos 19 with its inputs flushed from L2, beside its bound
+    and the plain version's time. Returns the summary's numbers."""
+    from image_captioning_ml_project_tpu_torch.ops.beam_decode_attention import (
+        beam_decode_attention, beam_decode_attention_plain)
+
+    B, K, S, H, NH, P = 64, 5, 20, 384, 6, 10
+    Bk = B * K
+    args = dict(num_heads=NH, beam_size=K, scale=1.0 / (H // NH) ** 0.5)
+    g = torch.Generator(device=dev).manual_seed(4321)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+        for pos in (0, 7, 19):
+            q, kn, vn = randn(Bk, H), randn(Bk, H), randn(Bk, H)
+            kc, vc = randn(Bk, S, H), randn(Bk, S, H)
+            pk, pv = randn(B, P, H), randn(B, P, H)
+            anc = torch.randint(0, K, (Bk, S), generator=g, device=dev,
+                                dtype=torch.int32)
+            kc2, vc2 = kc.clone(), vc.clone()
+            got, _, _ = beam_decode_attention(q, kn, vn, kc, vc, pk, pv, anc,
+                                              pos, **args)
+            want, _, _ = beam_decode_attention_plain(q, kn, vn, kc2, vc2, pk,
+                                                     pv, anc, pos, **args)
+            torch.cuda.synchronize()
+            what = f"tp2 attention {str(dtype)[6:]} H={H} NH={NH} pos={pos}"
+            err = check_close(what, got, want, str(dtype)[6:], 1e-5, 2)
+            check(torch.equal(kc, kc2) and torch.equal(vc, vc2),
+                  f"{what}: caches differ")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+    pos = 19
+    nbytes, ops = attention_work(torch, anc, pos, B, K, H, P, 2)
+    bnd = bound(nbytes + 4 * Bk * H * 2, {"f32": ops})
+    ms, dev_ms = time_ms(torch, lambda: beam_decode_attention(
+        q, kn, vn, kc, vc, pk, pv, anc, pos, **args), flush=flush,
+        device=True)
+    plain_ms = time_ms(torch, lambda: beam_decode_attention_plain(
+        q, kn, vn, kc, vc, pk, pv, anc, pos, **args), flush=flush)
+    shape = f"B={B} K={K} S={S} H={H} NH={NH} P={P} pos={pos} bf16"
+    print(f"tp2 attention {shape}: device {dev_ms:.4f} ms, event {ms:.4f} "
+          f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain "
+          f"{plain_ms:.4f} ms [{smi}]", flush=True)
+    return shape_entry(shape, worst, ms, plain_ms, bnd, None, dev_ms)
+
+
+def _mesh_service_run(torch, dev, cfg, tokenizer, images, mesh, kernels,
+                      timing):
+    """One rank's service on ``mesh`` over phase 7's ``best_model``: the
+    counters set to 0 just before the service is built; rank 0 warms up
+    every bucket and drives it (f32: ``_run_images`` of 64, 8 and 1
+    images, token rows recorded, then 64 concurrent requests; bf16
+    (``timing``): a warm-up round of 64 concurrent requests, three timed
+    rounds and three single requests), the others follow. Every rank
+    counts its batches and times each decode; the launches are read
+    after the service stops. Returns the rank's numbers."""
+    from image_captioning_ml_project_tpu_torch.inference.server import (
+        CaptionService)
+
+    rec = _RecordingTokenizer(tokenizer)
+    _zero_launches(kernels)
+    service = CaptionService(cfg, rec, dev, checkpoint_path="best_model",
+                             batch_size=SERVE_BATCH,
+                             bucket_sizes=SERVE_BUCKETS,
+                             max_wait_ms=SERVE_MAX_WAIT_MS,
+                             request_timeout_s=300.0, mesh=mesh)
+    decode_ms = []
+    decode, rank_batch = service._decode, service._rank_batch
+
+    def timed_decode(x):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        tokens = decode(x)
+        torch.cuda.synchronize(dev)
+        decode_ms.append((len(x), (time.perf_counter() - t0) * 1e3))
+        return tokens
+
+    service._decode = timed_decode
+    batches = [0]
+
+    def counted(batch):
+        batches[0] += 1
+        return rank_batch(batch)
+
+    service._rank_batch = counted
+    out = {"rank": mesh.rank, "buckets": service.bucket_sizes}
+    if service.is_front:
+        service.start(warmup=True)
+        try:
+            if not timing:
+                rows, captions = {}, {}
+                for n in (SERVE_IMAGES, 8, 1):
+                    rec.rows.clear()
+                    captions[n] = service._run_images(list(images[:n]))
+                    rows[n] = list(rec.rows)
+                reqs = [service.submit_async(img) for img in images]
+                out.update(rows=rows, run_captions=captions[SERVE_IMAGES],
+                           captions=[service.result(r) for r in reqs])
+            else:
+                for r in [service.submit_async(img) for img in images]:
+                    service.result(r)
+                out["timed_batches"] = [batches[0]]
+                round_s = []
+                for _ in range(SERVE_ROUNDS):
+                    t0 = time.perf_counter()
+                    for r in [service.submit_async(img) for img in images]:
+                        service.result(r)
+                    round_s.append(time.perf_counter() - t0)
+                out["timed_batches"].append(batches[0])
+                single_s = []
+                for img in images[:SERVE_SINGLES]:
+                    t0 = time.perf_counter()
+                    service.submit(img)
+                    single_s.append(time.perf_counter() - t0)
+                out.update(round_s=round_s, single_s=single_s,
+                           max_wait_ms=SERVE_MAX_WAIT_MS,
+                           smallest_bucket=service.bucket_sizes[0])
+        finally:
+            service.stop()
+    else:
+        service.follow()
+    torch.cuda.synchronize(dev)
+    out.update(launches=_launches(kernels),
+               steps=service.stats.decode_steps, batches=batches[0],
+               decode_ms=decode_ms,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated(
+                   dev) / 2 ** 30)
+    del service, rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def _expect_mesh_launches(out, key, layers):
+    """Each rank's counters over its service's run: #5 once a batch and
+    #4 once a decode step; at dp2 #3 once a step, at tp2 #1 once a layer a
+    step on the rank's heads; nothing else."""
+    steps, batches = out["steps"], out["batches"]
+    want = {"encoder_stack": batches, "lse_and_block_max": steps}
+    if "tp2" in key:
+        want["beam_decode_attention"] = layers * steps
+    else:
+        want["beam_decode_stack"] = steps
+    check(steps > 0 and batches > 0,
+          f"serving {key} rank {out['rank']}: {batches} batches, {steps} "
+          f"steps")
+    for name, got in out["launches"].items():
+        check(got == want.get(name, 0),
+              f"serving {key} rank {out['rank']}: {name} launched {got} "
+              f"times, expected {want.get(name, 0)} ({batches} batches, "
+              f"{steps} decode steps)")
+
+
+def serving_rank(torch, dev, spec, kernels):
+    """Phase 11's body on one rank (:func:`parallel_rank`): the f32
+    services at dp2 and tp2, then the bf16 ones, each on a mesh of its
+    own, with the launch checks."""
+    import numpy as np
+
+    from image_captioning_ml_project_tpu_torch.config import (
+        MeshConfig, config_from_dict)
+    from image_captioning_ml_project_tpu_torch.data.tokenizer import WordVocab
+    from image_captioning_ml_project_tpu_torch.parallel.mesh import (
+        create_mesh)
+
+    tokenizer = WordVocab.load(spec["vocab"])
+    images = np.load(spec["images"])
+    out = {}
+    for dtype, name in (("float32", "f32"), ("bfloat16", "bf16")):
+        for dp, mp in SERVE_MESHES:
+            cfg = config_from_dict(spec["config"])
+            cfg.model.dtype = dtype
+            mesh = create_mesh(MeshConfig(data_parallel=dp,
+                                          model_parallel=mp))
+            key = f"{name} dp{dp}" if mp == 1 else f"{name} tp{mp}"
+            t0 = time.perf_counter()
+            out[key] = _mesh_service_run(torch, dev, cfg, tokenizer, images,
+                                         mesh, kernels, name == "bf16")
+            out[key]["seconds"] = time.perf_counter() - t0
+            _expect_mesh_launches(out[key], key,
+                                  cfg.model.decoder.num_layers)
+            print(f"parallel serving {key} rank {mesh.rank}: "
+                  f"{out[key]['batches']} batches, {out[key]['steps']} "
+                  f"decode steps, launches {out[key]['launches']}, "
+                  f"{out[key]['seconds']:.1f} s", flush=True)
+    return out
+
+
+def _flip(torch, dev, cfg, images, i, want, got):
+    """The first step where the token rows ``want`` (one process) and
+    ``got`` (the ranks) of image ``i`` part, and the one-process model's
+    top-2 log-probability gap there given ``want``'s prefix."""
+    from image_captioning_ml_project_tpu_torch.models.captioning_model import (
+        load_model)
+    from image_captioning_ml_project_tpu_torch.utils.checkpoint import (
+        CheckpointManager)
+
+    t = next(j for j, (a, b) in enumerate(zip(want, got)) if a != b)
+    model = load_model(cfg, dev, state_dict=CheckpointManager(
+        cfg.checkpoint_dir).model_weights("best_model"))
+    with torch.inference_mode():
+        x = torch.from_numpy(images[i:i + 1]).to(dev)
+        prefix = torch.tensor([want[:t]], device=dev)
+        logp = torch.log_softmax(model(x, prefix)["logits"][0, -1].float(),
+                                 -1)
+        top = torch.topk(logp, 2).values
+    return t, float(top[0] - top[1])
+
+
+def _post(url, data, timeout=300):
+    req = urllib.request.Request(url, data=data, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _png_bytes(image):
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _serve_cli(smi, cfg_path, vocab_path, ckpt, pngs, want, tmp, name,
+               reload):
+    """``--mode serve`` under ``python -m torch.distributed.run
+    --nproc_per_node 2`` with the config at ``cfg_path`` (its mesh
+    ``name``): ``/healthz`` answers with the mesh and the buckets rounded
+    to its data axis; the ``pngs`` posted concurrently, half of them
+    with ``reload`` while a ``POST /reload`` of ``ckpt`` runs, get the
+    captions ``want`` and every one is answered; ``/stats`` counts them;
+    SIGTERM to the launcher ends it within 90 s with both ranks logging a
+    clean end and none killed. Returns the numbers."""
+    import signal
+
+    dp = 2 if name == "dp2" else 1
+    port = _free_port()
+    log = os.path.join(tmp, f"serving_cli_{name}.log")
+    cmd, env = _cli_command(
+        ["--mode", "serve", "--config", cfg_path, "--vocab", vocab_path,
+         "--device", "cuda", "--output_dir",
+         os.path.join(tmp, f"cli_serve_{name}"), "--checkpoint", ckpt,
+         "--port", str(port), "--serve_batch_size", str(SERVE_BATCH),
+         "--serve_buckets", ",".join(str(b) for b in SERVE_BUCKETS)],
+        ranks=PAR_RANKS)
+    url = f"http://127.0.0.1:{port}"
+    numbers = {}
+    t0 = time.perf_counter()
+    with open(log, "w+") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=ROOT, env=env, start_new_session=True)
+        try:
+            while True:
+                try:
+                    with urllib.request.urlopen(f"{url}/healthz",
+                                                timeout=5) as r:
+                        health = json.loads(r.read())
+                    break
+                except OSError:
+                    pass
+                check(proc.poll() is None,
+                      f"serve {name} under torch.distributed.run exited "
+                      f"{proc.returncode} before /healthz answered")
+                check(time.perf_counter() - t0 < 300,
+                      f"serve {name}: /healthz did not answer in 300 s")
+                time.sleep(0.5)
+            numbers["up_s"] = time.perf_counter() - t0
+            buckets = sorted({-(-b // dp) * dp for b in SERVE_BUCKETS})
+            check(health.get("mesh") == {"data": dp, "model": 2 // dp}
+                  and health.get("bucket_sizes") == buckets,
+                  f"serve {name} /healthz: {health}")
+
+            def burst(lo, n, got, when=None):
+                def client(i):
+                    got[i] = _post(f"{url}/caption", pngs[lo + i])["caption"]
+                    if when is not None:
+                        when[i] = time.perf_counter()
+
+                threads = [threading.Thread(target=client, args=(i,))
+                           for i in range(n)]
+                for th in threads:
+                    th.start()
+                return threads
+
+            half = len(pngs) // 2 if reload else len(pngs)
+            got = [None] * half
+            for th in burst(0, half, got):
+                th.join(timeout=300)
+            check(got == want[:half],
+                  f"serve {name}: {sum(a != b for a, b in zip(got, want))} "
+                  f"of {half} captions differ from the one-process service's")
+            if reload:
+                under, when = [None] * half, [None] * half
+                threads = burst(half, half, under, when)
+                t1 = time.perf_counter()
+                answer = _post(f"{url}/reload",
+                               json.dumps({"checkpoint": ckpt}).encode())
+                t2 = time.perf_counter()
+                numbers["reload_s"] = t2 - t1
+                for th in threads:
+                    th.join(timeout=300)
+                # the ranks read the checkpoint beside the batches: the
+                # requests need not wait for the swap
+                numbers["answered_before_reload"] = sum(
+                    w is not None and w < t2 for w in when)
+                check(answer.get("reloaded") == ckpt,
+                      f"serve {name} /reload: {answer}")
+                check(under == want[half:2 * half],
+                      f"serve {name}: the requests across the reload were "
+                      f"not all answered with the checkpoint's captions")
+            with urllib.request.urlopen(f"{url}/stats", timeout=30) as r:
+                stats = json.loads(r.read())
+            check(stats["completed"] >= len(pngs) and stats["errors"] == 0,
+                  f"serve {name} /stats: {stats}")
+            numbers["stats"] = stats
+            t1 = time.perf_counter()
+            os.kill(proc.pid, signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=90)
+            except subprocess.TimeoutExpired:
+                rc = "still running 90 s after SIGTERM"
+            numbers["sigterm_to_exit_s"] = time.perf_counter() - t1
+            numbers["launcher_rc"] = rc
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+        f.seek(0)
+        text = f.read()
+    clean = [f"rank {r} of {PAR_RANKS}: --mode serve ended cleanly" in text
+             for r in range(PAR_RANKS)]
+    if not all(clean) or not isinstance(rc, int):
+        print(text[-8000:], flush=True)
+    check(isinstance(rc, int), f"serve {name}: the launcher {rc}")
+    check(all(clean), f"serve {name}: after SIGTERM the ranks' clean ends "
+                      f"{clean}")
+    check("SIGKILL" not in text,
+          f"serve {name}: the launcher had to SIGKILL a rank")
+    print(f"serving CLI {name} under torch.distributed.run, f32, two ranks "
+          f"on the card: up in {numbers['up_s']:.1f} s, {len(pngs)} PNG "
+          f"requests = the one-process captions"
+          + (f", /reload under {half} requests in flight answered in "
+             f"{numbers['reload_s']:.1f} s ({numbers['answered_before_reload']}"
+             f" of them answered before it)" if reload else "")
+          + f", /stats completed {stats['completed']}, SIGTERM to the "
+          f"launcher: ended in {numbers['sigterm_to_exit_s']:.1f} s "
+          f"(launcher rc {rc}), both ranks ended cleanly [{smi}]",
+          flush=True)
+    return numbers
+
+
+def serving_cli(torch, dev, smi, base, tokenizer, vocab_path, images, want,
+                tmp):
+    """The CLI under ``python -m torch.distributed.run --nproc_per_node
+    2``, f32 on phase 7's ``best_model`` (:func:`_serve_cli`): ``--mode
+    serve`` at dp2 with 16 concurrent PNG requests, then 16 more across a
+    ``POST /reload``, and at tp2 with 4; then ``--mode demo`` at dp2 and
+    tp2 against ``main.demo`` in this process, the same caption logged by
+    rank 0 only. Returns the numbers."""
+    import contextlib
+    import io
+
+    from image_captioning_ml_project_tpu_torch import main as port_main
+    from image_captioning_ml_project_tpu_torch.config import save_config
+
+    ckpt = os.path.join(base.checkpoint_dir, "best_model")
+    pngs = [_png_bytes(img) for img in images[:2 * SERVE_CLI_REQUESTS]]
+    numbers = {"card": smi, "ranks_share_the_card": True}
+    paths = {}
+    for name, (dp, mp) in zip(("dp2", "tp2"), SERVE_MESHES):
+        c = copy.deepcopy(base)
+        c.model.dtype = "float32"
+        c.mesh.data_parallel, c.mesh.model_parallel = dp, mp
+        paths[name] = os.path.join(tmp, f"serving_cli_{name}.json")
+        save_config(c, paths[name])
+    numbers["serve dp2"] = _serve_cli(smi, paths["dp2"], vocab_path, ckpt,
+                                      pngs, want, tmp, "dp2", reload=True)
+    numbers["serve tp2"] = _serve_cli(smi, paths["tp2"], vocab_path, ckpt,
+                                      pngs[:4], want, tmp, "tp2",
+                                      reload=False)
+
+    png = os.path.join(tmp, "demo.png")
+    with open(png, "wb") as f:
+        f.write(pngs[0])
+    c32 = copy.deepcopy(base)
+    c32.model.dtype = "float32"
+    c32.output_dir = os.path.join(tmp, "demo_one")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        one = port_main.demo(c32, ckpt, png, tokenizer=tokenizer,
+                             device=dev)
+    numbers["demo one process s"] = time.perf_counter() - t0
+    # the two launches side by side: four ranks on the card
+    logs = {name: os.path.join(tmp, f"cli_demo_{name}.log")
+            for name in paths}
+    seconds = _run_clis([(
+        ["--mode", "demo", "--config", paths[name], "--vocab", vocab_path,
+         "--device", "cuda", "--output_dir",
+         os.path.join(tmp, f"cli_demo_{name}"), "--checkpoint", ckpt,
+         "--image_path", png], logs[name], PAR_RANKS) for name in paths],
+        300)
+    for name, t in zip(paths, seconds):
+        numbers[f"demo {name} s"] = t
+        with open(logs[name]) as f:
+            logged = re.findall(r"Generated caption: (.*)", f.read())
+        check(logged == [one], f"demo {name} under torch.distributed.run "
+                               f"logged {logged}, one process {one!r}")
+    numbers["demo_caption"] = one
+    print(f"demo under torch.distributed.run, f32, dp2 and tp2 side by "
+          f"side: done after {numbers['demo dp2 s']:.1f} and "
+          f"{numbers['demo tp2 s']:.1f} s, each logged once (rank 0) and "
+          f"equal to main.demo in one process ({one!r}, "
+          f"{numbers['demo one process s']:.1f} s) [{smi}]", flush=True)
+    return numbers
+
+
+def serving_mesh_phase(torch, dev, smi, fixture, tmp):
+    """Phase 11 (module docstring). Returns the summary line's numbers and
+    each kernel's per-rank launches."""
+    import numpy as np
+
+    from image_captioning_ml_project_tpu_torch.config import config_to_dict
+    from image_captioning_ml_project_tpu_torch.inference.server import (
+        CaptionService)
+
+    t_phase = time.perf_counter()
+    base = copy.deepcopy(fixture["config"])
+    c32 = copy.deepcopy(base)
+    c32.model.dtype = "float32"
+    tokenizer = fixture["tokenizer"]
+    vocab_path = os.path.join(tmp, "serving_vocab.json")
+    tokenizer.save(vocab_path)
+    g = torch.Generator().manual_seed(fixture["seed"] + 11)
+    images = torch.randint(0, 256, (SERVE_IMAGES, c32.image_size,
+                                    c32.image_size, 3), generator=g,
+                           dtype=torch.uint8).numpy()
+    images_path = os.path.join(tmp, "serving_images.npy")
+    np.save(images_path, images)
+    numbers = {"card": smi, "ranks": PAR_RANKS, "card_shared_by_ranks": True,
+               "tp2_attention": check_tp_attention(torch, dev, smi)}
+
+    # the one-process f32 service: the captions every mesh must give
+    t0 = time.perf_counter()
+    rec = _RecordingTokenizer(tokenizer)
+    one = CaptionService(c32, rec, dev, checkpoint_path="best_model",
+                         batch_size=SERVE_BATCH, bucket_sizes=SERVE_BUCKETS,
+                         request_timeout_s=300.0)
+    ref_rows, ref = {}, {}
+    for n in (SERVE_IMAGES, 8, 1):
+        rec.rows.clear()
+        ref[n] = one._run_images(list(images[:n]))
+        ref_rows[n] = list(rec.rows)
+    del one, rec
+    torch.cuda.empty_cache()
+    numbers["one_process_s"] = time.perf_counter() - t0
+
+    spec = {"phase": "serving_mesh", "timeout": SERVE_RANK_TIMEOUT,
+            "store": os.path.join(tmp, "serving_store"),
+            "out": os.path.join(tmp, "serving_out.json"), "tmp": tmp,
+            "config": config_to_dict(c32), "vocab": vocab_path,
+            "images": images_path}
+    t0 = time.perf_counter()
+    ranks = run_parallel_ranks(torch, spec, tmp)
+    numbers["ranks_s"] = time.perf_counter() - t0
+    for key in ("f32 dp2", "f32 tp2"):
+        zero = ranks[0][key]
+        for n in (SERVE_IMAGES, 8, 1):
+            got = zero["rows"][str(n)]
+            for i, (a, b) in enumerate(zip(ref_rows[n], got)):
+                if a != b:
+                    t, gap = _flip(torch, dev, c32, images, i, a, b)
+                    print(f"serving {key}: image {i} of the run of {n} "
+                          f"parts from the one-process decode at step {t}: "
+                          f"{b} against {a}; the one-process top-2 "
+                          f"log-probability gap there {gap:.3e}", flush=True)
+            check(got == ref_rows[n], f"serving {key}: the token rows of "
+                                      f"_run_images({n}) differ from one "
+                                      f"process's")
+        check(zero["captions"] == ref[SERVE_IMAGES]
+              and zero["run_captions"] == ref[SERVE_IMAGES],
+              f"serving {key}: the captions of the concurrent requests "
+              f"differ from the one-process service's")
+        numbers[key] = {
+            "buckets": zero["buckets"], "identical_rows": True,
+            "per_rank": [{k: r[key][k] for k in (
+                "batches", "steps", "launches", "seconds",
+                "max_memory_allocated_gib")} for r in ranks]}
+        print(f"serving {key}: _run_images of {SERVE_IMAGES}, 8 and 1 "
+              f"images (buckets {zero['buckets']}) token-identical to the "
+              f"one-process f32 service, {SERVE_IMAGES} concurrent "
+              f"requests caption-identical; per rank "
+              f"{numbers[key]['per_rank']} [{smi}]", flush=True)
+    for key in ("bf16 dp2", "bf16 tp2"):
+        lo, hi = ranks[0][key]["timed_batches"]
+        per = []
+        for r in ranks:
+            run = r[key]
+            ms = [t for _, t in run["decode_ms"][lo:hi]]
+            per.append({"rank": run["rank"], "timed_batches": hi - lo,
+                        "rows_per_batch": sorted({n for n, _ in
+                                                  run["decode_ms"][lo:hi]}),
+                        "median_decode_ms": statistics.median(ms),
+                        "decode_ms": ms, "batches": run["batches"],
+                        "steps": run["steps"], "launches": run["launches"],
+                        "max_memory_allocated_gib":
+                            run["max_memory_allocated_gib"]})
+        zero = ranks[0][key]
+        numbers[key] = {"round_s": zero["round_s"],
+                        "median_round_s": statistics.median(zero["round_s"]),
+                        "single_s": zero["single_s"],
+                        "smallest_bucket": zero["smallest_bucket"],
+                        "max_wait_ms": zero["max_wait_ms"], "per_rank": per}
+        print(f"serving {key}: rounds of {SERVE_IMAGES} concurrent requests "
+              f"{[round(t, 4) for t in zero['round_s']]} s (median "
+              f"{numbers[key]['median_round_s']:.4f} s = "
+              f"{SERVE_IMAGES / numbers[key]['median_round_s']:.1f} "
+              f"images/s); single requests on bucket "
+              f"{zero['smallest_bucket']} "
+              f"{[round(t, 4) for t in zero['single_s']]} s (max_wait_ms "
+              f"{zero['max_wait_ms']}); median decode per rank "
+              f"{[round(p['median_decode_ms'], 2) for p in per]} ms of "
+              f"{per[0]['rows_per_batch']} rows [{smi}; both ranks on one "
+              f"card]", flush=True)
+    numbers["cli"] = serving_cli(torch, dev, smi, base, tokenizer,
+                                 vocab_path, images, ref[SERVE_IMAGES], tmp)
+    numbers["seconds"] = time.perf_counter() - t_phase
+    launches = {}
+    for name in counters():
+        launches[name] = {f"rank {r[key]['rank']} {key}":
+                          r[key]["launches"][name]
+                          for r in ranks for key in ("f32 dp2", "f32 tp2",
+                                                     "bf16 dp2", "bf16 tp2")}
+    return numbers, launches
+
+
 def kernel_entry(name, route, source, replaces, numbers, launches):
     """The summary line's entry for one kernel: the numbers at the shape
     of the first family that runs it of the Transformer, the flagship and
@@ -4670,6 +5299,12 @@ def main():
         print(f"parallel and legacy phase: {time.perf_counter() - t0:.1f} s "
               f"[{smi}]", flush=True)
 
+        phase("serving and the demo under the mesh")
+        serving, serving_launches = serving_mesh_phase(torch, dev, smi,
+                                                       fixture, tmp)
+        print(f"serving under the mesh phase: {serving['seconds']:.1f} s "
+              f"[{smi}]", flush=True)
+
         # the port stands alone: nothing of JAX or the JAX package ran
         foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
             "jax", "jaxlib", "flax", "image_captioning_ml_project_tpu"))
@@ -4730,6 +5365,9 @@ def main():
         if entry["name"] == "cross_attention":
             entry["family_shapes"] = cross_shapes
         entry["parallel"] = par_launches[entry["name"]]
+        entry["serving_mesh"] = serving_launches[entry["name"]]
+        if entry["name"] == "beam_decode_attention":
+            entry["tp2_shape"] = serving["tp2_attention"]
     print(json.dumps({"training": {
         key: (training[key] if key == "f32_card_vs_cpu" else
               {k: v for k, v in training[key].items() if k != "launches"})
@@ -4744,6 +5382,7 @@ def main():
                  for run, numbers in runs.items()}
         for family, runs in families.items()}}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"serving_mesh": serving}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": kind, "count": count}}))

@@ -31,6 +31,54 @@ batches finish on the old weights and the next dispatch runs the new ones.
 The HTTP layer is ``http.server``: POST image bytes to ``/caption`` and
 ``{"checkpoint": name}`` to ``/reload``; GET ``/healthz``, ``/stats`` and
 ``/metrics``.
+
+Under a mesh (``mesh=``, :func:`..parallel.mesh.create_mesh`; the JAX
+``CaptionService(mesh=)``) every rank is a process holding the model, and
+rank 0 is the front: it alone runs the HTTP layer, the batcher and the
+completer. ``batch_size`` and every bucket round up to a multiple of the
+data axis, as the JAX service rounds them. The other ranks run
+:meth:`CaptionService.follow`, a loop over the command stream that rank
+0's batcher thread broadcasts over the whole group. A command is a
+header (op, argument, real rows, sequence number, checkpoint name), one
+object of ``broadcast_object_list``, and for a batch its payload:
+
+* ``BATCH``: the padded host batch. Each data rank uploads only its own
+  rows (:func:`..parallel.mesh.batch_rows`, where the JAX service's
+  sharded ``device_put`` places them), decodes them, and with a reranker
+  picks each row's caption there (the pick is row by row). Model ranks of
+  one data row decode the same rows together, on their shards of GPT-2's
+  heads (:func:`..parallel.sharding.shard_decode_model`). Then every
+  rank's status text comes back to all ranks (``all_gather_object``),
+  and the tokens to rank 0 through
+  :func:`..parallel.mesh.gather_rows_host` over the data group (only
+  model rank 0's rows count);
+* ``RELOAD``: a checkpoint name. Every rank starts reading the checkpoint
+  itself on a side thread (under a model axis it shards it there too)
+  and goes on decoding ``BATCH``es on the old weights; the side thread
+  issues no collective;
+* ``SWAP``: sent once rank 0's own read has finished. Every rank waits
+  for its read, the statuses are exchanged, and each rank swaps in its
+  new model (one attribute assignment) only if every rank read it, so
+  the ranks never serve different weights. ``POST /reload`` answers
+  after the swap;
+* ``NOOP``: a heartbeat after a few idle seconds, which keeps the
+  followers' waits inside the process group's timeout and finds a dead
+  rank while the service is idle;
+* ``STOP``: the followers return from ``follow()``.
+
+The order on every rank is: header N, batch N, decode N, statuses N,
+gather N; rank 0's completer then detokenizes batch N while its batcher
+goes on to header N + 1, so ``pipeline_depth`` keeps its meaning. Every
+collective is issued by one thread per rank, in the same order: on rank 0
+the batcher thread. Warmup, ``_run_images`` and ``reload_checkpoint`` are
+handed to that thread as control items and their callers wait (a
+second reload waits for the first one's swap). Nucleus
+draws come from a generator seeded with ``config.seed`` plus the data
+rank, as ``main.evaluate`` seeds it under a mesh. A decode or reload
+error on any rank fails that batch's requests (or that reload) on rank 0
+with the rank's text, and the service goes on. A failed collective (a
+dead rank) is fatal: rank 0 fails every pending request and stops, and
+:func:`serve` raises.
 """
 
 from __future__ import annotations
@@ -47,14 +95,26 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.coco import center_crop_resize
 from ..main import _resolve_reranker
 from ..models.captioning_model import load_model
+from ..parallel.mesh import batch_rows, broadcast_host, gather_rows_host
+from ..parallel.sharding import shard_decode_model
 from ..utils.checkpoint import CheckpointManager
 from .decoding import decode_images
 
 logger = logging.getLogger(__name__)
+
+# the command stream's ops (the header's first field)
+BATCH, RELOAD, SWAP, NOOP, STOP = 1, 2, 3, 4, 5
+HEARTBEAT_S = 5.0  # idle seconds after which rank 0 sends a NOOP
+
+
+class RankFailure(RuntimeError):
+    """A decode or reload that failed on some rank of the mesh, every rank
+    told so: the batch (or reload) fails, the service goes on."""
 
 
 class ServerStats:
@@ -168,6 +228,19 @@ class _Request:
         self.t_enqueue = time.monotonic()
 
 
+class _Call:
+    """Work for the batcher thread (the one thread of rank 0 that issues
+    collectives): ``kind`` on ``arg``, its result or error handed back to
+    the waiting caller."""
+
+    __slots__ = ("kind", "arg", "result", "error", "event")
+
+    def __init__(self, kind: str, arg):
+        self.kind, self.arg = kind, arg
+        self.result = self.error = None
+        self.event = threading.Event()
+
+
 class CaptionService:
     """Micro-batching caption service around the port's decode engine.
 
@@ -183,37 +256,46 @@ class CaptionService:
     ``use_clip_reranking`` is set) they decode ``max(beam_size,
     num_candidates)`` beams instead, and the reranker picks each image's
     caption among the first ``num_candidates`` on the completer thread.
+
+    With a ``mesh`` this is one rank of a service over it (module
+    docstring): rank 0 calls :meth:`start` and serves, every other rank
+    calls :meth:`follow`; each reranks its own rows.
     """
 
     def __init__(self, config, tokenizer, device, params=None,
                  checkpoint_path: Optional[str] = None, reranker=None,
                  batch_size: int = 8, max_wait_ms: float = 10.0,
                  request_timeout_s: float = 60.0, pipeline_depth: int = 2,
-                 bucket_sizes=None):
+                 bucket_sizes=None, mesh=None):
         self.config = config
         self.tokenizer = tokenizer
         self.device = torch.device(device)
+        self.mesh = mesh
         if checkpoint_path:
             if params is not None:
                 raise ValueError("give the weights as params or as "
                                  "checkpoint_path, not both")
             self.model = self._load_checkpoint(checkpoint_path)
         else:
-            self.model = load_model(config, self.device, params=params)
+            self.model = shard_decode_model(
+                load_model(config, self.device, params=params), mesh)
         self.reranker = (reranker if reranker is not None
                          else _resolve_reranker(config, tokenizer, None,
                                                 self.device))
         # nucleus draws: one stream of noise, batch after batch (the JAX
-        # service splits its key per batch)
+        # service splits its key per batch); under a mesh one per data rank
+        seed = config.seed + (mesh.data_rank if mesh is not None else 0)
         self._generator = torch.Generator(device=self.device).manual_seed(
-            config.seed)
-        self.batch_size = batch_size
+            seed)
+        # batches and buckets round up to a multiple of the data axis
+        dp = mesh.dp if mesh is not None else 1
+        self.batch_size = batch_size = -(-batch_size // dp) * dp
         # bucketed batch shapes: a quiet-hour single request should not pay
         # a full batch_size-wide decode; rows are independent, so captions
         # are identical across buckets
         if bucket_sizes is None:
             bucket_sizes = [1, 8, batch_size]
-        buckets = sorted({min(int(b), batch_size)
+        buckets = sorted({min(-(-int(b) // dp) * dp, batch_size)
                           for b in bucket_sizes if int(b) >= 1})
         if not buckets or buckets[-1] != batch_size:
             buckets.append(batch_size)
@@ -229,20 +311,35 @@ class CaptionService:
         self._thread: Optional[threading.Thread] = None
         self._completer: Optional[threading.Thread] = None
         self.stats = ServerStats()
+        # the mesh's command stream: rank 0's control items for its
+        # batcher thread, the reload begun but not yet swapped (its call,
+        # on rank 0) and this rank's read of it (thread, result), the
+        # sequence number of the last command, the time of the last one
+        # sent, and why the mesh failed (if it did)
+        self._control: "queue.Queue[_Call]" = queue.Queue()
+        self._reload_call: Optional[_Call] = None
+        self._loading = None
+        self._seq = 0
+        self._last_sent = time.monotonic()
+        self.fatal: Optional[str] = None
+        self.on_fatal = None  # called on the batcher thread when it fails
+
+    @property
+    def is_front(self) -> bool:
+        """Whether this rank serves requests: rank 0, or no mesh."""
+        return self.mesh is None or self.mesh.rank == 0
 
     # -- lifecycle ---------------------------------------------------------
 
     def start(self, warmup: bool = True):
-        """Run every bucket once (optional: builds the kernels, fills the
-        allocator's cache) and start the batcher."""
-        if warmup:
-            t0 = time.monotonic()
-            size = self.config.image_size
-            dummy = np.zeros((size, size, 3), dtype=np.uint8)
-            for b in self.bucket_sizes:
-                self._run_images([dummy] * b)
-            logger.info("Serving warmup: %.1fs (buckets %s)",
-                        time.monotonic() - t0, self.bucket_sizes)
+        """Start the batcher and run every bucket once (optional: builds
+        the kernels, fills the allocator's cache) before any request can
+        come. Under a mesh only rank 0 starts, and its warmup runs on the
+        batcher thread, every rank decoding its rows of each bucket in
+        step."""
+        if not self.is_front:
+            raise RuntimeError("only rank 0 of the mesh serves; the other "
+                               "ranks follow() it")
         self._stop.clear()
         self._thread = threading.Thread(target=self._batch_loop,
                                         name="caption-batcher", daemon=True)
@@ -252,17 +349,33 @@ class CaptionService:
                                                name="caption-completer",
                                                daemon=True)
             self._completer.start()
+        if warmup:
+            t0 = time.monotonic()
+            size = self.config.image_size
+            dummy = np.zeros((size, size, 3), dtype=np.uint8)
+            for b in self.bucket_sizes:
+                self._run_images([dummy] * b)
+            logger.info("Serving warmup: %.1fs (buckets %s)",
+                        time.monotonic() - t0, self.bucket_sizes)
         return self
 
     def stop(self):
+        """Stop serving; under a mesh the batcher first sends ``STOP``, so
+        every follower leaves :meth:`follow`."""
         self._stop.set()
         if self._thread is not None:
-            self._thread.join(timeout=10)
+            # under a mesh the batcher ends its collective first (bounded
+            # by the process group's timeout), then sends STOP
+            self._thread.join(timeout=None if self.mesh is not None else 10)
             self._thread = None
         if self._completer is not None:
             self._completer.join(timeout=30)
             self._completer = None
-        # fail any stragglers still queued or in flight
+        self._fail_queued("server shutting down")
+
+    def _fail_queued(self, error: str):
+        """Fail every request still queued or in flight, and every control
+        item still waiting."""
         for q in (self._pending, self._queue):
             while True:
                 try:
@@ -271,8 +384,15 @@ class CaptionService:
                     break
                 reqs = item[0] if isinstance(item, tuple) else [item]
                 for req in reqs:
-                    req.error = "server shutting down"
+                    req.error = error
                     req.event.set()
+        while True:
+            try:
+                call = self._control.get_nowait()
+            except queue.Empty:
+                break
+            call.error = RuntimeError(error)
+            call.event.set()
 
     # -- request paths -----------------------------------------------------
 
@@ -316,20 +436,29 @@ class CaptionService:
     def _load_checkpoint(self, name: str):
         """The decode model of a trainer checkpoint's weights: its model
         params and BatchNorm statistics, read memory-mapped without the
-        optimizer's files (``CheckpointManager.restore_partial``)."""
+        optimizer's files (``CheckpointManager.restore_partial``), on
+        this rank's shards under a model axis."""
         state = CheckpointManager(self.config.checkpoint_dir).model_weights(
             name)
-        return load_model(self.config, self.device, state_dict=state)
+        return shard_decode_model(
+            load_model(self.config, self.device, state_dict=state),
+            self.mesh)
 
     def reload_checkpoint(self, name: str) -> dict:
         """Hot-swap the serving weights from checkpoint ``name`` without
         downtime: the new model is read, cast and stacked on the calling
         thread while the batcher keeps serving on the old one, then swapped
         in with one attribute assignment (each batch reads the attribute
-        once, so no batch mixes the two)."""
+        once, so no batch mixes the two). Under a mesh the reload goes to
+        the batcher thread as a control item: every rank reads the
+        checkpoint on a side thread while the batches go on, and the swap
+        reaches every rank at the same batch boundary (module docstring);
+        this returns once every rank has swapped."""
         t0 = time.monotonic()
-        model = self._load_checkpoint(name)
-        self.model = model
+        if self.mesh is not None:
+            self._mesh_call("reload", name)
+        else:
+            self.model = self._load_checkpoint(name)
         dt = time.monotonic() - t0
         logger.info("Reloaded checkpoint %r in %.2fs", name, dt)
         return {"reloaded": name, "seconds": round(dt, 2)}
@@ -347,22 +476,37 @@ class CaptionService:
     # -- batcher -----------------------------------------------------------
 
     def _batch_loop(self):
-        while not self._stop.is_set():
-            try:
-                first = self._queue.get(timeout=0.05)
-            except queue.Empty:
-                continue
-            reqs = [first]
-            deadline = time.monotonic() + self.max_wait_s
-            while len(reqs) < self.batch_size:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
+        try:
+            while not self._stop.is_set():
+                if self.mesh is not None:
+                    self._run_control()
+                    if self._stop.is_set():
+                        break
                 try:
-                    reqs.append(self._queue.get(timeout=remaining))
+                    first = self._queue.get(timeout=0.05)
                 except queue.Empty:
-                    break
-            self._serve_batch(reqs)
+                    if (self.mesh is not None and time.monotonic()
+                            - self._last_sent > HEARTBEAT_S):
+                        self._guarded(lambda: self._send(NOOP))
+                    continue
+                reqs = [first]
+                deadline = time.monotonic() + self.max_wait_s
+                while len(reqs) < self.batch_size:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    try:
+                        reqs.append(self._queue.get(timeout=remaining))
+                    except queue.Empty:
+                        break
+                self._serve_batch(reqs)
+        finally:
+            if self.mesh is not None and self.fatal is None:
+                self._guarded(lambda: self._send(STOP))
+            if self._reload_call is not None:  # begun, never swapped
+                self._reload_call.error = RuntimeError(
+                    self.fatal or "server shutting down")
+                self._reload_call.event.set()
 
     def _serve_batch(self, reqs: List[_Request]):
         self.stats.record_batch(len(reqs))
@@ -373,6 +517,8 @@ class CaptionService:
             for req in reqs:
                 req.error = f"{type(e).__name__}: {e}"
                 req.event.set()
+            if self.mesh is not None and not isinstance(e, RankFailure):
+                self._die(e)  # a collective failed: the mesh is gone
             return
         if self._sync:
             self._complete_batch(reqs, tokens, images)
@@ -401,10 +547,12 @@ class CaptionService:
 
     def _finish(self, tokens, images) -> np.ndarray:
         """The batch's host tokens [B, L]: the reranker's pick among the
-        candidates, or the decode's tokens. Inference mode is per thread,
-        so the completer enters it here for the reranker's launches."""
+        candidates, or the decode's tokens (under a mesh, gathered from
+        the ranks, which reranked their rows: ``images`` is None).
+        Inference mode is per thread, so the completer enters it here for
+        the reranker's launches."""
         with torch.inference_mode():
-            if self.reranker is not None:
+            if self.reranker is not None and images is not None:
                 tokens = self.reranker(images, tokens)
             if isinstance(tokens, torch.Tensor):
                 tokens = tokens.cpu().numpy()
@@ -445,27 +593,234 @@ class CaptionService:
     def _dispatch(self, images: List[np.ndarray]):
         """Pad to the smallest bucket >= the micro-batch and decode it on the
         device; returns the device tokens and the device images (which the
-        reranker reads)."""
+        reranker reads). Under a mesh the batch goes through the command
+        stream and this returns the host tokens gathered from the ranks
+        (reranked there) and None."""
         if len(images) > self.batch_size:
             raise ValueError(f"micro-batch of {len(images)} exceeds "
                              f"batch_size {self.batch_size}")
         bucket = next(b for b in self.bucket_sizes if b >= len(images))
         batch = np.stack(images + [images[-1]] * (bucket - len(images)))
+        if self.mesh is not None:
+            self._send(BATCH, bucket, len(images))
+            batch = broadcast_host(batch, batch.shape, np.uint8, self.mesh)
+            return self._rank_batch(batch), None
         with torch.inference_mode():
             arr = torch.from_numpy(batch).to(self.device)
             return self._decode(arr), arr
 
     def _run_images(self, images: List[np.ndarray]) -> List[str]:
         """Synchronous decode of any number of images (warmup /
-        programmatic use), in ``batch_size`` chunks."""
+        programmatic use), in ``batch_size`` chunks; under a mesh on the
+        batcher thread once it runs."""
         captions: List[str] = []
         for lo in range(0, len(images), self.batch_size):
             chunk = images[lo:lo + self.batch_size]
-            tokens = self._finish(*self._dispatch(chunk))
+            if self.mesh is not None:
+                tokens = self._mesh_call("run", chunk)
+            else:
+                tokens = self._finish(*self._dispatch(chunk))
             captions.extend(
                 self.tokenizer.decode(tokens[i], skip_special_tokens=True)
                 for i in range(len(chunk)))
         return captions
+
+    # -- the mesh's command stream (module docstring) -----------------------
+
+    def _send(self, op: int, arg: int = 0, rows: int = 0, name: str = ""):
+        """Rank 0: broadcast the next command's header."""
+        self._seq += 1
+        dist.broadcast_object_list([(op, arg, rows, self._seq, name)], src=0)
+        self._last_sent = time.monotonic()
+
+    def _receive(self):
+        """A follower: the next command's (op, argument, real rows,
+        name)."""
+        header = [None]
+        dist.broadcast_object_list(header, src=0)
+        op, arg, rows, seq, name = header[0]
+        if seq != self._seq + 1:
+            raise RuntimeError(f"rank {self.mesh.rank}: command {seq} after "
+                               f"{self._seq}: the ranks are out of step")
+        self._seq = seq
+        return op, arg, rows, name
+
+    def follow(self):
+        """A follower's loop (every rank but 0 of a mesh): run each command
+        rank 0 broadcasts until ``STOP``. A decode or reload that fails on
+        any rank is told to rank 0 and the loop goes on; a failed
+        collective raises."""
+        if self.is_front:
+            raise RuntimeError("rank 0 serves; only the other ranks follow")
+        size = self.config.image_size
+        while True:
+            op, arg, rows, name = self._receive()
+            try:
+                if op == STOP:
+                    logger.info("rank %d: STOP after %d commands",
+                                self.mesh.rank, self._seq)
+                    return
+                if op == BATCH:
+                    batch = broadcast_host(None, (arg, size, size, 3),
+                                           np.uint8, self.mesh)
+                    self._rank_batch(batch)
+                elif op == RELOAD:
+                    self._begin_reload(name)
+                elif op == SWAP:
+                    self._finish_reload()
+                elif op != NOOP:
+                    raise RuntimeError(f"unknown command {op}")
+            except RankFailure as e:
+                logger.warning("rank %d: %s", self.mesh.rank, e)
+
+    def _rank_batch(self, batch: np.ndarray) -> np.ndarray:
+        """Every rank: decode this data rank's rows of the host ``batch``
+        (uploading only them), exchange the statuses and gather the tokens
+        [B, L] over the data axis (meaningful on rank 0). Raises
+        :class:`RankFailure` on every rank where one failed."""
+        rows = batch_rows(len(batch), self.mesh)
+        error, tokens = "", None
+        try:
+            with torch.inference_mode():
+                arr = torch.from_numpy(batch[rows]).to(self.device)
+                tokens = self._decode(arr)
+                if self.reranker is not None:
+                    tokens = self.reranker(arr, tokens)
+                if isinstance(tokens, torch.Tensor):
+                    tokens = tokens.cpu().numpy()
+                tokens = np.asarray(tokens, dtype=np.int64)
+        except Exception as e:
+            logger.exception("rank %d: decode failed", self.mesh.rank)
+            error = f"{type(e).__name__}: {e}"
+        _exchange_statuses(error)
+        return gather_rows_host(tokens, self.mesh)
+
+    def _begin_reload(self, name: str):
+        """Every rank: start reading checkpoint ``name`` on a side thread,
+        which issues no collective; the batches go on meanwhile."""
+        result = {}
+
+        def read():
+            try:
+                result["model"] = self._load_checkpoint(name)
+            except Exception as e:
+                logger.exception("rank %d: reload of %r failed",
+                                 self.mesh.rank, name)
+                result["error"] = f"{type(e).__name__}: {e}"
+
+        thread = threading.Thread(target=read, name="caption-reload",
+                                  daemon=True)
+        thread.start()
+        self._loading = (thread, result)
+
+    def _finish_reload(self):
+        """Every rank, on ``SWAP``: wait for this rank's read, exchange the
+        statuses, and swap the new model in only if every rank read it."""
+        thread, result = self._loading
+        self._loading = None
+        thread.join()
+        _exchange_statuses(result.get("error", ""))
+        self.model = result["model"]
+
+    def _swap(self):
+        """Rank 0: send ``SWAP`` and swap with the other ranks."""
+        self._send(SWAP)
+        self._finish_reload()
+
+    def _mesh_call(self, kind: str, arg):
+        """Run ``kind`` on the batcher thread and wait for its result (on
+        the calling thread before :meth:`start`: no other thread issues
+        collectives yet)."""
+        call = _Call(kind, arg)
+        thread = self._thread
+        if thread is None:
+            result = self._run_call(call)
+            if kind == "reload":
+                self._swap()
+            return result
+        self._control.put(call)
+        while not call.event.wait(0.1):
+            if not thread.is_alive() and not call.event.is_set():
+                # stopped before it took the call
+                raise RuntimeError("caption service is not running")
+        if call.error is not None:
+            raise call.error
+        return call.result
+
+    def _run_call(self, call: _Call):
+        """Rank 0: a control item's work; a reload only begins here."""
+        if call.kind == "run":
+            return self._finish(*self._dispatch(call.arg))
+        self._send(RELOAD, name=call.arg)
+        self._begin_reload(call.arg)
+        return None
+
+    def _run_control(self):
+        """The batcher thread: swap in the reload begun earlier once rank
+        0's read of it has finished, then run the waiting control items.
+        A reload only begins there, and the items after it wait for its
+        swap."""
+        call = self._reload_call
+        if call is not None:
+            if self._loading[0].is_alive():
+                return
+            self._reload_call = None
+            self._settle(call, self._swap)
+        while self._reload_call is None and not self._stop.is_set():
+            try:
+                call = self._control.get_nowait()
+            except queue.Empty:
+                return
+            begins = call.kind == "reload"
+            if (self._settle(call, lambda: self._run_call(call),
+                             wake=not begins) and begins):
+                self._reload_call = call
+
+    def _settle(self, call: _Call, fn, wake: bool = True) -> bool:
+        """Run ``fn`` for ``call`` and hand its caller the result (waking
+        it if ``wake``) or the error (waking it; a failed collective is
+        fatal). Returns whether ``fn`` succeeded."""
+        try:
+            call.result = fn()
+        except Exception as e:
+            call.error = e
+            call.event.set()
+            if not isinstance(e, RankFailure):
+                self._die(e)
+            return False
+        if wake:
+            call.event.set()
+        return True
+
+    def _guarded(self, fn):
+        """Run a command of rank 0's batcher; a failure is fatal."""
+        try:
+            fn()
+        except Exception as e:
+            self._die(e)
+
+    def _die(self, e: Exception):
+        """The mesh failed under rank 0 (a collective raised): fail every
+        pending request and control item, stop, and tell ``on_fatal``."""
+        if self.fatal is not None:
+            return
+        self.fatal = f"{type(e).__name__}: {e}"
+        logger.error("the caption service's mesh failed: %s", self.fatal)
+        self._stop.set()
+        self._fail_queued(f"the mesh failed: {self.fatal}")
+        if self.on_fatal is not None:
+            self.on_fatal()
+
+
+def _exchange_statuses(error: str):
+    """Give every rank each rank's status (``error``, ``""`` for success)
+    and raise :class:`RankFailure` on all of them, naming every rank that
+    failed, if any did."""
+    statuses = [None] * dist.get_world_size()
+    dist.all_gather_object(statuses, error)
+    bad = [f"rank {r}: {text}" for r, text in enumerate(statuses) if text]
+    if bad:
+        raise RankFailure("; ".join(bad))
 
 
 # -- HTTP layer --------------------------------------------------------------
@@ -493,6 +848,8 @@ def _make_handler(service: CaptionService):
                     "device": str(service.device),
                     "batch_size": service.batch_size,
                     "bucket_sizes": service.bucket_sizes,
+                    "mesh": (service.mesh.shape if service.mesh is not None
+                             else None),
                 })
             elif self.path == "/stats":
                 self._reply(200, service.stats.snapshot())
@@ -552,27 +909,48 @@ def make_http_server(service: CaptionService, host: str = "127.0.0.1",
 def serve(config, tokenizer, device, host: str = "127.0.0.1",
           port: int = 8000, batch_size: int = 8, max_wait_ms: float = 10.0,
           pipeline_depth: int = 2, bucket_sizes=None,
-          checkpoint_path: Optional[str] = None):
-    """CLI entry: build the service, warm it up, and serve forever."""
+          checkpoint_path: Optional[str] = None, mesh=None):
+    """CLI entry: build the service, warm it up, and serve until SIGTERM.
+    Under a ``mesh`` rank 0 binds ``port`` and serves, and every other
+    rank follows it (ignoring SIGTERM, which ``torch.distributed.run``
+    forwards to every worker: rank 0's ``STOP`` ends it); rank 0 raises
+    when the mesh failed under it, so its process exits non-zero."""
+    import signal
+
     service = CaptionService(config, tokenizer, device,
                              checkpoint_path=checkpoint_path,
                              batch_size=batch_size, max_wait_ms=max_wait_ms,
                              pipeline_depth=pipeline_depth,
-                             bucket_sizes=bucket_sizes)
+                             bucket_sizes=bucket_sizes, mesh=mesh)
+    if not service.is_front:
+        def _wait_for_stop(signum, frame):
+            logger.info("rank %d: signal %d; waiting for rank 0's STOP",
+                        mesh.rank, signum)
+
+        try:
+            signal.signal(signal.SIGTERM, _wait_for_stop)
+        except ValueError:  # not the main thread (programmatic use)
+            pass
+        service.follow()
+        return
     service.start(warmup=True)
-    httpd = make_http_server(service, host, port)
+    try:
+        httpd = make_http_server(service, host, port)
+    except Exception:  # the port is taken: the followers stop too
+        service.stop()
+        raise
     logger.info("Serving captions on http://%s:%d (buckets %s, max wait "
                 "%.0f ms) — POST image bytes to /caption", host,
                 httpd.server_address[1], service.bucket_sizes, max_wait_ms)
 
     # graceful drain: SIGTERM stops accepting connections; service.stop()
     # then fails still-queued requests instead of hanging their clients
-    import signal
-
     def _drain(signum, frame):
         logger.info("SIGTERM: draining caption service")
         threading.Thread(target=httpd.shutdown, daemon=True).start()
 
+    service.on_fatal = lambda: threading.Thread(target=httpd.shutdown,
+                                                daemon=True).start()
     try:
         signal.signal(signal.SIGTERM, _drain)
     except ValueError:  # not the main thread (programmatic use)
@@ -585,3 +963,6 @@ def serve(config, tokenizer, device, host: str = "127.0.0.1",
         httpd.shutdown()
         httpd.server_close()
         service.stop()
+    if service.fatal is not None:
+        raise RuntimeError(f"the caption service's mesh failed: "
+                           f"{service.fatal}")

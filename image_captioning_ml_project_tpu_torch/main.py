@@ -60,19 +60,29 @@ draws the weights from ``--seed``, and answers ``/caption`` and
 (without one the service warns and serves without reranking).
 
 Under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` set),
-``train`` and ``eval`` are one rank of a mesh: the process group starts
+every mode is one rank of a mesh: the process group starts
 (:func:`.parallel.mesh.init_distributed`: NCCL for CUDA tensors where
 every local rank has its card, gloo where ranks share one), the mesh is
 built from the config's ``mesh`` section (``data_parallel``,
-``model_parallel``; -1 takes the rest), and rank ``r`` runs on
-``cuda:{LOCAL_RANK % cards}``. ``eval`` rounds its batch up to the data
-axis and each rank decodes its rows. Only global rank 0 writes
-checkpoints, ``results.json`` and the log file::
+``model_parallel``; -1 takes the rest), rank ``r`` runs on
+``cuda:{LOCAL_RANK % cards}``, and the group is torn down at the end.
+``eval`` rounds its batch up to the data axis and each rank decodes its
+rows. Only global rank 0 writes checkpoints, ``results.json`` and the log
+file. ``serve`` is the JAX ``CaptionService(mesh=)``: rank 0 binds
+``--port`` and batches, every rank decodes its data rank's rows of each
+batch (:mod:`.inference.server`), and SIGTERM to the launcher drains rank
+0, which stops the others. ``demo`` decodes the one image on every rank
+(replicated over the data axis, as the JAX demo's unsharded image is);
+only rank 0 prints it and writes ``demo.png``. Serving and the demo
+decode on each rank's shards of GPT-2's heads under a model axis
+(:func:`.parallel.sharding.shard_decode_model`); ``eval`` and validation
+decode on gathered weights::
 
     torchrun --nproc_per_node 2 -m image_captioning_ml_project_tpu_torch.main \
         --mode train --config run.json --data_root data --output_dir runs/x
-
-``demo`` and ``serve`` do not run under a mesh yet.
+    torchrun --nproc_per_node 2 -m image_captioning_ml_project_tpu_torch.main \
+        --mode serve --config run.json --vocab runs/x/vocab.json \
+        --output_dir runs/x --checkpoint best_model --port 8000
 
 ``--native_loader`` decodes JPEGs with the port's C++ loader
 (:mod:`.native`; PIL where it did not build). ``--device_resize`` moves
@@ -543,18 +553,22 @@ def evaluate(config: Config, checkpoint_path: Optional[str] = None,
 
 def demo(config: Config, checkpoint_path: Optional[str] = None,
          image_path: Optional[str] = None, tokenizer=None, show: bool = False,
-         reranker=None, device="cuda") -> str:
+         reranker=None, device="cuda", mesh=None) -> str:
     """Caption one image on ``device`` (the JAX CLI's ``demo``) with the
     eval transform, the configured strategy and, with
     ``use_clip_reranking``, CLIP reranking; prints and returns the
     caption, and saves ``output_dir/demo.png`` where matplotlib is
     installed (a failure of the plot is ignored, one of the decode is
-    not)."""
+    not). Under a ``mesh`` every rank decodes the image (replicated over
+    the data axis), the model ranks together on their shards; only rank 0
+    prints, logs and plots, and every rank returns the caption."""
     from .data.coco import load_image
     from .inference.decoding import decode_images
+    from .parallel.sharding import shard_decode_model
 
     tokenizer = tokenizer or setup_tokenizer(config)
-    model = _load_decode_model(config, checkpoint_path, device)
+    model = shard_decode_model(
+        _load_decode_model(config, checkpoint_path, device), mesh)
     reranker = _resolve_reranker(config, tokenizer, reranker, device)
     img = load_image(image_path, config.image_size, train=False)
     with torch.inference_mode():
@@ -569,6 +583,8 @@ def demo(config: Config, checkpoint_path: Optional[str] = None,
             tokens = tokens.cpu().numpy()
     caption = tokenizer.decode(np.asarray(tokens)[0],
                                skip_special_tokens=True)
+    if mesh is not None and mesh.rank != 0:
+        return caption
     logging.getLogger(__name__).info("Generated caption: %s", caption)
     print(caption)
 
@@ -606,29 +622,13 @@ def main(argv=None):
         save_config(config, args.save_config)
     logging.basicConfig(level=logging.INFO)
     tokenizer = setup_tokenizer(config, vocab_path=args.vocab)
-    if args.mode in ("train", "eval"):
-        return _train_or_eval(config, args, tokenizer)
-    if "WORLD_SIZE" in os.environ:
-        raise SystemExit(f"--mode {args.mode} does not run under a mesh "
-                         f"yet (ROADMAP.md Queue 1 item 16)")
-    if args.mode == "demo":
-        return demo(config, args.checkpoint, args.image_path,
-                    tokenizer=tokenizer, device=args.device)
-
-    from .inference.server import serve
-
-    serve(config, tokenizer, args.device, host=args.host, port=args.port,
-          batch_size=args.serve_batch_size,
-          max_wait_ms=args.serve_max_wait_ms,
-          pipeline_depth=args.serve_pipeline_depth,
-          bucket_sizes=[int(b) for b in args.serve_buckets.split(",")]
-          if args.serve_buckets else None,
-          checkpoint_path=args.checkpoint)
+    return _run_mode(config, args, tokenizer)
 
 
-def _train_or_eval(config: Config, args, tokenizer):
-    """``--mode train`` or ``eval``: alone, or under ``torchrun`` as one
-    rank of the config's mesh (the process group torn down after)."""
+def _run_mode(config: Config, args, tokenizer):
+    """Any ``--mode``: alone, or under ``torchrun`` as one rank of the
+    config's mesh (the process group torn down after; each rank logs that
+    it ended cleanly)."""
     from .parallel.mesh import create_mesh, init_distributed, rank_device
 
     ranks = init_distributed()
@@ -638,13 +638,33 @@ def _train_or_eval(config: Config, args, tokenizer):
         mesh = create_mesh(config.mesh)
     try:
         if args.mode == "train":
-            return train(config, checkpoint_path=args.checkpoint,
-                         tokenizer=tokenizer, device=device, mesh=mesh)
-        return evaluate(config, args.checkpoint, tokenizer=tokenizer,
-                        device=device, mesh=mesh)
+            result = train(config, checkpoint_path=args.checkpoint,
+                           tokenizer=tokenizer, device=device, mesh=mesh)
+        elif args.mode == "eval":
+            result = evaluate(config, args.checkpoint, tokenizer=tokenizer,
+                              device=device, mesh=mesh)
+        elif args.mode == "demo":
+            result = demo(config, args.checkpoint, args.image_path,
+                          tokenizer=tokenizer, device=device, mesh=mesh)
+        else:
+            from .inference.server import serve
+
+            result = serve(
+                config, tokenizer, device, host=args.host, port=args.port,
+                batch_size=args.serve_batch_size,
+                max_wait_ms=args.serve_max_wait_ms,
+                pipeline_depth=args.serve_pipeline_depth,
+                bucket_sizes=[int(b) for b in args.serve_buckets.split(",")]
+                if args.serve_buckets else None,
+                checkpoint_path=args.checkpoint, mesh=mesh)
     finally:
         if ranks is not None:
             torch.distributed.destroy_process_group()
+    if ranks is not None:
+        logging.getLogger(__name__).info(
+            "rank %d of %d: --mode %s ended cleanly", ranks[0], ranks[1],
+            args.mode)
+    return result
 
 
 if __name__ == "__main__":

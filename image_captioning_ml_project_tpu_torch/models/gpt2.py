@@ -36,8 +36,20 @@ q, k and v (``num_heads / M`` of them) and ``c_fc`` a slice of the
 hidden units, the two ``c_proj`` the matching input columns; the
 teacher-forced forward then all-reduces each ``c_proj`` product before
 its bias (:func:`..parallel.sharding.reduce_from`) and the backward each
-block input's gradient (:func:`..parallel.sharding.copy_to`). Decoding
-never sees shards: it runs on gathered weights.
+block input's gradient (:func:`..parallel.sharding.copy_to`).
+
+Decoding on shards (the service and the demo under a model axis,
+:func:`..parallel.sharding.shard_decode_model`) takes the ``split`` path
+whatever the switches say: the mesh's shape chooses it, as the JAX
+``"auto"`` decode kernel chooses by mesh. ``init_cache`` builds caches of
+the rank's width ``H / M``, each layer's attention runs
+:func:`..ops.beam_decode_attention.beam_decode_attention` on the rank's
+``num_heads / M`` heads and all-reduces its output projection before the
+bias, and the MLP reduces as in training. ``stack`` and ``fold`` cannot
+hold a shard: the whole-stack kernel runs all layers in one launch and the
+folded kernel adds the output projection's bias inside. Validation, the
+SCST rollouts and ``main.evaluate`` decode on gathered weights instead
+(:meth:`..train.trainer.CaptioningTrainer.eval_state`).
 """
 
 from __future__ import annotations
@@ -128,12 +140,18 @@ class GPT2Attention(nn.Module):
         """x [Bk, H] -> attention output [Bk, H]; appends this step's K/V at
         suffix position ``pos`` of the caches in place. ``fold`` runs the
         projections inside the folded-QKV kernel (``nn.Dense`` rounding);
-        otherwise they are the linear layers around the split kernel."""
-        H = self.hidden_dim
-        args = dict(num_heads=self.num_heads,
+        otherwise they are the linear layers around the split kernel, the
+        output projection's partial products all-reduced over the model
+        group where this rank holds a shard of the heads."""
+        hd = self.hidden_dim // self.num_heads
+        H = self.c_attn.weight.shape[0] // 3  # this rank's heads' width
+        args = dict(num_heads=H // hd,
                     beam_size=x.shape[0] // prefix_k.shape[0],
-                    scale=1.0 / (H // self.num_heads) ** 0.5)
+                    scale=1.0 / hd ** 0.5)
         if fold:
+            if self.tp_group is not None:
+                raise ValueError("the folded decode cannot run on a shard "
+                                 "of the heads: decode on the split path")
             out, _, _ = beam_decode_attention_qkv(
                 x, self.c_attn.weight, self.c_attn.bias, self.c_proj.weight,
                 self.c_proj.bias, k_cache, v_cache, prefix_k, prefix_v,
@@ -144,7 +162,7 @@ class GPT2Attention(nn.Module):
         out, _, _ = beam_decode_attention(
             q, k_new, v_new, k_cache, v_cache, prefix_k, prefix_v,
             anc_local, pos, **args)
-        return self.c_proj(out)
+        return _row_split_out(self.c_proj, out, self.tp_group)
 
 
 class GPT2MLP(nn.Module):
@@ -278,13 +296,17 @@ class GPT2Decoder(nn.Module):
         ``shared`` pk/pv ``[L, B, P, H]`` and the stacked weights. The other
         paths keep per-layer ``lazy["layers"]`` ``[B, max_length, H]`` and
         ``shared["layers"]`` ``[B, P, H]``, with ``shared["fold"]`` naming
-        the fold path. ``pos`` counts within the suffix."""
+        the fold path. ``pos`` counts within the suffix. On shards of the
+        heads (a model axis) the path is ``split`` and the caches are the
+        rank's width."""
         pooled = encoder_features["pooled_features"]
         B = pooled.shape[0]
         P = self.prefix_length
-        H = self.config.hidden_dim
-        path = decode_path()
+        sharded = any(b.attn.tp_group is not None
+                      for b in self.backbone.blocks)
+        path = "split" if sharded else decode_path()
         _, kvs = self.backbone.full(self._prefix_embeds(pooled))
+        H = kvs[0][0].shape[-2] * kvs[0][0].shape[-1]  # this rank's width
         if path == "stack":
             if self.stack is None:
                 raise RuntimeError("the stack decode path needs the stacked "

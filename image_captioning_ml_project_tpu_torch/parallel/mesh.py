@@ -18,7 +18,13 @@ rank ``r`` sits at data index ``r // model`` and model index ``r % model``
   ``batch_sharding`` places them;
 * :func:`gather_rows_host` is the inverse on the host: numpy rows of every
   data rank, in rank order, through CPU tensors (a gloo group takes CUDA
-  tensors only for ``all_reduce`` and ``broadcast``).
+  tensors only for ``all_reduce`` and ``broadcast``);
+* :func:`broadcast_host` carries the caption service's host batch
+  (:mod:`..inference.server`) from rank 0 to every rank over the whole
+  group, as a CPU tensor (``init_distributed``'s ``cpu:gloo,cuda:nccl``
+  sends it over gloo in any case); the service's small commands and
+  statuses go as objects (``broadcast_object_list``,
+  ``all_gather_object``).
 
 No mesh means no process group: a run without ``WORLD_SIZE`` is one
 process with ``mesh=None``, the JAX package's one-device mesh.
@@ -241,4 +247,20 @@ def all_reduce_host(values: np.ndarray, mesh: Optional[Mesh],
         return values
     t = torch.from_numpy(values.copy())
     dist.all_reduce(t, group=mesh.group(axis or mesh.data_axis))
+    return t.numpy()
+
+
+def broadcast_host(array: Optional[np.ndarray], shape, dtype,
+                   mesh: Mesh) -> np.ndarray:
+    """Global rank 0's host ``array`` of ``shape`` and numpy ``dtype`` on
+    every rank (the others pass None), through a CPU tensor."""
+    if mesh.rank == 0:
+        array = np.ascontiguousarray(array, dtype=dtype)
+        if array.shape != tuple(shape):
+            raise ValueError(f"broadcast of {array.shape}, announced as "
+                             f"{tuple(shape)}")
+        t = torch.from_numpy(array)
+    else:
+        t = torch.from_numpy(np.empty(shape, dtype=dtype))
+    dist.broadcast(t, 0)
     return t.numpy()

@@ -22,6 +22,10 @@ product: :func:`reduce_from` (all-reduce forward, identity backward) and
 ``torch.autograd.Function``. Their composition is the differentiable
 all-reduce the BatchNorm statistics and the losses' global features go
 through (:func:`all_reduce_sum`, :func:`gather_rows`).
+
+:func:`shard_decode_model` shards a decode model (``load_model``'s) the
+same way for the service and the demo, which decode on the shards; GPT-2
+then decodes on its split path (:mod:`..models.gpt2`).
 """
 
 from __future__ import annotations
@@ -242,3 +246,19 @@ def tensor_parallel(model: nn.Module, mesh,
             raise ValueError(f"{name}: its weights split only in part "
                              f"({module.tp_params}: {split})")
     return full_shapes
+
+
+def shard_decode_model(model: nn.Module, mesh) -> nn.Module:
+    """A decode model (:func:`..models.captioning_model.load_model`'s) on
+    this rank's shards: :func:`tensor_parallel` where the mesh's model axis
+    is larger than 1, the shards frozen, and the GPT-2 decoder's
+    layer-stacked operands dropped (the whole-stack kernel cannot run on a
+    shard, so they would only hold the full weights). Returns ``model``."""
+    if mesh is None or mesh.mp <= 1:
+        return model
+    tensor_parallel(model, mesh)
+    model.requires_grad_(False)
+    decoder = getattr(model, "decoder", None)
+    if getattr(decoder, "stack", None) is not None:
+        decoder.stack = None
+    return model

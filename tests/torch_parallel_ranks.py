@@ -21,7 +21,16 @@ Scenarios (``kind``):
   SCST step with injected rollouts;
 * ``gpt2_forward``: the GPT-2 backbone's logits with its blocks sharded
   over the mesh's model axis;
-* ``legacy_step``: one :class:`LegacyTrainer` step at ``(dp, 1)``.
+* ``legacy_step``: one :class:`LegacyTrainer` step at ``(dp, 1)``;
+* ``serve``: a :class:`CaptionService` on the mesh (rank 0 serves, the
+  others ``follow()``) runs the spec's ``actions`` in order: ``run``
+  (``_run_images``), ``submit`` (concurrent requests), ``reload`` (under
+  concurrent requests), ``submit_each`` (one request at a time, each
+  caption or error text kept); rank ``fail_rank`` raises in its decode of
+  a batch whose rows of that rank are all 255, and every rank's read of a
+  checkpoint takes ``reload_delay_s`` more. Returns rank 0's results,
+  the buckets, and every rank's GPT-2 caches' widths and attention
+  launches.
 """
 
 from __future__ import annotations
@@ -239,8 +248,157 @@ def _legacy_step(sc, mesh):
     return out
 
 
+def _serve(sc, mesh):
+    import threading
+
+    import torch
+
+    from image_captioning_ml_project_tpu_torch.config import config_from_dict
+    from image_captioning_ml_project_tpu_torch.data.tokenizer import (
+        WordVocab)
+    from image_captioning_ml_project_tpu_torch.inference.server import (
+        CaptionService)
+    from image_captioning_ml_project_tpu_torch.models import gpt2
+
+    cfg = config_from_dict(sc["config"])
+    service = CaptionService(cfg, WordVocab(sc["word2idx"]), "cpu",
+                             params=sc.get("params"),
+                             checkpoint_path=sc.get("checkpoint"),
+                             batch_size=sc["batch_size"],
+                             bucket_sizes=sc["buckets"], max_wait_ms=20.0,
+                             mesh=mesh)
+    seen = {"widths": set(), "paths": set(), "heads": set(),
+            "beam_decode_attention": 0, "other_kernels": 0}
+    decoder = service.model.decoder
+    if isinstance(decoder, gpt2.GPT2Decoder):
+        def init_cache(features, max_length, _orig=decoder.init_cache):
+            state = _orig(features, max_length)
+            lazy = state["lazy"]
+            k = (lazy["stacked"]["k"] if "stacked" in lazy
+                 else lazy["layers"][0]["k"])
+            seen["widths"].add(int(k.shape[-1]))
+            seen["paths"].add("stack" if "stacked" in lazy else "fold"
+                              if state["shared"]["fold"] else "split")
+            return state
+
+        def split(*a, _orig=gpt2.beam_decode_attention, **kw):
+            seen["beam_decode_attention"] += 1
+            seen["heads"].add(kw["num_heads"])
+            return _orig(*a, **kw)
+
+        def other(fn):
+            def counted(*a, **kw):
+                seen["other_kernels"] += 1
+                return fn(*a, **kw)
+            return counted
+
+        decoder.init_cache = init_cache
+        kernels = {"beam_decode_attention": split,
+                   "beam_decode_attention_qkv": other(
+                       gpt2.beam_decode_attention_qkv),
+                   "beam_decode_stack": other(gpt2.beam_decode_stack)}
+    else:
+        kernels = {}
+    originals = {name: getattr(gpt2, name) for name in kernels}
+    for name, fn in kernels.items():
+        setattr(gpt2, name, fn)
+    if mesh.rank == sc.get("fail_rank"):
+        def failing(images, _orig=service._decode):
+            if bool((images == 255).all()):
+                raise RuntimeError(f"injected on rank {mesh.rank}")
+            return _orig(images)
+
+        service._decode = failing
+    if sc.get("reload_delay_s"):
+        def slow(name, _orig=service._load_checkpoint):
+            time.sleep(sc["reload_delay_s"])
+            return _orig(name)
+
+        service._load_checkpoint = slow
+    out = {"buckets": service.bucket_sizes,
+           "batch_size": service.batch_size, "results": []}
+    try:
+        if service.is_front:
+            service.start(warmup=sc.get("warmup", False))
+            try:
+                for kind, arg in sc["actions"]:
+                    out["results"].append(_serve_action(service, kind, arg,
+                                                        threading))
+            finally:
+                service.stop()
+        else:
+            service.follow()
+    finally:
+        for name, fn in originals.items():
+            setattr(gpt2, name, fn)
+    seen = {k: sorted(v) if isinstance(v, set) else v
+            for k, v in seen.items()}
+    per_rank = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(per_rank, seen)
+    out["ranks"] = per_rank
+    return out
+
+
+def _serve_action(service, kind, arg, threading):
+    if kind == "run":
+        return service._run_images(list(arg))
+    if kind == "submit_each":
+        got = []
+        for img in arg:
+            try:
+                got.append(service.submit(img))
+            except RuntimeError as e:
+                got.append(f"error: {e}")
+        return got
+    if kind == "submit":
+        got = [None] * len(arg)
+
+        def client(i):
+            got[i] = service.submit(arg[i])
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(arg))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        return got
+    # reload: while clients keep requests in flight
+    images, name = arg
+    answered, failed = [], []
+    stop = threading.Event()
+
+    def client(k):
+        while not stop.is_set():
+            try:
+                service.submit(images[k % len(images)])
+                answered.append(time.monotonic())
+            except Exception as e:
+                failed.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(3)]
+    for t in threads:
+        t.start()
+    try:
+        while len(answered) < 4 and not failed:
+            threading.Event().wait(0.01)
+        t0 = time.monotonic()
+        result = service.reload_checkpoint(name)
+        t1 = time.monotonic()
+        n = len(answered)
+        while len(answered) < n + 4 and not failed:
+            threading.Event().wait(0.01)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+    return {"reload": result, "failed": failed, "answered": len(answered),
+            "answered_during": [t - t0 for t in answered if t0 < t < t1],
+            "reload_s": t1 - t0, "after": service._run_images(list(images))}
+
+
 SCENARIOS = {"train": _train, "gpt2_forward": _gpt2_forward,
-             "legacy_step": _legacy_step}
+             "legacy_step": _legacy_step, "serve": _serve}
 
 
 def main(spec_path: str, rank: int) -> None:
