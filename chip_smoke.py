@@ -254,11 +254,31 @@ prints no result line:
    to the launcher ends it with both ranks logging a clean end; the same
    at tp2 with 4 requests and no reload; then ``--mode demo`` at dp2 and
    at tp2, the two launches side by side, each logs ``main.demo``'s
-   caption in one process, from rank 0 only (:func:`serving_cli`).
+   caption in one process, from rank 0 only (:func:`serving_cli`);
+12. HF layouts: the flagship built from HF's CLIP and GPT-2 layouts. The
+   card has no transformers, so :func:`draw_hf_state` draws from the seed
+   state dicts with HF's names and shapes (:func:`hf_layout`): a
+   ``CLIPVisionModel`` ViT-B/32 with its ``position_ids`` buffer and a
+   ``GPT2LMHeadModel`` 124M under ``transformer.``, ``lm_head.weight``
+   tied to ``wte`` and one legacy ``attn.bias`` a block. ``models/
+   hf_port.py`` converts them; merged into the flagship's seeded state,
+   ``load_model`` builds them on the card in f32 and bf16, and both
+   models' whole-stack operands (``encoder.backbone.stack``,
+   ``decoder.stack``) must equal the HF tensors transposed and joined by
+   hand. The f32 decode of 2 images (beam 5, max length 20, length
+   penalty 0.8) on the card and on the CPU: tokens identical, scores
+   within 1e-4. The bf16 decode of 64 images after a warm-up, with the
+   launch counters set to 0 just before and read just after: #5 once, #3
+   and #4 once a decode step, nothing else. Then ViT-B/16, Swin-B (embed
+   128, depths 2-2-18-2, window 7) and ResNet-101 (depths 3-4-23-3) drawn
+   in HF's layout, converted, loaded strictly into the ``transformer``,
+   ``--encoder_type swin`` and ``lstm`` configurations and run for one
+   bf16 encode of 64 images (finite features, no kernel launched); the
+   conversion and load seconds and the times are printed with the card.
 
-The last six lines are the train and eval phases' numbers (JSON), phase
-9's (JSON), phase 10's (JSON), phase 11's (JSON), a JSON summary of the
-kernels and ``{"ok": true, "device": {...}}`` (the card's ``nvidia-smi``
+The last seven lines are the train and eval phases' numbers (JSON), phase
+9's (JSON), phase 10's (JSON), phase 11's (JSON), phase 12's (JSON), a
+JSON summary of the kernels and ``{"ok": true, "device": {...}}`` (the card's ``nvidia-smi``
 line is printed first, in phase 1). Each kernel's entry holds its numbers
 and launches for the Transformer family where that family runs it, else
 for the flagship, else for the LSTM; the other families', where they have
@@ -271,8 +291,9 @@ steps, its validation, the service across the reload, the timed SCST
 steps) under ``training``, in phase 8's eval, reranked eval and
 demo under ``evaluation``, in phase 9's runs under ``families``, and
 in phase 10 per rank (the dp2 validation, the bf16 steps at dp2 and
-tp2) and in the legacy stack under ``parallel``;
-#6's numbers at phase 9's memory lengths are under ``family_shapes``.
+tp2) and in the legacy stack under ``parallel``, in phase 11 per rank
+under ``serving_mesh`` and in phase 12's bf16 decode under
+``hf_layouts``; #6's numbers at phase 9's memory lengths are under ``family_shapes``.
 """
 
 import argparse
@@ -5062,6 +5083,396 @@ def serving_mesh_phase(torch, dev, smi, fixture, tmp):
     return numbers, launches
 
 
+# ---------------------------------------------------------------------------
+# HF layouts (phase 12)
+# ---------------------------------------------------------------------------
+
+HF_DECODE_BATCH = 64
+HF_F32_IMAGES = 2
+
+
+def hf_layout(name, cfg):
+    """The HF state dict of ``name`` (``clip``: ``CLIPVisionModel``;
+    ``gpt2``: ``GPT2LMHeadModel``; ``vit``: ``ViTModel``; ``swin``:
+    ``SwinModel``; ``resnet``: ``ResNetModel`` of bottleneck layers) at the
+    widths of ``cfg``'s encoder or decoder, as ``{key: (shape, kind)}``:
+    HF's names and shapes, with the buffers older checkpoints carry, CLIP's
+    ``position_ids`` and one legacy causal ``attn.bias`` a GPT-2 block. At
+    ``main.flagship_config``'s, ``transformer_config``'s (with Swin) and
+    ``lstm_config``'s widths these are the published CLIP ViT-B/32, GPT-2
+    124M, ViT-B/16, Swin-B and ResNet-101. ``kind`` says how
+    :func:`draw_hf_state` fills an entry: ``w`` N(0, 0.02²), ``ln`` 1 +
+    N(0, 0.02²), ``conv`` N(0, 1/fan_in), ``var`` U(0.5, 1.5), ``tied``
+    wte's tensor, the rest integer or boolean buffers."""
+    e, d = cfg.model.encoder, cfg.model.decoder
+    out = {}
+
+    def linear(prefix, n_out, n_in, bias=True):
+        out[f"{prefix}.weight"] = ((n_out, n_in), "w")
+        if bias:
+            out[f"{prefix}.bias"] = ((n_out,), "w")
+
+    def conv1d(prefix, n_in, n_out):  # GPT-2's Conv1D: [in, out]
+        out[f"{prefix}.weight"] = ((n_in, n_out), "w")
+        out[f"{prefix}.bias"] = ((n_out,), "w")
+
+    def norm(prefix, n):
+        out[f"{prefix}.weight"] = ((n,), "ln")
+        out[f"{prefix}.bias"] = ((n,), "w")
+
+    def patch(prefix, n_out, p):
+        out[f"{prefix}.weight"] = ((n_out, 3, p, p), "w")
+        out[f"{prefix}.bias"] = ((n_out,), "w")
+
+    if name == "clip":
+        H, P, F = e.hidden_size, e.patch_size, e.hidden_size * e.mlp_ratio
+        S = (cfg.image_size // P) ** 2 + 1
+        v = "vision_model"
+        out[f"{v}.embeddings.class_embedding"] = ((H,), "w")
+        out[f"{v}.embeddings.patch_embedding.weight"] = ((H, 3, P, P), "w")
+        out[f"{v}.embeddings.position_embedding.weight"] = ((S, H), "w")
+        out[f"{v}.embeddings.position_ids"] = ((1, S), "ids")
+        norm(f"{v}.pre_layrnorm", H)
+        for i in range(e.num_layers):
+            a = f"{v}.encoder.layers.{i}"
+            for p in ("k", "v", "q", "out"):
+                linear(f"{a}.self_attn.{p}_proj", H, H)
+            norm(f"{a}.layer_norm1", H)
+            linear(f"{a}.mlp.fc1", F, H)
+            linear(f"{a}.mlp.fc2", H, F)
+            norm(f"{a}.layer_norm2", H)
+        norm(f"{v}.post_layernorm", H)
+    elif name == "gpt2":
+        H, N = d.hidden_dim, d.gpt2_n_positions
+        out["transformer.wte.weight"] = ((cfg.model.vocab_size, H), "w")
+        out["transformer.wpe.weight"] = ((N, H), "w")
+        for i in range(d.num_layers):
+            h = f"transformer.h.{i}"
+            norm(f"{h}.ln_1", H)
+            out[f"{h}.attn.bias"] = ((1, 1, N, N), "causal")
+            conv1d(f"{h}.attn.c_attn", H, 3 * H)
+            conv1d(f"{h}.attn.c_proj", H, H)
+            norm(f"{h}.ln_2", H)
+            conv1d(f"{h}.mlp.c_fc", H, 4 * H)
+            conv1d(f"{h}.mlp.c_proj", 4 * H, H)
+        norm("transformer.ln_f", H)
+        out["lm_head.weight"] = ((cfg.model.vocab_size, H), "tied")
+    elif name == "vit":
+        H, P, F = e.hidden_size, e.patch_size, e.hidden_size * e.mlp_ratio
+        S = (cfg.image_size // P) ** 2 + 1
+        out["embeddings.cls_token"] = ((1, 1, H), "w")
+        out["embeddings.position_embeddings"] = ((1, S, H), "w")
+        patch("embeddings.patch_embeddings.projection", H, P)
+        for i in range(e.num_layers):
+            a = f"encoder.layer.{i}"
+            for p in ("query", "key", "value"):
+                linear(f"{a}.attention.attention.{p}", H, H)
+            linear(f"{a}.attention.output.dense", H, H)
+            linear(f"{a}.intermediate.dense", F, H)
+            linear(f"{a}.output.dense", H, F)
+            norm(f"{a}.layernorm_before", H)
+            norm(f"{a}.layernorm_after", H)
+        norm("layernorm", H)
+        linear("pooler.dense", H, H)
+    elif name == "swin":
+        W, dim, last = e.swin_window_size, e.swin_embed_dim, \
+            len(e.swin_depths) - 1
+        patch("embeddings.patch_embeddings.projection", dim, 4)
+        norm("embeddings.norm", dim)
+        for s, (depth, heads) in enumerate(zip(e.swin_depths,
+                                                e.swin_num_heads)):
+            for b in range(depth):
+                a = f"encoder.layers.{s}.blocks.{b}"
+                norm(f"{a}.layernorm_before", dim)
+                out[f"{a}.attention.self.relative_position_bias_table"] = (
+                    ((2 * W - 1) ** 2, heads), "w")
+                out[f"{a}.attention.self.relative_position_index"] = (
+                    (W * W, W * W), "index")
+                for p in ("query", "key", "value"):
+                    linear(f"{a}.attention.self.{p}", dim, dim)
+                linear(f"{a}.attention.output.dense", dim, dim)
+                norm(f"{a}.layernorm_after", dim)
+                linear(f"{a}.intermediate.dense", e.mlp_ratio * dim, dim)
+                linear(f"{a}.output.dense", dim, e.mlp_ratio * dim)
+            if s < last:
+                m = f"encoder.layers.{s}.downsample"
+                linear(f"{m}.reduction", 2 * dim, 4 * dim, bias=False)
+                norm(f"{m}.norm", 4 * dim)
+                dim *= 2
+        norm("layernorm", dim)
+    elif name == "resnet":
+        def conv_layer(prefix, n_out, n_in, k):
+            out[f"{prefix}.convolution.weight"] = ((n_out, n_in, k, k),
+                                                   "conv")
+            bn = f"{prefix}.normalization"
+            norm(bn, n_out)
+            out[f"{bn}.running_mean"] = ((n_out,), "w")
+            out[f"{bn}.running_var"] = ((n_out,), "var")
+            out[f"{bn}.num_batches_tracked"] = ((), "count")
+
+        n_in = e.resnet_embedding_size
+        conv_layer("embedder.embedder", n_in, 3, 7)
+        for s, (size, depth) in enumerate(zip(e.resnet_hidden_sizes,
+                                              e.resnet_depths)):
+            for i in range(depth):
+                a = f"encoder.stages.{s}.layers.{i}"
+                if i == 0:  # a bottleneck stage widens or strides here
+                    conv_layer(f"{a}.shortcut", size, n_in, 1)
+                conv_layer(f"{a}.layer.0", size // 4, n_in, 1)
+                conv_layer(f"{a}.layer.1", size // 4, size // 4, 3)
+                conv_layer(f"{a}.layer.2", size, size // 4, 1)
+                n_in = size
+    else:
+        raise ValueError(f"no HF layout named {name!r}")
+    return out
+
+
+def draw_hf_state(torch, layout, seed):
+    """An HF state dict of ``layout`` (:func:`hf_layout`) drawn from
+    ``numpy.random.default_rng(seed)``, as CPU tensors."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    causal = None
+    sd = {}
+    for key, (shape, kind) in layout.items():
+        if kind in ("w", "ln", "conv"):
+            a = rng.standard_normal(shape, dtype=np.float32)
+            std = (1.0 / math.sqrt(math.prod(shape[1:])) if kind == "conv"
+                   else 0.02)
+            a *= np.float32(std)
+            if kind == "ln":
+                a += np.float32(1.0)
+        elif kind == "var":
+            a = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        elif kind == "tied":
+            sd[key] = sd["transformer.wte.weight"]
+            continue
+        elif kind == "ids":
+            a = np.arange(shape[-1], dtype=np.int64).reshape(shape)
+        elif kind == "causal":
+            if causal is None:
+                causal = torch.from_numpy(np.tril(np.ones(shape[-2:],
+                                                          bool))[None, None])
+            sd[key] = causal
+            continue
+        else:  # "index", "count": integer buffers the converters drop
+            a = np.zeros(shape, np.int64)
+        sd[key] = torch.from_numpy(a)
+    return sd
+
+
+def _hf_by_hand(torch, clip, gpt2, layers):
+    """The whole-stack kernels' operands, built by hand from the HF state
+    dicts: the CLIP layers' (q, k, v concatenated) and the GPT-2 blocks'
+    (each ``Conv1D`` transposed), stacked over ``layers``."""
+    enc, dec = {}, {}
+    names = (("wqkv", "bqkv"), ("wo", "bo"), ("g1", "b1"), ("g2", "b2"),
+             ("wfc", "bfc"), ("wpj", "bpj"))
+    for i in range(layers):
+        a = f"vision_model.encoder.layers.{i}"
+        for (w, b), parts in zip(names, (
+                [f"{a}.self_attn.{p}_proj" for p in "qkv"],
+                [f"{a}.self_attn.out_proj"], [f"{a}.layer_norm1"],
+                [f"{a}.layer_norm2"], [f"{a}.mlp.fc1"], [f"{a}.mlp.fc2"])):
+            enc.setdefault(w, []).append(torch.cat(
+                [clip[f"{p}.weight"] for p in parts]))
+            enc.setdefault(b, []).append(torch.cat(
+                [clip[f"{p}.bias"] for p in parts]))
+        h = f"transformer.h.{i}"
+        for (w, b), (src, conv) in zip(names, (
+                ("attn.c_attn", True), ("attn.c_proj", True),
+                ("ln_1", False), ("ln_2", False), ("mlp.c_fc", True),
+                ("mlp.c_proj", True))):
+            weight = gpt2[f"{h}.{src}.weight"]
+            dec.setdefault(w, []).append(weight.T if conv else weight)
+            dec.setdefault(b, []).append(gpt2[f"{h}.{src}.bias"])
+    return ({k: torch.stack(v) for k, v in enc.items()},
+            {k: torch.stack(v) for k, v in dec.items()})
+
+
+def _hold_operands(torch, what, model, by_hand):
+    """The model's stacked operands (``encoder.backbone.stack``,
+    ``decoder.stack``) equal the hand-built ones, cast as the model cast
+    its weights."""
+    for side, stack in (("encoder", model.encoder.backbone.stack),
+                        ("decoder", model.decoder.stack)):
+        want = by_hand[0 if side == "encoder" else 1]
+        check(sorted(stack) == sorted(want),
+              f"{what}: the {side} stack holds {sorted(stack)}")
+        for k, w in want.items():
+            check(torch.equal(stack[k].cpu(), w.to(stack[k].dtype)),
+                  f"{what}: the {side} stack's {k} is not the HF weights")
+
+
+def hf_layouts_phase(torch, dev, smi, trees, seed):
+    """Phase 12 (module docstring). Returns the summary line's numbers and
+    each kernel's launches in the bf16 decode."""
+    from image_captioning_ml_project_tpu_torch.config import EncoderType
+    from image_captioning_ml_project_tpu_torch.models import hf_port
+    from image_captioning_ml_project_tpu_torch.models.captioning_model import (
+        load_model)
+    from image_captioning_ml_project_tpu_torch.params import from_flax
+
+    t_phase = time.perf_counter()
+    kernels = counters()
+    cfg, tree = trees["flagship"]
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.model.dtype = "float32"
+    numbers = {"card": smi}
+    t0 = time.perf_counter()
+    clip = draw_hf_state(torch, hf_layout("clip", cfg), seed + 20)
+    gpt2 = draw_hf_state(torch, hf_layout("gpt2", cfg), seed + 21)
+    numbers["draw_s"] = time.perf_counter() - t0
+
+    # HF layouts -> the flagship's state (seeded projection and prefix)
+    # -> load_model on the card, f32 and bf16
+    t0 = time.perf_counter()
+    state = from_flax(tree)
+    fragment = {**hf_port.port_clip_vision(
+        clip, cfg.model.encoder.num_layers), **hf_port.port_gpt2(
+        gpt2, cfg.model.decoder.num_layers)}
+    backbones = {k for k in state if k.startswith(("encoder.backbone.",
+                                                   "decoder.backbone."))}
+    check(set(fragment) == backbones,
+          f"hf layouts: the fragment misses "
+          f"{sorted(backbones - set(fragment))} and adds "
+          f"{sorted(set(fragment) - backbones)}")
+    state.update(fragment)
+    m32 = load_model(cfg32, dev, state_dict=state)
+    m16 = load_model(cfg, dev, state_dict=state)
+    torch.cuda.synchronize()
+    numbers["convert_and_load_s"] = time.perf_counter() - t0
+    by_hand = _hf_by_hand(torch, clip, gpt2, cfg.model.encoder.num_layers)
+    for what, model in (("f32", m32), ("bf16", m16)):
+        _hold_operands(torch, f"hf layouts {what}", model, by_hand)
+    check(torch.equal(m32.decoder.backbone.wte.weight.cpu(),
+                      gpt2["transformer.wte.weight"]),
+          "hf layouts: wte is not HF's")
+    del by_hand
+    print(f"hf layouts: CLIP ViT-B/32 and GPT-2 124M drawn in HF's layout "
+          f"({len(clip)} + {len(gpt2)} keys) in {numbers['draw_s']:.1f} s; "
+          f"converted and loaded on the card in f32 and bf16 in "
+          f"{numbers['convert_and_load_s']:.2f} s; both models' stacked "
+          f"operands equal the HF weights [{smi}]", flush=True)
+
+    g = torch.Generator().manual_seed(seed + 22)
+    images = torch.randint(0, 256, (HF_DECODE_BATCH, cfg.image_size,
+                                    cfg.image_size, 3), generator=g,
+                           dtype=torch.uint8)
+    # f32 on the card (#5, #3, #4) against the CPU's plain versions
+    t0 = time.perf_counter()
+    cpu = load_model(cfg32, "cpu", state_dict=state)
+    n = HF_F32_IMAGES
+    want = family_decode(torch, cfg32, cpu, images[:n])
+    got = family_decode(torch, cfg32, m32, images[:n].to(dev))
+    del cpu, m32, state, fragment
+    err = float((got[1] - want[1]).abs().max())
+    print(f"hf layouts f32 card vs CPU ({n} images): tokens gpu="
+          f"{got[0].tolist()} cpu={want[0].tolist()}, scores max_abs_err "
+          f"{err:.3e}; {time.perf_counter() - t0:.1f} s", flush=True)
+    check(torch.isfinite(got[1]).all(), "hf layouts: non-finite scores")
+    check(torch.equal(got[0], want[0]),
+          "hf layouts: card and CPU decode different tokens")
+    check(err <= 1e-4, f"hf layouts: scores differ by {err} > 1e-4")
+    numbers["f32_card_vs_cpu"] = {"images": n, "score_err": err}
+
+    # bf16 decode of 64 through #5 once, #3 and #4 once a step
+    x = images.to(dev)
+    family_decode(torch, cfg, m16, x)
+    torch.cuda.synchronize()
+    with DecodeCounts() as counts:
+        _zero_launches(kernels)
+        t0 = time.perf_counter()
+        _, scores = family_decode(torch, cfg, m16, x)
+        seconds = time.perf_counter() - t0
+        launched = _launches(kernels)
+    check(torch.isfinite(scores).all(), "hf layouts: non-finite bf16 scores")
+    expect({"launches": launched},
+           {"encoder_stack": counts.encodes,
+            "beam_decode_stack": counts.steps,
+            "lse_and_block_max": counts.steps})
+    check(counts.encodes == 1, f"hf layouts: {counts.encodes} encodes")
+    decode_launches = launched
+    numbers["bf16_decode"] = {"batch": HF_DECODE_BATCH,
+                              "decode_ms": seconds * 1e3,
+                              "images_per_s": HF_DECODE_BATCH / seconds,
+                              "steps": counts.steps}
+    print(f"hf layouts bf16 decode of {HF_DECODE_BATCH} (beam "
+          f"{cfg.inference.beam_size}, max length {cfg.inference.max_length},"
+          f" length penalty {cfg.inference.length_penalty}): "
+          f"{seconds * 1e3:.1f} ms ({HF_DECODE_BATCH / seconds:.1f} "
+          f"images/s, {counts.steps} steps); launches {launched} [{smi}]",
+          flush=True)
+    del m16
+
+    # the other published backbones: converted, loaded strictly into their
+    # configurations' encoders, one bf16 encode of 64 images each
+    swin = copy.deepcopy(trees["transformer"][0])
+    swin.model.encoder.encoder_type = EncoderType.SWIN
+    encoders = {}
+    for i, (name, cfg_e, base, port) in enumerate((
+            ("vit", trees["transformer"][0], trees["transformer"][1],
+             lambda sd, e: hf_port.port_vit(sd, e.num_layers)),
+            ("swin", swin, trees["transformer"][1],
+             lambda sd, e: hf_port.port_swin(sd, e.swin_depths)),
+            ("resnet", trees["lstm"][0], trees["lstm"][1],
+             lambda sd, e: hf_port.port_resnet(sd, e.resnet_depths)))):
+        ec = cfg_e.model.encoder
+        sd = draw_hf_state(torch, hf_layout(name, cfg_e), seed + 23 + i)
+        t0 = time.perf_counter()
+        fragment = port(sd, ec)
+        state = from_flax(base)
+        if name == "swin":
+            # the ViT tree's decoder, Swin's projection to the features
+            # drawn here (the last stage is 1024 wide)
+            state = {k: v for k, v in state.items()
+                     if not k.startswith("encoder.")}
+            width = ec.swin_embed_dim * 2 ** (len(ec.swin_depths) - 1)
+            state["encoder.proj.weight"] = torch.randn(
+                ec.feature_dim, width, generator=g) * 0.02
+            state["encoder.proj.bias"] = torch.zeros(ec.feature_dim)
+        else:
+            backbone = {k for k in state if k.startswith("encoder.backbone.")}
+            check(set(fragment) == backbone,
+                  f"hf layouts {name}: the fragment misses "
+                  f"{sorted(backbone - set(fragment))} and adds "
+                  f"{sorted(set(fragment) - backbone)}")
+        state.update(fragment)
+        model = load_model(cfg_e, dev, state_dict=state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        del state, fragment, sd
+        x = images.to(dev)
+        _zero_launches(kernels)
+        with torch.inference_mode():
+            out = model.encode(x)["features"]
+            torch.cuda.synchronize()
+        launched = _launches(kernels)
+        check(not any(launched.values()),
+              f"hf layouts {name}: the encode launched {launched}")
+        check(out.shape[0] == HF_DECODE_BATCH
+              and out.shape[-1] == ec.feature_dim
+              and bool(torch.isfinite(out).all()),
+              f"hf layouts {name}: encode gave {tuple(out.shape)}, finite "
+              f"{bool(torch.isfinite(out).all())}")
+        with torch.inference_mode():
+            encode_ms = time_ms(torch, lambda: model.encode(x), runs=5)
+        encoders[name] = {"convert_and_load_s": load_s,
+                          "features": list(out.shape),
+                          "bf16_encode_ms": encode_ms}
+        print(f"hf layouts {name}: converted and loaded strictly into "
+              f"--config {'lstm' if name == 'resnet' else 'transformer'}"
+              f"{' --encoder_type swin' if name == 'swin' else ''} in "
+              f"{load_s:.2f} s; bf16 encode of {HF_DECODE_BATCH}: features "
+              f"{tuple(out.shape)}, {encode_ms:.2f} ms [{smi}]", flush=True)
+        del model, out
+        torch.cuda.empty_cache()
+    numbers["encoders"] = encoders
+    numbers["seconds"] = time.perf_counter() - t_phase
+    return numbers, decode_launches
+
+
 def kernel_entry(name, route, source, replaces, numbers, launches):
     """The summary line's entry for one kernel: the numbers at the shape
     of the first family that runs it of the Transformer, the flagship and
@@ -5305,6 +5716,12 @@ def main():
         print(f"serving under the mesh phase: {serving['seconds']:.1f} s "
               f"[{smi}]", flush=True)
 
+        phase("HF layouts")
+        hf_layouts, hf_launches = hf_layouts_phase(torch, dev, smi, trees,
+                                                   args.seed)
+        print(f"HF layouts phase: {hf_layouts['seconds']:.1f} s [{smi}]",
+              flush=True)
+
         # the port stands alone: nothing of JAX or the JAX package ran
         foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
             "jax", "jaxlib", "flax", "image_captioning_ml_project_tpu"))
@@ -5366,6 +5783,7 @@ def main():
             entry["family_shapes"] = cross_shapes
         entry["parallel"] = par_launches[entry["name"]]
         entry["serving_mesh"] = serving_launches[entry["name"]]
+        entry["hf_layouts"] = hf_launches[entry["name"]]
         if entry["name"] == "beam_decode_attention":
             entry["tp2_shape"] = serving["tp2_attention"]
     print(json.dumps({"training": {
@@ -5383,6 +5801,7 @@ def main():
         for family, runs in families.items()}}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"serving_mesh": serving}))
+    print(json.dumps({"hf_layouts": hf_layouts}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": kind, "count": count}}))

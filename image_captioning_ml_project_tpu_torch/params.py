@@ -38,6 +38,7 @@ import torch
 from torch import nn
 
 from .config import AttentionType, DecoderType, EncoderType, reads_regions
+from .models import hf_port
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -569,53 +570,28 @@ def scorer_from_hf(sd: Mapping[str, torch.Tensor]
     """Map an HF ``CLIPModel`` state dict (torch tensors, read as they are:
     both sides keep ``nn.Linear``'s ``[out, in]``) to an f32 state dict of
     :class:`.models.clip_text.CLIPScorer`, the counterpart of the JAX
-    package's ``port_clip_model``. The q/k/v projections are concatenated
-    into the one QKV projection and the patch convolution ``[H, C, P, P]``
-    is flattened in (kh, kw, c) order."""
-    out: Dict[str, torch.Tensor] = {}
+    package's ``port_clip_model``: both towers' layers through
+    :mod:`.models.hf_port`'s CLIP mapping (q/k/v concatenated into the one
+    QKV projection, the patch convolution ``[H, C, P, P]`` flattened in
+    (kh, kw, c) order), every key consumed but the position ids."""
+    st = hf_port.HFState(sd, drop=(hf_port.POSITION_IDS,))
 
-    def put(name, t):
-        out[name] = t.detach().to(torch.float32).contiguous().clone()
-
-    def linear(src, dst, bias=True):
-        put(f"{dst}.weight", sd[f"{src}.weight"])
-        if bias:
-            put(f"{dst}.bias", sd[f"{src}.bias"])
-
-    def layers(src, dst):
-        pat = re.compile(rf"^{re.escape(src)}\.(\d+)\.")
-        for i in sorted({int(m.group(1)) for m in map(pat.match, sd) if m}):
-            a, b = f"{src}.{i}", f"{dst}.layers.{i}"
-            for n in ("weight", "bias"):
-                put(f"{b}.attention.qkv.{n}", torch.cat(
-                    [sd[f"{a}.self_attn.{p}_proj.{n}"] for p in "qkv"]))
-            linear(f"{a}.self_attn.out_proj", f"{b}.attention.out")
-            linear(f"{a}.layer_norm1", f"{b}.layer_norm1")
-            linear(f"{a}.layer_norm2", f"{b}.layer_norm2")
-            linear(f"{a}.mlp.fc1", f"{b}.fc1")
-            linear(f"{a}.mlp.fc2", f"{b}.fc2")
+    def layers(src):
+        pat = re.compile(rf"^{re.escape(src)}\.encoder\.layers\.(\d+)\.")
+        return sorted({int(m.group(1)) for m in map(pat.match, sd) if m})
 
     v, t = "vision_model", "text_model"
-    patch = sd[f"{v}.embeddings.patch_embedding.weight"]      # [H, C, P, P]
-    put("vision.patch_embed.weight",
-        patch.permute(0, 2, 3, 1).reshape(patch.shape[0], -1))
-    put("vision.class_embedding", sd[f"{v}.embeddings.class_embedding"])
-    put("vision.position_embeddings",
-        sd[f"{v}.embeddings.position_embedding.weight"])
-    # HF's attribute is spelled "pre_layrnorm"
-    linear(f"{v}.pre_layrnorm", "vision.pre_layernorm")
-    linear(f"{v}.post_layernorm", "vision.post_layernorm")
-    layers(f"{v}.encoder.layers", "vision")
-    put("text.token_embedding.weight",
-        sd[f"{t}.embeddings.token_embedding.weight"])
-    put("text.position_embeddings",
-        sd[f"{t}.embeddings.position_embedding.weight"])
-    linear(f"{t}.final_layer_norm", "text.final_layernorm")
-    layers(f"{t}.encoder.layers", "text")
-    linear("visual_projection", "visual_projection", bias=False)
-    linear("text_projection", "text_projection", bias=False)
-    put("logit_scale", sd["logit_scale"])
-    return out
+    hf_port.clip_vision(st, v, "vision", layers(v))
+    st.put("text.token_embedding.weight",
+           st.take(f"{t}.embeddings.token_embedding.weight"))
+    st.put("text.position_embeddings",
+           st.take(f"{t}.embeddings.position_embedding.weight"))
+    st.linear(f"{t}.final_layer_norm", "text.final_layernorm")
+    hf_port.clip_layers(st, f"{t}.encoder.layers", "text", layers(t))
+    st.linear("visual_projection", "visual_projection", bias=False)
+    st.linear("text_projection", "text_projection", bias=False)
+    st.put("logit_scale", st.take("logit_scale"))
+    return st.done()
 
 
 def load_scorer(scorer: nn.Module, state_dict: Mapping[str, torch.Tensor],

@@ -383,13 +383,14 @@ PAD, BOS, EOS = 0, 1, 2
 
 def _hf_pair(seed):
     """A tiny random HF ``GPT2LMHeadModel`` and the port's GPT-2 decoder
-    holding its weights (HF's ``Conv1D`` keeps [in, out]: transposed), with
+    holding its weights (converted by ``models/hf_port.port_gpt2``), with
     a random image prefix; the decoder's stacked weights built as at load."""
     from transformers import GPT2Config, GPT2LMHeadModel
 
     from image_captioning_ml_project_tpu_torch.config import (
         DecoderConfig, DecoderType)
     from image_captioning_ml_project_tpu_torch.models.gpt2 import GPT2Decoder
+    from image_captioning_ml_project_tpu_torch.models.hf_port import port_gpt2
     from image_captioning_ml_project_tpu_torch.params import (
         stack_layer_weights)
 
@@ -404,19 +405,8 @@ def _hf_pair(seed):
                       prefix_length=HF_P, gpt2_n_positions=64),
         vocab_size=HF_V, pad_token_id=PAD, bos_token_id=BOS,
         eos_token_id=EOS, feature_dim=32)
-    sd = tm.state_dict()
-    ours = {"backbone.wte.weight": sd["transformer.wte.weight"],
-            "backbone.wpe.weight": sd["transformer.wpe.weight"],
-            "backbone.ln_f.weight": sd["transformer.ln_f.weight"],
-            "backbone.ln_f.bias": sd["transformer.ln_f.bias"]}
-    for i in range(HF_L):
-        src, dst = f"transformer.h.{i}", f"backbone.blocks.{i}"
-        for n in ("ln_1", "ln_2"):
-            for p in ("weight", "bias"):
-                ours[f"{dst}.{n}.{p}"] = sd[f"{src}.{n}.{p}"]
-        for n in ("attn.c_attn", "attn.c_proj", "mlp.c_fc", "mlp.c_proj"):
-            ours[f"{dst}.{n}.weight"] = sd[f"{src}.{n}.weight"].T
-            ours[f"{dst}.{n}.bias"] = sd[f"{src}.{n}.bias"]
+    ours = {k[len("decoder."):]: v
+            for k, v in port_gpt2(tm.state_dict(), HF_L).items()}
     g = torch.Generator().manual_seed(seed)
     ours["image_to_prefix.weight"] = torch.randn(HF_P * HF_H, 32,
                                                  generator=g) * 0.02

@@ -7,7 +7,8 @@ update and a checkpoint of each, then the eval path's host modules (the
 BPE tokenizer, the curriculum sampler, the native JPEG loader,
 ``coco_eval`` through ``main.evaluate``, and ``main.demo``), leaves ``jax``, ``flax``, ``optax``, ``orbax``,
 ``triton`` and the JAX package ``image_captioning_ml_project_tpu`` out of
-``sys.modules``; no
+``sys.modules`` (and converting an HF-layout GPT-2 through
+``models/hf_port.py`` imports none of them, nor transformers); no
 source of the port names ``triton`` in an import (its kernels are CUDA C++
 built with nvcc). And
 ``chip_smoke.py`` refuses to run, printing no result, without a GPU or
@@ -213,6 +214,42 @@ def test_parallel_and_legacy_import_no_jax():
     taken on it, and nothing of JAX or the JAX package in
     ``sys.modules``."""
     proc = subprocess.run([sys.executable, "-c", _PROBE_MESH], cwd=REPO,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_PROBE_HF = """
+import sys
+import torch
+from image_captioning_ml_project_tpu_torch.models import hf_port
+from image_captioning_ml_project_tpu_torch.params import scorer_from_hf
+H = 8
+sd = {"transformer.wte.weight": torch.ones(10, H),
+      "transformer.wpe.weight": torch.ones(4, H)}
+for n, shape in (("ln_1", (H,)), ("ln_2", (H,)), ("attn.c_attn", (H, 3 * H)),
+                 ("attn.c_proj", (H, H)), ("mlp.c_fc", (H, 4 * H)),
+                 ("mlp.c_proj", (4 * H, H))):
+    sd[f"transformer.h.0.{n}.weight"] = torch.ones(shape)
+    sd[f"transformer.h.0.{n}.bias"] = torch.ones(shape[-1])
+sd["transformer.ln_f.weight"] = sd["transformer.ln_f.bias"] = torch.ones(H)
+sd["lm_head.weight"] = sd["transformer.wte.weight"]
+out = hf_port.port_gpt2(sd, 1)
+assert out["decoder.backbone.blocks.0.attn.c_attn.weight"].shape == (3 * H, H)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "transformers",
+                                    "image_captioning_ml_project_tpu"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_hf_port_imports_no_jax():
+    """``models/hf_port.py`` and ``params`` alone, in a fresh interpreter:
+    a GPT-2 in HF's layout converted, and nothing of JAX, flax,
+    transformers or the JAX package in ``sys.modules``."""
+    proc = subprocess.run([sys.executable, "-c", _PROBE_HF], cwd=REPO,
                           env=_env(), capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -614,8 +614,15 @@ def test_legacy_train_and_validate_cli(coco, tmp_path):
 
 
 def test_resize_token_embeddings():
+    """On a small table, then on a tiny HF GPT-2 converted by each
+    package's ``hf_port.port_gpt2``: the resized tables equal the JAX
+    package's, and the rest of the state is left as it was."""
+    from transformers import GPT2Config, GPT2LMHeadModel
+
     from image_captioning_ml_project_tpu.models.hf_port import (
-        resize_token_embeddings as jax_resize)
+        port_gpt2 as jax_port_gpt2, resize_token_embeddings as jax_resize)
+    from image_captioning_ml_project_tpu_torch.models.hf_port import (
+        port_gpt2)
     from image_captioning_ml_project_tpu_torch.params import (
         resize_token_embeddings)
 
@@ -627,3 +634,16 @@ def test_resize_token_embeddings():
             "embedding"]
         assert got.shape == (n, 3)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    torch.manual_seed(0)
+    sd = GPT2LMHeadModel(GPT2Config(vocab_size=29, n_positions=16, n_embd=8,
+                                    n_layer=1, n_head=2)).state_dict()
+    ported = port_gpt2(sd, 1)
+    jax_ported = jax_port_gpt2({k: v.numpy() for k, v in sd.items()},
+                               num_layers=1)["params"]
+    for n in (33, 20, 29):
+        got = resize_token_embeddings(ported, n, seed=3)
+        want = jax_resize(jax_ported, n, seed=3)["wte"]["embedding"]
+        assert got[key].shape == (n, 8)
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want))
+        assert all(got[k] is v for k, v in ported.items() if k != key)
