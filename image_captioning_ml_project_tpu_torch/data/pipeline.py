@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import batch_rows
+from ..utils.profiling import span
 
 
 def shard_batch(batch: Dict[str, Any], mesh,
@@ -85,13 +86,14 @@ def prefetch(iterator: Iterator[Dict[str, Any]], device="cpu",
         try:
             for batch in iterator:
                 event = None
-                if stream is not None:
-                    with torch.cuda.stream(stream):
+                with span("data.upload"):
+                    if stream is not None:
+                        with torch.cuda.stream(stream):
+                            batch = to_device(batch, device)
+                            event = torch.cuda.Event()
+                            event.record(stream)
+                    else:
                         batch = to_device(batch, device)
-                        event = torch.cuda.Event()
-                        event.record(stream)
-                else:
-                    batch = to_device(batch, device)
                 if not _put((batch, event)):
                     break
         except Exception as e:  # propagate to consumer
@@ -109,7 +111,8 @@ def prefetch(iterator: Iterator[Dict[str, Any]], device="cpu",
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("data.wait"):
+                item = q.get()
             if item is _END:
                 if err:
                     raise err[0]

@@ -18,6 +18,11 @@ run on the host, and the early-exit ones check once per step whether
 every row (or batch) is done. Sampling takes a ``torch.Generator`` where
 the JAX package takes an ``rng`` key; its Gumbel noise comes from
 :func:`gumbel_noise`.
+
+Each step is a span ``decode.step`` and each check a span
+``decode.stop_check`` with a count of ``decode.host_syncs``
+(:mod:`..utils.profiling`); ``decode_images``'s ``init_cache`` is
+``decode.encode``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 
 from ..ops.lse import lse_and_block_max
 from ..ops.topk import fused_beam_top_k, top_k
+from ..utils.profiling import count, span
 
 _NEG_INF = -1.0e9
 
@@ -96,6 +102,15 @@ def _length_norm(t: int, length_penalty: float) -> float:
     return float(torch.tensor(float(t)) ** length_penalty)
 
 
+def _all_done(flags: torch.Tensor) -> bool:
+    """Whether every flag is set: the device-to-host read that ends an
+    early-exit loop, once a step (span ``decode.stop_check``, counter
+    ``decode.host_syncs``)."""
+    with span("decode.stop_check"):
+        count("decode.host_syncs")
+        return bool(flags.all())
+
+
 def _suppress_eos(logits: torch.Tensor, eos_token_id: int) -> torch.Tensor:
     """``logits`` with the EOS column set to -1e9 (a copy)."""
     logits = logits.clone()
@@ -146,16 +161,18 @@ def greedy_decode(step_fn, init_state, batch_size: int, bos_token_id: int,
                          device=dev)
         out[:, 0] = bos_token_id
         for t in range(1, max_length):
-            state, current, done = next_token(state, current, done, t)
-            out[:, t] = current
-            if bool(done.all()):
-                break
+            with span("decode.step"):
+                state, current, done = next_token(state, current, done, t)
+                out[:, t] = current
+                if _all_done(done):
+                    break
         return out
 
     tokens = []
     for t in range(1, max_length + 1):
-        tokens.append(current)
-        state, current, done = next_token(state, current, done, t)
+        with span("decode.step"):
+            tokens.append(current)
+            state, current, done = next_token(state, current, done, t)
     return torch.stack(tokens, dim=1)
 
 
@@ -250,22 +267,24 @@ def sample_decode(step_fn, init_state, generator: torch.Generator,
         logprobs = torch.zeros((B, max_length), device=dev)
         mask = torch.zeros((B, max_length), dtype=torch.bool, device=dev)
         for t in range(1, max_length):
-            state, nxt, tok_logp, active, done = sample(
-                state, tokens[:, t - 1], done, t)
-            tokens[:, t] = nxt
-            logprobs[:, t] = tok_logp
-            mask[:, t] = active
-            if bool(done.all()):
-                break
+            with span("decode.step"):
+                state, nxt, tok_logp, active, done = sample(
+                    state, tokens[:, t - 1], done, t)
+                tokens[:, t] = nxt
+                logprobs[:, t] = tok_logp
+                mask[:, t] = active
+                if _all_done(done):
+                    break
         return SampleResult(tokens, logprobs, mask)
 
     cur_logp = torch.zeros(B, device=dev)           # BOS is given
     cur_active = torch.zeros(B, dtype=torch.bool, device=dev)
     out = []
     for t in range(1, max_length + 1):
-        out.append((current, cur_logp, cur_active))
-        state, current, cur_logp, cur_active, done = sample(
-            state, current, done, t)
+        with span("decode.step"):
+            out.append((current, cur_logp, cur_active))
+            state, current, cur_logp, cur_active, done = sample(
+                state, current, done, t)
     return SampleResult(*(torch.stack(col, dim=1) for col in zip(*out)))
 
 
@@ -345,108 +364,112 @@ def beam_search(step_fn, init_state, batch_size: int, beam_size: int,
     rank_ok = torch.arange(2 * Kg, device=dev)[None, :] < Kg
 
     for t in range(1, L):
-        if "lazy" in state:
-            # position t-1 is written this step by each slot itself
-            state["lazy"]["ancestry"][:, t - 1] = own_rows
-        current = sequences[:, :, t - 1].reshape(B * K)
-        logits, state = step_fn(state, current)
-        V = logits.shape[-1]
-        fused = V > 4096
-        if fused:
-            lse, bmax = lse_and_block_max(logits)
-            if G > 1:
-                # the raw block maxima do not hold under the penalty
-                bmax = None
-                lse_g = lse.reshape(B, G, Kg)
-        else:
-            logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, V)
-            if t < min_length:
-                logp[:, :, eos_token_id] = _NEG_INF
-            logp = logp.reshape(B, G, Kg, V)
-        seqs_g = sequences.reshape(B, G, Kg, L)
-        live_g = live_scores.reshape(B, G, Kg)
-        fin_seqs_g = fin_seqs.reshape(B, G, Kg, L)
-        fin_scores_g = fin_scores.reshape(B, G, Kg)
-        token_counts = (torch.zeros((B, V), device=dev) if penalise
-                        else None)
-
-        new_beam, new_tok, new_live, new_fin_seqs, new_fin_scores = (
-            [], [], [], [], [])
-        for g in range(G):
-            if fused and G == 1:
-                row_bias = live_scores.reshape(B * K) - lse
-                cand_scores, cand_idx = fused_beam_top_k(
-                    logits, row_bias, K, 2 * K, suppress_token=eos_token_id,
-                    suppress=t < min_length, block_max=bmax)
-            elif fused:
-                # group g's rows only, the penalty a per-(batch, token)
-                # bias over them
-                lg = logits.reshape(B, G, Kg, V)[:, g].reshape(B * Kg, V)
-                lg = lg.float()
-                if penalise:
-                    lg = lg - (diversity_penalty * token_counts
-                               ).repeat_interleave(Kg, dim=0)
-                row_bias = (live_g[:, g].reshape(B * Kg)
-                            - lse_g[:, g].reshape(B * Kg))
-                cand_scores, cand_idx = fused_beam_top_k(
-                    lg, row_bias, Kg, 2 * Kg, suppress_token=eos_token_id,
-                    suppress=t < min_length)
+        with span("decode.step"):
+            if "lazy" in state:
+                # position t-1 is written this step by each slot itself
+                state["lazy"]["ancestry"][:, t - 1] = own_rows
+            current = sequences[:, :, t - 1].reshape(B * K)
+            logits, state = step_fn(state, current)
+            V = logits.shape[-1]
+            fused = V > 4096
+            if fused:
+                lse, bmax = lse_and_block_max(logits)
+                if G > 1:
+                    # the raw block maxima do not hold under the penalty
+                    bmax = None
+                    lse_g = lse.reshape(B, G, Kg)
             else:
-                lp = logp[:, g]
+                logp = torch.log_softmax(logits.float(), dim=-1).reshape(
+                    B, K, V)
+                if t < min_length:
+                    logp[:, :, eos_token_id] = _NEG_INF
+                logp = logp.reshape(B, G, Kg, V)
+            seqs_g = sequences.reshape(B, G, Kg, L)
+            live_g = live_scores.reshape(B, G, Kg)
+            fin_seqs_g = fin_seqs.reshape(B, G, Kg, L)
+            fin_scores_g = fin_scores.reshape(B, G, Kg)
+            token_counts = (torch.zeros((B, V), device=dev) if penalise
+                            else None)
+
+            new_beam, new_tok, new_live, new_fin_seqs, new_fin_scores = (
+                [], [], [], [], [])
+            for g in range(G):
+                if fused and G == 1:
+                    row_bias = live_scores.reshape(B * K) - lse
+                    cand_scores, cand_idx = fused_beam_top_k(
+                        logits, row_bias, K, 2 * K,
+                        suppress_token=eos_token_id, suppress=t < min_length,
+                        block_max=bmax)
+                elif fused:
+                    # group g's rows only, the penalty a per-(batch, token)
+                    # bias over them
+                    lg = logits.reshape(B, G, Kg, V)[:, g].reshape(B * Kg, V)
+                    lg = lg.float()
+                    if penalise:
+                        lg = lg - (diversity_penalty * token_counts
+                                   ).repeat_interleave(Kg, dim=0)
+                    row_bias = (live_g[:, g].reshape(B * Kg)
+                                - lse_g[:, g].reshape(B * Kg))
+                    cand_scores, cand_idx = fused_beam_top_k(
+                        lg, row_bias, Kg, 2 * Kg,
+                        suppress_token=eos_token_id, suppress=t < min_length)
+                else:
+                    lp = logp[:, g]
+                    if penalise:
+                        lp = lp - diversity_penalty * token_counts[:, None, :]
+                    total = live_g[:, g][:, :, None] + lp       # [B, Kg, V]
+                    cand_scores, cand_idx = top_k(total.reshape(B, Kg * V),
+                                                  2 * Kg)
+                cand_beam = cand_idx // V
+                cand_tok = cand_idx % V
+                is_eos = cand_tok == eos_token_id
+
+                # finished candidates: length-normalised score
+                norm = cand_scores / _length_norm(t, length_penalty)
+                fin_cand = norm.masked_fill(~is_eos, _NEG_INF)
+                if hf_compat:
+                    fin_cand = fin_cand.masked_fill(
+                        ~rank_ok | stopped[:, g][:, None], _NEG_INF)
+                cand_seqs = seqs_g[:, g].gather(
+                    1, cand_beam[:, :, None].expand(B, 2 * Kg, L)).clone()
+                cand_seqs[:, :, t] = cand_tok
+                top_fin_scores, top_fin_idx = top_k(
+                    torch.cat([fin_scores_g[:, g], fin_cand], dim=1), Kg)
+                new_fin_seqs.append(
+                    torch.cat([fin_seqs_g[:, g], cand_seqs], dim=1).gather(
+                        1, top_fin_idx[:, :, None].expand(B, Kg, L)))
+                new_fin_scores.append(top_fin_scores)
+
+                # live continuation: best Kg non-EOS candidates
+                top_live_scores, top_live_idx = top_k(
+                    cand_scores.masked_fill(is_eos, _NEG_INF), Kg)
+                sel_tok = cand_tok.gather(1, top_live_idx)
                 if penalise:
-                    lp = lp - diversity_penalty * token_counts[:, None, :]
-                total = live_g[:, g][:, :, None] + lp           # [B, Kg, V]
-                cand_scores, cand_idx = top_k(total.reshape(B, Kg * V),
-                                              2 * Kg)
-            cand_beam = cand_idx // V
-            cand_tok = cand_idx % V
-            is_eos = cand_tok == eos_token_id
+                    token_counts.scatter_add_(
+                        1, sel_tok, torch.ones(sel_tok.shape, device=dev))
+                new_beam.append(cand_beam.gather(1, top_live_idx) + g * Kg)
+                new_tok.append(sel_tok)
+                new_live.append(top_live_scores)
 
-            # finished candidates: length-normalised score
-            norm = cand_scores / _length_norm(t, length_penalty)
-            fin_cand = norm.masked_fill(~is_eos, _NEG_INF)
+            beam_idx = torch.cat(new_beam, dim=1)                  # [B, K]
+            live_scores = torch.cat(new_live, dim=1)
+            fin_seqs = torch.stack(new_fin_seqs, dim=1).reshape(B, K, L)
+            fin_scores = torch.stack(new_fin_scores, dim=1).reshape(B, K)
+            sequences = sequences.gather(
+                1, beam_idx[:, :, None].expand(B, K, L)).clone()
+            sequences[:, :, t] = torch.cat(new_tok, dim=1)
+            state = _gather_state(state,
+                                  (rows_b * K + beam_idx).reshape(B * K))
+
             if hf_compat:
-                fin_cand = fin_cand.masked_fill(
-                    ~rank_ok | stopped[:, g][:, None], _NEG_INF)
-            cand_seqs = seqs_g[:, g].gather(
-                1, cand_beam[:, :, None].expand(B, 2 * Kg, L)).clone()
-            cand_seqs[:, :, t] = cand_tok
-            top_fin_scores, top_fin_idx = top_k(
-                torch.cat([fin_scores_g[:, g], fin_cand], dim=1), Kg)
-            new_fin_seqs.append(
-                torch.cat([fin_seqs_g[:, g], cand_seqs], dim=1).gather(
-                    1, top_fin_idx[:, :, None].expand(B, Kg, L)))
-            new_fin_scores.append(top_fin_scores)
-
-            # live continuation: best Kg non-EOS candidates
-            top_live_scores, top_live_idx = top_k(
-                cand_scores.masked_fill(is_eos, _NEG_INF), Kg)
-            sel_tok = cand_tok.gather(1, top_live_idx)
-            if penalise:
-                token_counts.scatter_add_(
-                    1, sel_tok, torch.ones(sel_tok.shape, device=dev))
-            new_beam.append(cand_beam.gather(1, top_live_idx) + g * Kg)
-            new_tok.append(sel_tok)
-            new_live.append(top_live_scores)
-
-        beam_idx = torch.cat(new_beam, dim=1)                  # [B, K]
-        live_scores = torch.cat(new_live, dim=1)
-        fin_seqs = torch.stack(new_fin_seqs, dim=1).reshape(B, K, L)
-        fin_scores = torch.stack(new_fin_scores, dim=1).reshape(B, K)
-        sequences = sequences.gather(
-            1, beam_idx[:, :, None].expand(B, K, L)).clone()
-        sequences[:, :, t] = torch.cat(new_tok, dim=1)
-        state = _gather_state(state, (rows_b * K + beam_idx).reshape(B * K))
-
-        if hf_compat:
-            fin_g = fin_scores.reshape(B, G, Kg)
-            all_finished = (fin_g > _NEG_INF / 2).all(dim=2)
-            best_running = (live_scores.reshape(B, G, Kg).max(dim=2).values
-                            / _length_norm(t, length_penalty))
-            stopped = stopped | (all_finished & (
-                best_running <= fin_g.min(dim=2).values))
-            if bool(stopped.all()):
-                break
+                fin_g = fin_scores.reshape(B, G, Kg)
+                all_finished = (fin_g > _NEG_INF / 2).all(dim=2)
+                best_running = (live_scores.reshape(B, G, Kg).max(dim=2).values
+                                / _length_norm(t, length_penalty))
+                stopped = stopped | (all_finished & (
+                    best_running <= fin_g.min(dim=2).values))
+                if _all_done(stopped):
+                    break
 
     # merge unfinished live beams (normalised at full length) with finished
     live_norm = live_scores / (float(L - 1) ** length_penalty)
@@ -531,7 +554,8 @@ def decode_images(model, images, config,
     ids = (mc.bos_token_id, mc.eos_token_id, mc.pad_token_id)
     step_fn = step_fn or model.step
     B = batch_size_of(images)
-    state = model.init_cache(images, ic.max_length)
+    with span("decode.encode"):
+        state = model.init_cache(images, ic.max_length)
     if candidates:
         res = beam_search(step_fn, state, B,
                           max(ic.beam_size, ic.num_candidates), *ids,

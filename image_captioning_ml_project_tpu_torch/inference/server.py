@@ -14,6 +14,16 @@ same:
   reranking it first picks each image's caption among the batch's beam
   candidates there.
 
+Each part of a batch's life is a span (:func:`..utils.profiling.span`),
+kept while the recorder is on: on the batcher thread ``serve.batch`` (its
+rows, bucket and the rows' enqueue times; each opens before the last one
+closes) around ``serve.wait`` (for the batch's first request; a batch
+span without rows is a wait that timed out), ``serve.fill`` (the rest of the batch, up to ``max_wait_ms``),
+``serve.stack``, ``serve.upload``, ``serve.decode`` and ``serve.handoff``
+(the bounded put to the completer); on the completer
+``serve.fetch_tokens`` and ``serve.detokenize``, whose parent is the
+batch's span.
+
 Every decoding option of ``config.inference`` is served: greedy, nucleus
 sampling (from one ``torch.Generator`` on the service's device seeded
 from ``config.seed``, drawn from batch after batch), beam search with or
@@ -103,6 +113,7 @@ from ..models.captioning_model import load_model
 from ..parallel.mesh import batch_rows, broadcast_host, gather_rows_host
 from ..parallel.sharding import shard_decode_model
 from ..utils.checkpoint import CheckpointManager
+from ..utils.profiling import span
 from .decoding import decode_images
 
 logger = logging.getLogger(__name__)
@@ -476,31 +487,29 @@ class CaptionService:
     # -- batcher -----------------------------------------------------------
 
     def _batch_loop(self):
+        batch = None
         try:
             while not self._stop.is_set():
                 if self.mesh is not None:
                     self._run_control()
                     if self._stop.is_set():
                         break
-                try:
-                    first = self._queue.get(timeout=0.05)
-                except queue.Empty:
-                    if (self.mesh is not None and time.monotonic()
-                            - self._last_sent > HEARTBEAT_S):
-                        self._guarded(lambda: self._send(NOOP))
-                    continue
-                reqs = [first]
-                deadline = time.monotonic() + self.max_wait_s
-                while len(reqs) < self.batch_size:
-                    remaining = deadline - time.monotonic()
-                    if remaining <= 0:
-                        break
-                    try:
-                        reqs.append(self._queue.get(timeout=remaining))
-                    except queue.Empty:
-                        break
-                self._serve_batch(reqs)
+                # a batch's span (the wait for its first request included)
+                # opens before the last one closes: between two spans the
+                # batcher may wait for the GIL, the device idle and no span
+                # open to name it
+                last, batch = batch, span("serve.batch", 0).__enter__()
+                if last is not None:
+                    last.__exit__(None, None, None)
+                reqs = self._gather()
+                if reqs:
+                    self._serve_batch(reqs, batch)
+                elif (self.mesh is not None and time.monotonic()
+                        - self._last_sent > HEARTBEAT_S):
+                    self._guarded(lambda: self._send(NOOP))
         finally:
+            if batch is not None:
+                batch.__exit__(None, None, None)
             if self.mesh is not None and self.fatal is None:
                 self._guarded(lambda: self._send(STOP))
             if self._reload_call is not None:  # begun, never swapped
@@ -508,8 +517,35 @@ class CaptionService:
                     self.fatal or "server shutting down")
                 self._reload_call.event.set()
 
-    def _serve_batch(self, reqs: List[_Request]):
+    def _gather(self) -> List[_Request]:
+        """The next micro-batch: its first request within 50 ms
+        (``serve.wait``), then up to ``batch_size`` within ``max_wait_s``
+        of it (``serve.fill``); [] where none came."""
+        try:
+            with span("serve.wait"):
+                first = self._queue.get(timeout=0.05)
+        except queue.Empty:
+            return []
+        reqs = [first]
+        with span("serve.fill"):
+            deadline = time.monotonic() + self.max_wait_s
+            while len(reqs) < self.batch_size:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    reqs.append(self._queue.get(timeout=remaining))
+                except queue.Empty:
+                    break
+        return reqs
+
+    def _serve_batch(self, reqs: List[_Request], batch):
+        """Decode ``reqs`` and hand them to the completer. ``batch``: the
+        batch's span, whose id the completer's spans name as parent."""
         self.stats.record_batch(len(reqs))
+        if batch.attrs is not None:  # the recorder is on
+            batch.attrs.update(rows=len(reqs), bucket=self._bucket(len(reqs)),
+                               t_enqueue=[r.t_enqueue for r in reqs])
         try:
             tokens, images = self._dispatch([r.image for r in reqs])
         except Exception as e:  # surface the failure to every caller
@@ -521,16 +557,18 @@ class CaptionService:
                 self._die(e)  # a collective failed: the mesh is gone
             return
         if self._sync:
-            self._complete_batch(reqs, tokens, images)
+            self._complete_batch(reqs, tokens, images, batch.id)
             return
         # bounded put = pipeline-depth backpressure; poll _stop so a
         # shutdown with a stalled completer cannot wedge the batcher here
-        while not self._stop.is_set():
-            try:
-                self._pending.put((reqs, tokens, images), timeout=0.1)
-                return
-            except queue.Full:
-                continue
+        with span("serve.handoff"):
+            while not self._stop.is_set():
+                try:
+                    self._pending.put((reqs, tokens, images, batch.id),
+                                      timeout=0.1)
+                    return
+                except queue.Full:
+                    continue
         for req in reqs:
             req.error = "server shutting down"
             req.event.set()
@@ -558,12 +596,16 @@ class CaptionService:
                 tokens = tokens.cpu().numpy()
         return np.asarray(tokens)
 
-    def _complete_batch(self, reqs, tokens, images):
+    def _complete_batch(self, reqs, tokens, images, parent=None):
+        """The captions of a decoded batch; ``parent``: the id of the
+        batch's span on the batcher thread."""
         try:
-            tokens = self._finish(tokens, images)
-            for i, req in enumerate(reqs):
-                req.caption = self.tokenizer.decode(
-                    tokens[i], skip_special_tokens=True)
+            with span("serve.fetch_tokens", parent):
+                tokens = self._finish(tokens, images)
+            with span("serve.detokenize", parent):
+                for i, req in enumerate(reqs):
+                    req.caption = self.tokenizer.decode(
+                        tokens[i], skip_special_tokens=True)
         except Exception as e:
             logger.exception("serving batch completion failed")
             for req in reqs:
@@ -599,15 +641,22 @@ class CaptionService:
         if len(images) > self.batch_size:
             raise ValueError(f"micro-batch of {len(images)} exceeds "
                              f"batch_size {self.batch_size}")
-        bucket = next(b for b in self.bucket_sizes if b >= len(images))
-        batch = np.stack(images + [images[-1]] * (bucket - len(images)))
+        bucket = self._bucket(len(images))
+        with span("serve.stack"):
+            batch = np.stack(images + [images[-1]] * (bucket - len(images)))
         if self.mesh is not None:
             self._send(BATCH, bucket, len(images))
             batch = broadcast_host(batch, batch.shape, np.uint8, self.mesh)
             return self._rank_batch(batch), None
         with torch.inference_mode():
-            arr = torch.from_numpy(batch).to(self.device)
-            return self._decode(arr), arr
+            with span("serve.upload"):
+                arr = torch.from_numpy(batch).to(self.device)
+            with span("serve.decode"):
+                return self._decode(arr), arr
+
+    def _bucket(self, rows: int) -> int:
+        """The smallest bucket that holds ``rows``."""
+        return next(b for b in self.bucket_sizes if b >= rows)
 
     def _run_images(self, images: List[np.ndarray]) -> List[str]:
         """Synchronous decode of any number of images (warmup /
@@ -682,8 +731,10 @@ class CaptionService:
         error, tokens = "", None
         try:
             with torch.inference_mode():
-                arr = torch.from_numpy(batch[rows]).to(self.device)
-                tokens = self._decode(arr)
+                with span("serve.upload"):
+                    arr = torch.from_numpy(batch[rows]).to(self.device)
+                with span("serve.decode"):
+                    tokens = self._decode(arr)
                 if self.reranker is not None:
                     tokens = self.reranker(arr, tokens)
                 if isinstance(tokens, torch.Tensor):

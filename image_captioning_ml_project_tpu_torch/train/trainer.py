@@ -110,6 +110,7 @@ from ..parallel.sharding import (gather_params, infer_param_shardings,
 from ..utils.amp import cast_for_compute, castable_parameters
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logging import MetricLogger, setup_logging
+from ..utils.profiling import span
 from ..utils.rng import fold_in, generator
 from .losses import CombinedLoss, global_count, shifted_cross_entropy
 from .optim import create_optimizer, global_norm, sum_of_squares
@@ -483,21 +484,27 @@ class CaptioningTrainer:
         """One CE step on a batch (uint8 images [B, H, W, 3], caption ids
         and their mask [B, T], host arrays or tensors). Returns the losses,
         ``learning_rate`` and ``grad_norm`` as device scalars."""
-        images = self._prepare_inputs(self._to_device(images))
-        captions = self._to_device(captions)
-        caption_mask = self._to_device(caption_mask)
-        self.model.train()
-        self.loss_mod.train()
-        drop_gen, itm_gen = self._step_generators(self.step)
-        self._zero_grads()
-        with torch.enable_grad(), dropout_generator(drop_gen), \
-                data_parallel(self._data_group):
-            losses = self._forward_loss(images, captions, caption_mask,
-                                        itm_gen)
-            losses["total_loss"].backward()
-        metrics = self._data_sum({k: v.detach() for k, v in losses.items()})
-        metrics.update(self._apply_gradients())
-        return metrics
+        with span("train.step"):
+            with span("train.inputs"):
+                images = self._prepare_inputs(self._to_device(images))
+                captions = self._to_device(captions)
+                caption_mask = self._to_device(caption_mask)
+            self.model.train()
+            self.loss_mod.train()
+            drop_gen, itm_gen = self._step_generators(self.step)
+            self._zero_grads()
+            with torch.enable_grad(), dropout_generator(drop_gen), \
+                    data_parallel(self._data_group):
+                with span("train.forward"):
+                    losses = self._forward_loss(images, captions,
+                                                caption_mask, itm_gen)
+                with span("train.backward"):
+                    losses["total_loss"].backward()
+            metrics = self._data_sum({k: v.detach()
+                                      for k, v in losses.items()})
+            with span("train.optimizer"):
+                metrics.update(self._apply_gradients())
+            return metrics
 
     def _zero_grads(self) -> None:
         for p in self._named_params().values():

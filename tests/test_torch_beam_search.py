@@ -35,6 +35,7 @@ from image_captioning_ml_project_tpu_torch.inference.decoding import (
     _gather_state, _tile_state, beam_search)
 from image_captioning_ml_project_tpu_torch.models.captioning_model import (
     load_model)
+from image_captioning_ml_project_tpu_torch.utils import profiling
 from torch_port_helpers import (IMAGE_SIZE, both_models, images_uint8,
                                 jax_images)
 
@@ -91,6 +92,53 @@ def test_beam_search_matches_jax(seed, vocab):
     np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),
                                atol=1e-4, rtol=0)
     assert got.tokens.shape == (B, 5, cfg.inference.max_length)
+
+
+@pytest.mark.parametrize("recorder", [False, True],
+                         ids=["recorder_off", "recorder_on"])
+def test_beam_search_records_a_step_and_a_sync_a_step(recorder):
+    """Tokens identical to the JAX package's with the span recorder on
+    and off; on, one ``decode.step`` and one ``decode.stop_check`` under
+    it per step run, and under each check a ``decode.host_syncs`` record;
+    off, no record."""
+    cfg, _, variables, port = both_models(1, vocab=5000)
+    images = images_uint8(11, n=B)
+    want = _jax_decoder(5000, True)(variables, jax_images(images))
+    steps = 0
+
+    def step_fn(state, tokens):
+        nonlocal steps
+        steps += 1
+        return port.step(state, tokens)
+
+    mc, ic = cfg.model, cfg.inference
+    profiling.records()
+    if recorder:
+        profiling.enable()
+    try:
+        with torch.inference_mode():
+            state = port.init_cache(torch.from_numpy(images), ic.max_length)
+            got = beam_search(step_fn, state, B, ic.beam_size,
+                              mc.bos_token_id, mc.eos_token_id,
+                              mc.pad_token_id, ic.max_length,
+                              length_penalty=ic.length_penalty,
+                              min_length=ic.min_length, return_all=True)
+    finally:
+        profiling.disable()
+    recs = profiling.records()
+    np.testing.assert_array_equal(got.tokens.numpy(),
+                                  np.asarray(want.tokens))
+    assert steps > 0
+    if not recorder:
+        assert recs == []
+        return
+    step_ids = {r.id for r in recs if r.name == "decode.step"}
+    checks = [r for r in recs if r.name == "decode.stop_check"]
+    syncs = [r for r in recs if r.name == "decode.host_syncs"]
+    assert len(step_ids) == len(checks) == steps
+    assert {r.parent for r in checks} == step_ids
+    assert sum(r.attrs["n"] for r in syncs) == steps
+    assert {r.parent for r in syncs} == {r.id for r in checks}
 
 
 def test_beam_search_without_hf_rules_matches_jax():
