@@ -12,7 +12,7 @@ prints no result line:
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; TF32 and bf16 reduced-precision GEMM reductions off for the
    comparisons;
-2. build: compiles the eight ``csrc/*.cu`` libraries with nvcc from the
+2. build: compiles the nine ``csrc/*.cu`` libraries with nvcc from the
    checkout, one process each, all started together, and prints ptxas's
    register and spill lines (``sdpa`` must not spill);
 3. kernels: each of the eight kernels against its plain PyTorch version
@@ -44,7 +44,15 @@ prints no result line:
    diverse beam's 3 groups of 2); ``--time-tree DIR`` runs
    only those sweeps, on the package of another tree, so that two trees
    compare inside one run); then the beam attention's ancestry error word
-   must be clear. Before them, the Dense
+   must be clear. Then the LayerNorm op (``csrc/layer_norm.cu``, no TPU
+   counterpart: every ``LayerNorm`` module runs it, in training too) at
+   the CE step's, the ViT encode's and the Transformer decode step's
+   shapes in bf16, forward and backward held against its plain versions,
+   then timed: the forward without a gradient, the backward, and forward
+   and backward together, beside the bound, the plain version's time and ``F.layer_norm``'s
+   (``library_ms``: the yardstick, never called by the port), and the
+   CE step's 51 norms forward and backward, plain against the op
+   (:func:`sweep_layer_norm`). Before them, the Dense
    GEMM that the three layer kernels share (``csrc/common.cuh``: ``wgmma``
    fed by TMA) by itself against ``ops/numerics.dense`` and each epilogue,
    at every (M, N, K) the whole-stack kernels give it and at ragged ones,
@@ -110,13 +118,15 @@ prints no result line:
    bound on each device, about a learning rate a step, and within twice
    it of the other device); 20 bf16 steps at batch 64
    (lr 1e-4, warmup 2, dropout 0.1) on one batch, the loss falling, with
-   the median step time, images per second and peak memory; no kernel
-   may launch in any training step. Then ``_validate_epoch`` on the 64
-   validation images (val loss and CIDEr > 0, and #3, #4 and #5 launched),
-   the ``eval_state`` decode token-identical to ``load_model``'s on the
-   trainer's current weights, ``save_checkpoint`` restored bit-identical
-   by a new trainer, the rolling step checkpoint's two slots; last a
-   service on the seeded weights answers requests from 8 threads while
+   the median step time, images per second and peak memory; none of the
+   eight decode and encoder kernels may launch in any training step (the
+   LayerNorm op, which has a backward, runs there). Then
+   ``_validate_epoch`` on the 64 validation images (val loss and CIDEr >
+   0, and #3, #4 and #5 launched), the ``eval_state`` decode
+   token-identical to ``load_model``'s on the trainer's current weights,
+   ``save_checkpoint`` restored bit-identical by a new trainer, the
+   rolling step checkpoint's two slots; last a service on the seeded
+   weights answers requests from 8 threads while
    ``reload_checkpoint("best_model")`` swaps the trained weights in, every
    request answered, the captions after it equal to a fresh service's on
    the checkpoint. Then SCST: in f32 at batch 2 on the card and on the
@@ -276,9 +286,10 @@ prints no result line:
    bf16 encode of 64 images (finite features, no kernel launched); the
    conversion and load seconds and the times are printed with the card.
 
-The last seven lines are the train and eval phases' numbers (JSON), phase
+The last eight lines are the train and eval phases' numbers (JSON), phase
 9's (JSON), phase 10's (JSON), phase 11's (JSON), phase 12's (JSON), a
-JSON summary of the kernels and ``{"ok": true, "device": {...}}`` (the card's ``nvidia-smi``
+JSON summary of the kernels, the LayerNorm op's numbers (JSON, by shape)
+and ``{"ok": true, "device": {...}}`` (the card's ``nvidia-smi``
 line is printed first, in phase 1). Each kernel's entry holds its numbers
 and launches for the Transformer family where that family runs it, else
 for the flagship, else for the LSTM; the other families', where they have
@@ -294,6 +305,8 @@ in phase 10 per rank (the dp2 validation, the bf16 steps at dp2 and
 tp2) and in the legacy stack under ``parallel``, in phase 11 per rank
 under ``serving_mesh`` and in phase 12's bf16 decode under
 ``hf_layouts``; #6's numbers at phase 9's memory lengths are under ``family_shapes``.
+"No kernel" in the phases above means none of the eight decode and encoder
+kernels (:func:`counters`): the LayerNorm op runs wherever a model does.
 """
 
 import argparse
@@ -1256,6 +1269,119 @@ def sweep_additive(torch, dev, smi):
     return {"lstm": out}
 
 
+# the LayerNorm op's shapes on the main path (rows, width, eps): the CE
+# step's CLIP (512 images x 50 tokens) and GPT-2 (512 x 30) norms, the
+# ViT-B/16 encode of 512 images, the Transformer decode step (512 x 5
+# beams); and, by count, the norms of one CE step of the flagship
+LN_SHAPES = ((25600, 768, 1e-5), (15360, 768, 1e-5), (100864, 768, 1e-12),
+             (2560, 768, 1e-5))
+CE_STEP_NORMS = {(25600, 768): 25, (15360, 768): 25, (512, 768): 1}
+CE_STEP_LAYER_NORMS = sum(CE_STEP_NORMS.values())  # 51, at any batch
+
+
+def layer_norm_bytes(M, H, item, backward):
+    """Each input read once, each output written once: forward x and y
+    and the rows' statistics (8 bytes a row, with a gradient); backward
+    x, dy, the statistics and dx, gamma, dgamma and dbeta."""
+    if backward:
+        return 3 * M * H * item + 8 * M + 3 * H * 4
+    return 2 * M * H * item + 2 * H * 4
+
+
+def sweep_layer_norm(torch, dev, smi):
+    """The LayerNorm op (``ops/layer_norm.py``, no TPU counterpart) at the
+    main path's shapes in bf16: forward and backward held against the
+    plain versions, then the device and event times of the forward without
+    a gradient and of the backward (its kernel and the reduction), each
+    beside its bound, the plain version's time and ``F.layer_norm``'s (the
+    library yardstick only: the port never calls it), forward alone and
+    forward and backward. Last, the 51 norms of a CE step: the plain
+    version's device time forward and backward against the op's. Returns
+    the numbers by shape."""
+    from image_captioning_ml_project_tpu_torch.ops import layer_norm as ln
+    from image_captioning_ml_project_tpu_torch.ops.numerics import \
+        layer_norm as plain
+
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(2201)
+    out = {}
+    shapes = list(LN_SHAPES) + [(M, H, 1e-5) for M, H in CE_STEP_NORMS
+                                if (M, H, 1e-5) not in LN_SHAPES]
+    for M, H, eps in shapes:
+        x = (torch.randn(M, H, generator=g, device=dev) * 1.5 + 0.3).to(
+            torch.bfloat16)
+        w = 1 + 0.1 * torch.randn(H, generator=g, device=dev)
+        b = 0.1 * torch.randn(H, generator=g, device=dev)
+        dy = (torch.randn(M, H, generator=g, device=dev) * 1e-2).to(
+            torch.bfloat16)
+        y_ref, st_ref = ln.layer_norm_plain(x, w, b, eps)
+        dx_ref, dw_ref, db_ref = ln.layer_norm_backward_plain(dy, x, st_ref,
+                                                              w)
+        y, st = ln._forward(x, w, b, eps, stats=True)
+        dx, dw, db = ln.layer_norm_backward(dy, x, st, w)
+        with torch.inference_mode():
+            y_eval = ln.layer_norm(x, w, b, eps)
+        err = max(max_err(y, y_ref), max_err(y_eval, y_ref),
+                  max_err(dx, dx_ref))
+        check(max_err(y, y_ref) <= bf16_ulp(y_ref)
+              and max_err(y_eval, y_ref) <= bf16_ulp(y_ref)
+              and max_err(dx, dx_ref) <= bf16_ulp(dx_ref)
+              and max_err(dw, dw_ref) <= 1e-4 * float(dw_ref.abs().max())
+              and max_err(db, db_ref) <= 1e-4 * float(db_ref.abs().max()),
+              f"layer_norm [{M}x{H}] differs from its plain version")
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+
+        def fwd_bwd(fn):
+            return lambda: torch.autograd.grad(fn(*leaves, eps), leaves, dy)
+
+        entry = {}
+        for what, fn, nbytes in (
+                ("forward", lambda: ln.layer_norm(x, w, b, eps),
+                 layer_norm_bytes(M, H, 2, False)),
+                ("backward", lambda: ln.layer_norm_backward(dy, x, st, w),
+                 layer_norm_bytes(M, H, 2, True))):
+            with torch.inference_mode(what == "forward"):
+                ms, dev_ms = time_ms(torch, fn, device=True)
+            entry[what] = dict(ms=ms, device_ms=dev_ms,
+                               **bound(nbytes, {"f32": 8 * M * H}))
+        with torch.inference_mode():
+            entry["forward"]["plain_ms"] = time_ms(
+                torch, lambda: plain(x, w, b, eps), device=True)[1]
+            entry["forward"]["library_ms"] = time_ms(
+                torch, lambda: F.layer_norm(x, (H,), wb, bb, eps),
+                device=True)[1]
+        ms, dev_ms = time_ms(torch, fwd_bwd(ln.layer_norm), device=True)
+        entry["forward_backward"] = dict(
+            ms=ms, device_ms=dev_ms,
+            plain_ms=time_ms(torch, fwd_bwd(plain), device=True)[1],
+            library_ms=time_ms(torch, fwd_bwd(
+                lambda x_, w_, b_, e: F.layer_norm(
+                    x_, (H,), w_.to(x_.dtype), b_.to(x_.dtype), e)),
+                device=True)[1])
+        entry["max_abs_err"] = err
+        out[f"{M}x{H}"] = entry
+        f, bw, fb = (entry[k] for k in ("forward", "backward",
+                                        "forward_backward"))
+        print(f"layer_norm bf16 [{M}x{H}] eps {eps:g}: forward device "
+              f"{f['device_ms']:.4f} ms (event {f['ms']:.4f}, bound "
+              f"{f['bound_ms']:.4f}, plain {f['plain_ms']:.4f}, "
+              f"F.layer_norm {f['library_ms']:.4f}); backward "
+              f"{bw['device_ms']:.4f} (event {bw['ms']:.4f}, bound "
+              f"{bw['bound_ms']:.4f}); forward and backward "
+              f"{fb['device_ms']:.4f} (event {fb['ms']:.4f}, plain "
+              f"{fb['plain_ms']:.4f}, F.layer_norm {fb['library_ms']:.4f}) "
+              f"[{smi}]", flush=True)
+    step = {key: sum(n * out[f"{M}x{H}"]["forward_backward"][key]
+                     for (M, H), n in CE_STEP_NORMS.items())
+            for key in ("device_ms", "plain_ms", "library_ms")}
+    print(f"layer_norm: the CE step's 51 norms forward and backward, device "
+          f"ms: op {step['device_ms']:.3f}, plain {step['plain_ms']:.3f}, "
+          f"F.layer_norm {step['library_ms']:.3f} [{smi}]", flush=True)
+    out["ce_step_51_norms"] = step
+    return out
+
+
 SWITCHES = ("ICT_DECODE_STACK", "ICT_DECODE_FOLD", "ICT_ENCODER_FOLD")
 # the decode configurations: (name, the switches' values); the Transformer
 # decoder reads ICT_DECODE_FOLD alone
@@ -1604,6 +1730,27 @@ def counters():
         sdpa, additive_scores)}
 
 
+def layer_norm_counters():
+    """The LayerNorm op's two wrappers, forward and backward, whose
+    ``launches`` count its launches (kept apart from :func:`counters`: the
+    op runs wherever a model does, in training too)."""
+    from image_captioning_ml_project_tpu_torch.ops.layer_norm import (
+        layer_norm, layer_norm_backward)
+
+    return (layer_norm, layer_norm_backward)
+
+
+def zero_layer_norm():
+    for fn in layer_norm_counters():
+        fn.launches = 0
+
+
+def layer_norm_launches():
+    """[forward, backward] launches of the LayerNorm op since the last
+    :func:`zero_layer_norm`."""
+    return [fn.launches for fn in layer_norm_counters()]
+
+
 def serve(torch, dev, cfg, tree, smi, plan, scorer=None):
     """``CaptionService`` for ``cfg`` behind its HTTP front end; ``plan``
     lists (name, switches, rounds of 64, single requests), each driven with
@@ -1649,6 +1796,7 @@ def serve(torch, dev, cfg, tree, smi, plan, scorer=None):
         the switches set now, from image ``lo`` on."""
         for fn in kernels.values():
             fn.launches = 0
+        zero_layer_norm()
         steps0 = service.stats.decode_steps
         batches0 = service.stats.batches
         captions, batch_s, single_s = [], [], []
@@ -1666,10 +1814,12 @@ def serve(torch, dev, cfg, tree, smi, plan, scorer=None):
         run = {"captions": captions,
                "steps": service.stats.decode_steps - steps0,
                "batches": service.stats.batches - batches0,
-               "launches": {k: fn.launches for k, fn in kernels.items()}}
+               "launches": {k: fn.launches for k, fn in kernels.items()},
+               "layer_norm": layer_norm_launches()}
         print(f"[{name}] served {len(captions)} requests in {run['batches']}"
               f" batches; decode steps {run['steps']}; launches "
-              f"{run['launches']}", flush=True)
+              f"{run['launches']}; LayerNorm op launches (forward, backward)"
+              f" {run['layer_norm']}", flush=True)
         check(len(captions) == rounds * 64 + singles,
               f"[{name}] not every request was answered")
         check(all(isinstance(c, str) and c for c in captions),
@@ -1772,6 +1922,15 @@ def serve_all(torch, dev, smi, trees):
     expect(tf_split, {"cross_attention": tf_split["steps"] * layers,
                       "beam_decode_attention": tf_split["steps"] * layers,
                       "lse_and_block_max": tf_split["steps"]})
+    # the LayerNorm op: three post-LN norms a decoder layer a step (18 at
+    # six layers), and the ViT encode's 2 a layer and its last one a batch
+    vit = 2 * cfg.model.encoder.num_layers + 1
+    for run in (tf_fold, tf_split):
+        want = [3 * layers * run["steps"] + vit * run["batches"], 0]
+        check(run["layer_norm"] == want,
+              f"Transformer serving: LayerNorm op launches "
+              f"{run['layer_norm']}, expected {want} ({3 * layers} a "
+              f"decode step, {vit} a batch)")
 
     cfg, tree = trees["flagship"]
     layers = cfg.model.decoder.num_layers
@@ -2227,17 +2386,25 @@ def train_card_vs_cpu(torch, dev, cfg, tree, train_ds, tmp, kernels):
         steps[name] = []
         record_steps(torch, t, steps[name])
         _zero_launches(kernels)
+        zero_layer_norm()
         metrics[name] = [{k: float(v) for k, v in t.train_step(
             batch["image"], batch["caption_tokens"],
             batch["attention_mask"]).items()} for _ in range(2)]
         launched = _launches(kernels)
         check(not any(launched.values()),
               f"f32 train steps on the {name} launched kernels: {launched}")
+        # the LayerNorm op on the card, forward and backward, each norm
+        # of each step; the CPU runs the plain version
+        norms = 2 * CE_STEP_LAYER_NORMS if name == "card" else 0
+        check(layer_norm_launches() == [norms, norms],
+              f"f32 train steps on the {name}: LayerNorm op launches "
+              f"{layer_norm_launches()}, expected {[norms, norms]}")
         if name == "card":
             torch.cuda.synchronize()
             print(f"train f32 card: memory_allocated "
                   f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after "
-                  f"2 steps of batch 2", flush=True)
+                  f"2 steps of batch 2; LayerNorm op launches (forward, "
+                  f"backward) {layer_norm_launches()}", flush=True)
         trainers[name] = t
     worst = {}
     for step, (a, b) in enumerate(zip(metrics["card"], metrics["cpu"])):
@@ -2285,6 +2452,7 @@ def train_bf16(torch, dev, cfg, tree, train_ds, val_ds, tmp, smi, kernels):
     t = CaptioningTrainer(c, train_ds, val_ds, None, device=dev, params=tree)
     torch.cuda.reset_peak_memory_stats()
     _zero_launches(kernels)
+    zero_layer_norm()
     losses, times = [], []
     for _ in range(TRAIN_BF16_STEPS):
         torch.cuda.synchronize()
@@ -2296,6 +2464,10 @@ def train_bf16(torch, dev, cfg, tree, train_ds, val_ds, tmp, smi, kernels):
     launched = _launches(kernels)
     check(not any(launched.values()),
           f"bf16 train steps launched kernels: {launched}")
+    norms = [CE_STEP_LAYER_NORMS * TRAIN_BF16_STEPS] * 2
+    check(layer_norm_launches() == norms,
+          f"bf16 train steps: LayerNorm op launches "
+          f"{layer_norm_launches()}, expected {norms}")
     check(all(map(math.isfinite, losses)), f"bf16 losses {losses}")
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     check(last < first, f"bf16 loss did not fall: first five {first:.4f}, "
@@ -2305,13 +2477,15 @@ def train_bf16(torch, dev, cfg, tree, train_ds, val_ds, tmp, smi, kernels):
                "ms_per_step": ms, "images_per_s": B / ms * 1e3,
                "max_memory_allocated_gib":
                    torch.cuda.max_memory_allocated() / 2 ** 30,
-               "loss_first5": first, "loss_last5": last}
+               "loss_first5": first, "loss_last5": last,
+               "layer_norm_launches": layer_norm_launches()}
     print(f"train bf16 batch {B}: losses {[round(x, 4) for x in losses]}",
           flush=True)
     print(f"train bf16 batch {B}: {ms:.2f} ms/step (median of the last 15),"
           f" {B / ms * 1e3:.1f} images/s, max_memory_allocated "
-          f"{numbers['max_memory_allocated_gib']:.2f} GiB [{smi}]",
-          flush=True)
+          f"{numbers['max_memory_allocated_gib']:.2f} GiB; LayerNorm op "
+          f"launches (forward, backward) {numbers['layer_norm_launches']} "
+          f"over {TRAIN_BF16_STEPS} steps [{smi}]", flush=True)
     return t, numbers
 
 
@@ -5493,7 +5667,7 @@ def kernel_entry(name, route, source, replaces, numbers, launches):
 
 LIBRARIES = ("beam_decode_attention", "beam_decode_attention_qkv",
              "beam_decode_stack", "encoder_stack", "cross_attention", "sdpa",
-             "additive_scores", "lse")
+             "additive_scores", "lse", "layer_norm")
 
 
 def main():
@@ -5645,6 +5819,7 @@ def main():
                                               "bound_ms", "bound_by")}
                         for B, e in by_batch.items()}
         check_ancestry(dev, "kernels")
+        layer_norm_numbers = sweep_layer_norm(torch, dev, smi)
 
         phase("reference")
         trees = {}
@@ -5803,6 +5978,7 @@ def main():
     print(json.dumps({"serving_mesh": serving}))
     print(json.dumps({"hf_layouts": hf_layouts}))
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"layer_norm": layer_norm_numbers}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": kind, "count": count}}))
 

@@ -195,7 +195,8 @@ class CLIPVisionBackbone(nn.Module):
         x = torch.cat([cls, x], dim=1)
         x = x + self.position_embeddings.to(x.dtype)[None]
         x = self.pre_layernorm(x)
-        # the kernel has no backward: never in training or under
+        # the encoder kernel has no backward (the LayerNorms' op has one
+        # and runs in every mode): never in training or under
         # plain_routes. ``remat`` only matters to a backward, so a remat
         # model folds in eval mode too
         if encoder_fold_enabled() and kernels_on(self):

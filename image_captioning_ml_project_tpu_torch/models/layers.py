@@ -9,7 +9,7 @@ from typing import Iterator, Optional
 import torch
 from torch import nn
 
-from ..ops.numerics import layer_norm
+from ..ops.layer_norm import layer_norm
 
 _rng = threading.local()
 _routes = threading.local()
@@ -35,7 +35,8 @@ def dropout_generator(generator: Optional[torch.Generator]
 def plain_routes() -> Iterator[None]:
     """Run the forwards inside on plain torch ops in eval mode too: eval
     numerics (no dropout, BatchNorm on its running statistics) that
-    autograd can differentiate, since no kernel has a backward. The
+    autograd can differentiate, since the decode and encoder kernels have
+    no backward (the LayerNorm op, which has one, runs here too). The
     trainer's REINFORCE forward runs inside it, as the JAX trainer
     differentiates ``apply(..., train=False)``. Per thread."""
     before = getattr(_routes, "plain", False)
@@ -66,8 +67,10 @@ def data_group():
 
 
 def kernels_on(module: nn.Module) -> bool:
-    """Whether ``module``'s forward takes its kernel route: in eval mode,
-    outside :func:`plain_routes`. Decided before any kernel is called."""
+    """Whether ``module``'s forward takes its route through a kernel that
+    has no backward: in eval mode, outside :func:`plain_routes`. Decided
+    before any kernel is called. :class:`LayerNorm` does not ask: its op
+    has a backward and runs in every mode."""
     return not module.training and not getattr(_routes, "plain", False)
 
 
@@ -91,7 +94,9 @@ class LayerNorm(nn.Module):
     dtype (mean and mean of squares, variance clipped at 0), the scale
     folded into the rsqrt multiplier, f32 scale and bias, result cast back
     to the input dtype. Its parameters stay f32 under
-    :func:`..utils.amp.cast_float_params`, as flax keeps them."""
+    :func:`..utils.amp.cast_float_params`, as flax keeps them. Runs
+    :func:`..ops.layer_norm.layer_norm` in every mode: on the card its
+    kernels, forward and backward."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()

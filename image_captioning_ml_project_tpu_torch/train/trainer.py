@@ -15,9 +15,10 @@ mid-epoch step checkpoints, full resume):
   backpropagates to the masters and takes one optax-exact AdamW step
   (:mod:`.optim`). Dropout masks and ITM negatives come from generators
   seeded from ``config.seed`` and the step (``fold_in``), so a resumed run
-  draws what the uninterrupted one would have drawn. No kernel runs in a
-  training step: the kernels have no backward, and the model's training
-  mode routes around every one of them;
+  draws what the uninterrupted one would have drawn. Of the kernels only
+  the LayerNorm op (:mod:`..ops.layer_norm`) runs in a training step, its
+  forward and backward kernels on the card: the decode and encoder kernels
+  have no backward, and the model's training mode routes around them;
 * epochs from ``rl_start_epoch`` (with ``use_rl``) add an SCST pass after
   the CE pass. Each step (:meth:`scst_fused_step`) is three parts that can
   be called apart: :meth:`rollout_step` (a sampled and a greedy decode
@@ -28,7 +29,8 @@ mid-epoch step checkpoints, full resume):
   The REINFORCE forward is the model's eval numerics (no dropout,
   BatchNorm on its running statistics) with gradients on, as the JAX
   trainer differentiates ``apply(..., train=False)``: it runs inside
-  :func:`..models.layers.plain_routes`, so no kernel is entered. The
+  :func:`..models.layers.plain_routes`, so of the kernels only the
+  LayerNorm op, which has a backward, is entered. The
   rollouts draw from a generator keyed on the step (stream 2 beside
   dropout's 0 and ITM's 1), so a resumed run samples what the
   uninterrupted one would have. With another reward than CIDEr, or
@@ -852,7 +854,7 @@ class CaptioningTrainer:
         """``rl_weight * -sum(adv * logp(sampled) * mask) / max(sum(mask),
         1)`` over positions 1.., the sampler's mask marking the sampled
         tokens (EOS included), on the model's eval numerics with gradients
-        on (plain routes: no kernel)."""
+        on (plain routes: of the kernels only the LayerNorm op's)."""
         self.model.eval()
         try:
             with torch.enable_grad(), plain_routes():

@@ -1,7 +1,9 @@
-"""Every kernel wrapper of the port is inference only: none has a backward
-(the JAX package's Pallas kernels have no VJP either). Each raises before
-it dispatches when autograd would need a gradient through it, on any
-device, and runs under ``torch.no_grad()``."""
+"""Every kernel wrapper of the port that stands for a Pallas kernel is
+inference only: none has a backward (the JAX package's Pallas kernels have
+no VJP either). Each raises before it dispatches when autograd would need
+a gradient through it, on any device, and runs under ``torch.no_grad()``.
+The LayerNorm op (ops/layer_norm.py) has its own backward
+(tests/test_torch_layer_norm.py)."""
 
 import pytest
 import torch

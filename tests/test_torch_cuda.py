@@ -1174,3 +1174,141 @@ def test_ngram_hashes_on_the_card_equal_the_host_hash(dev):
             host = ngram_hashes_np(row.astype(np.uint32), n)
             np.testing.assert_array_equal(
                 hashes[:len(host)].astype(np.uint32), host)
+
+
+# -- the LayerNorm op (forward and backward kernels) ------------------------
+
+# the main path's shapes (rows, width, eps): CLIP's CE step (512 x 50
+# tokens), GPT-2's (512 x 30), the ViT-B/16 encode at 512 images (eps
+# 1e-12), the Transformer decode step (512 x 5 beams); Swin-B's widths and
+# its patch merging's; one width that is no whole number of 16-byte chunks
+LN_SHAPES = [(25600, 768, 1e-5), (15360, 768, 1e-5), (100864, 768, 1e-12),
+             (2560, 768, 1e-5), (3136, 128, 1e-5), (784, 256, 1e-5),
+             (196, 512, 1e-5), (49, 1024, 1e-5), (784, 512, 1e-5),
+             (196, 1024, 1e-5), (49, 2048, 1e-5), (49, 4096, 1e-5),
+             (333, 129, 1e-5)]
+
+
+def _ln_inputs(rows, H, dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, H, generator=g) * 1.5 + 0.3
+    w = 1 + 0.1 * torch.randn(H, generator=g)
+    b = 0.1 * torch.randn(H, generator=g)
+    dy = torch.randn(rows, H, generator=g) * 1e-2
+    return (x.to(dev, dtype), w.to(dev), b.to(dev), dy.to(dev, dtype))
+
+
+def _within(got, want, dtype, f32_rel):
+    """float32: within ``f32_rel`` of the largest entry; bfloat16: within
+    one bf16 ulp of it (each side rounds the same f32 value once)."""
+    tol = (f32_rel * float(want.abs().max()) if dtype == torch.float32
+           else _bf16_ulp(want.float()))
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,H,eps", LN_SHAPES)
+def test_layer_norm_kernels_match_plain(dev, rows, H, eps, dtype):
+    """y, dx, dgamma and dbeta of the op against its plain version on the
+    same card; the forward without a gradient (no statistics written) too."""
+    from image_captioning_ml_project_tpu_torch.ops import layer_norm as ln
+
+    x, w, b, dy = _ln_inputs(rows, H, dtype, dev, rows + H)
+    y_plain, stats_plain = ln.layer_norm_plain(x, w, b, eps)
+    dx_plain, dw_plain, db_plain = ln.layer_norm_backward_plain(
+        dy, x, stats_plain, w)
+    xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+    before = (ln.layer_norm.launches, ln.layer_norm_backward.launches)
+    y = ln.layer_norm(xr, wr, br, eps)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (ln.layer_norm.launches, ln.layer_norm_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    _within(y.detach(), y_plain, dtype, 1e-5)
+    _within(xr.grad, dx_plain, dtype, 1e-5)
+    torch.testing.assert_close(wr.grad, dw_plain, rtol=0,
+                               atol=1e-4 * float(dw_plain.abs().max()))
+    torch.testing.assert_close(br.grad, db_plain, rtol=0,
+                               atol=1e-4 * float(db_plain.abs().max()))
+    with torch.inference_mode():
+        y_eval = ln.layer_norm(x, w, b, eps)
+    _within(y_eval, y_plain, dtype, 1e-5)
+
+
+def test_layer_norm_backward_repeats_bit_for_bit(dev):
+    """No atomics: the same backward twice gives the same bits."""
+    from image_captioning_ml_project_tpu_torch.ops import layer_norm as ln
+
+    x, w, b, dy = _ln_inputs(25600, 768, torch.bfloat16, dev, 1)
+    _, stats = ln.layer_norm_plain(x, w, b, 1e-5)
+    first = ln.layer_norm_backward(dy, x, stats, w)
+    second = ln.layer_norm_backward(dy, x, stats, w)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+def test_layer_norm_kernels_take_views_and_constant_rows(dev):
+    """A strided view (``post_layernorm(x[:, 0])``): the gradients as the
+    plain version's, on the view's base only; constant rows: the mean,
+    rstd near eps's on whichever side of 0 the variance's rounding falls,
+    finite gradients."""
+    from image_captioning_ml_project_tpu_torch.ops import layer_norm as ln
+
+    x, w, b, dy = _ln_inputs(512 * 3, 768, torch.float32, dev, 2)
+    base = x.view(512, 3, 768).clone().requires_grad_()
+    y = ln.layer_norm(base[:, 1], w, b, 1e-12)
+    y.backward(dy[:512])
+    want_x = x.view(512, 3, 768)[:, 1].contiguous()
+    _, stats = ln.layer_norm_plain(want_x, w, b, 1e-12)
+    dx, _, _ = ln.layer_norm_backward_plain(dy[:512], want_x, stats, w)
+    _within(base.grad[:, 1], dx, torch.float32, 1e-5)
+    assert not base.grad[:, [0, 2]].any()
+    # constant rows: the variance is 0 but for the rounding of E[x^2] -
+    # mu^2 (a few f32 ulps of x^2, either side of 0: below, the clamp)
+    rows = torch.linspace(0.1, 3.0, 64, device=dev)[:, None].expand(
+        64, 768).contiguous().requires_grad_()
+    y, st = ln._forward(rows.detach(), w, b, 1e-5, stats=True)
+    torch.testing.assert_close(st[:, 0], rows[:, 0].detach(), rtol=1e-6,
+                               atol=0)
+    scaled = st[:, 1].abs() * 1e-5 ** 0.5
+    assert (scaled <= 1 + 1e-6).all() and (scaled >= 0.5).all()
+    ln.layer_norm(rows, w, b, 1e-5).backward(dy[:64])
+    assert torch.isfinite(rows.grad).all()
+
+
+def test_layer_norm_counters_over_a_ce_step_and_a_decode_step(dev,
+                                                              tmp_path):
+    """The flagship's bf16 CE step runs 51 LayerNorms through the op,
+    forward and backward (CLIP's pre, 2 x 12 and post; GPT-2's 2 x 12 and
+    ln_f); the Transformer decoder's step 18 (three post-LN norms a layer,
+    six layers)."""
+    from image_captioning_ml_project_tpu_torch.ops import layer_norm as ln
+    from image_captioning_ml_project_tpu_torch.train.trainer import (
+        CaptioningTrainer)
+
+    c = flagship_config()
+    c.model.dtype, c.training.use_amp, c.training.batch_size = (
+        "bfloat16", True, 2)
+    c.training.use_rl, c.training.warmup_steps = False, 0
+    c.output_dir = c.checkpoint_dir = str(tmp_path)
+    t = CaptioningTrainer(c, [None] * 2, [], None, device=dev)
+    g = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (2, 224, 224, 3), generator=g,
+                           dtype=torch.uint8)
+    caps = torch.randint(3, 1000, (2, 20), generator=g)
+    mask = torch.ones(2, 20, dtype=torch.int32)
+    ln.layer_norm.launches = ln.layer_norm_backward.launches = 0
+    t.train_step(images, caps, mask)
+    torch.cuda.synchronize()
+    assert (ln.layer_norm.launches, ln.layer_norm_backward.launches) == (
+        51, 51)
+    del t
+
+    c = transformer_config()
+    model = load_model(c, dev)
+    with torch.inference_mode():
+        state = model.init_cache(images.to(dev), c.inference.max_length)
+        tokens = torch.full((2,), c.model.bos_token_id, device=dev)
+        ln.layer_norm.launches = 0
+        model.step(state, tokens)
+    assert ln.layer_norm.launches == 18
